@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+In order: finds the card and prints its name and power limit; builds the
+CUDA kernels from `src/repro_torch/csrc/`; holds each kernel against its
+plain PyTorch version on the card at the main path's shapes (float32 and
+bfloat16), and two tilings of each against each other bit for bit; drives
+the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
+ensemble=4)).run(state, 10)` — in float32 and bfloat16 and the hdiff and
+vadvc plans, counting the kernel launches of each run and comparing with
+the unfused plan; times every kernel, its plain version and one main-path
+step with CUDA events; prints one JSON `kernels` line, then the result
+line. Any failure exits nonzero. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+GRID = (64, 256, 256)          # the paper's full domain (nz, ny, nx)
+ENSEMBLE = 4
+STEPS = 10
+REPS = 20                      # timed launches per median
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
+LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
+BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def say(*a) -> None:
+    print(*a, flush=True)
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median CUDA-event time of `fn()` over `reps` calls, after warm-up."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.core import tiling
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.dycore_fused import ops as fused_ops
+        from repro_torch.kernels.dycore_fused import ref as fused_ref
+        from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
+        from repro_torch.kernels.hdiff import ref as hdiff_ref
+        from repro_torch.kernels.hdiff.hdiff import hdiff_cuda
+        from repro_torch.kernels.vadvc import ref as vadvc_ref
+        from repro_torch.kernels.vadvc.vadvc import vadvc_cuda
+        from repro_torch.weather import dycore, fields
+        from repro_torch.weather.program import StencilProgram, compile
+    except ImportError as e:
+        raise SmokeFailure(f"the repro_torch package is not importable "
+                           f"from {ROOT / 'src'}: {e}") from None
+    dev = torch.device("cuda")
+
+    # ---- 1. the card ----------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # ---- 2. build -------------------------------------------------------
+    _build.load()
+    say(f"build: {_build.build_log['seconds']:.1f} s "
+        f"({'built' if _build.build_log['built'] else 'cached'}) "
+        f"-> {_build.build_log['path']}")
+    for src, rep in _build.build_log["ptxas"].items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {src}: {line.strip()}")
+
+    nz, ny, nx = GRID
+    nf = len(fields.PROGNOSTIC)
+    vol = nz * ny * nx
+
+    def make_state(dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        st = fields.initial_state(gen, GRID, ENSEMBLE, dtype=dtype,
+                                  device=dev)
+        extra = fields.initial_state(gen, GRID, ENSEMBLE, dtype=dtype,
+                                     device=dev)
+        st.stage_tens = extra.tens        # nonzero stage tendencies
+        return st
+
+    results = {}
+
+    def check_fused(label, fs, w, ts, ss, got_f, got_s, rtol):
+        """Hold one fused step (got_f, got_s) against its plain version,
+        computed in float32 from the same (possibly bf16) inputs and the
+        same summed `w` the kernel takes. A bf16 kernel computes in fp32
+        too and rounds each output once, so bf16 adds `rtol·|want|` to each
+        point's fp32 limit. Returns the largest absolute error."""
+        want_f, want_s = fused_ref.fused_step_ref_summed(
+            fs.float(), w.float().unsqueeze(-4), ts.float(), ss.float())
+        f2 = fs.float() + fused_ref.DEFAULT_DT * want_s
+        fragile = fused_ref.limiter_fragile_mask(f2)
+        flip = fused_ref.limiter_flip_bound(f2)
+        df = (got_f.float() - want_f).abs()
+        ds = (got_s.float() - want_s).abs()
+        # Field: 1e-5 where no limiter branch is fragile; where one is, a
+        # flip between the two operation orders may also keep or drop that
+        # flux term, which moves the point by up to `flip`.
+        xf = df - rtol * want_f.abs() - flip
+        xs = ds - rtol * want_s.abs()
+        field, stage = float(xf.max()), float(xs.max())
+        # The stage is vadvc's output, in the Pallas kernel's operation
+        # order on one side and the jnp oracle's on the other: vadvc's
+        # tolerance applies to it.
+        say(f"{label}: stage err {float(ds.max()):.3g} (atol 2e-4 + "
+            f"{rtol:.3g}|want|, excess {stage:.3g}); field err "
+            f"{float(df.max()):.3g} (atol 1e-5 + {rtol:.3g}|want| + flip "
+            f"bound, excess {field:.3g}), "
+            f"{float(torch.where(fragile, 0.0, df).max()):.3g} "
+            f"off the {int(fragile.sum())} fragile points, largest flip "
+            f"bound {float(flip.max()):.3g}")
+        require(stage <= 2e-4 and field <= 1e-5,
+                f"{label}: the fused step disagrees with its plain version")
+        return max(float(df.max()), float(ds.max()))
+
+    # ---- 3. each kernel against its plain version on the card ----------
+    # White noise at the main path's shapes, scaled as the JAX package's
+    # kernel tests scale it (on smooth fields most points fall inside the
+    # limiter-fragile mask, which would weaken the 1e-5 check). bf16 takes
+    # the same noise rounded to bf16, and the plain version runs in fp32
+    # from those bf16 values.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise = lambda scale, *shape: scale * torch.randn(
+        shape, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        isz = torch.tensor([], dtype=dtype).element_size()
+        rtol = 0.0 if dtype == torch.float32 else BF16_RTOL
+        fs = noise(1.0, ENSEMBLE, nf, *GRID).to(dtype)   # (E, nf, nz, ny, nx)
+        ts = noise(0.01, ENSEMBLE, nf, *GRID).to(dtype)
+        ss = noise(0.01, ENSEMBLE, nf, *GRID).to(dtype)
+        wcon = noise(0.15, ENSEMBLE, *GRID).to(dtype)
+        w = fused_ops.staggered_w(wcon)
+
+        # fused dycore, whole state
+        tile_a = tiling.dycore_tile(ny, nx)
+        tile_b = tiling.dycore_tile(ny, nx, ty=4, tx=64)
+        got_f, got_s = fused_dycore_cuda(fs, w, ts, ss, tile=tile_a)
+        torch.cuda.synchronize()
+        err = check_fused(f"fused {dn}", fs, w, ts, ss, got_f, got_s, rtol)
+        alt_f, alt_s = fused_dycore_cuda(fs, w, ts, ss, tile=tile_b)
+        require(torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s),
+                f"fused dycore: tiles {tile_a.ty}x{tile_a.tx} and "
+                f"{tile_b.ty}x{tile_b.tx} differ")
+        ms = time_ms(lambda: fused_dycore_cuda(fs, w, ts, ss, tile=tile_a))
+        wb = w.unsqueeze(1)
+        plain_ms = time_ms(lambda: fused_ref.fused_step_ref_summed(
+            fs, wb, ts, ss))
+        nbytes = (3 * ENSEMBLE * nf + ENSEMBLE + 2 * ENSEMBLE * nf) * vol * isz
+        b_ms, b_by = bound(nbytes, 61.0 * ENSEMBLE * nf * vol)
+        results[("dycore_fused", dn)] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        say(f"fused {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+        # The per-field variant: the same kernel at nf = 1, one field.
+        one = [a[:, :1].contiguous() for a in (fs, ts, ss)]
+        ms = time_ms(lambda: fused_dycore_cuda(one[0], w, one[1], one[2],
+                                               tile=tile_a))
+        plain_ms = time_ms(lambda: fused_ref.fused_step_ref_summed(
+            one[0], wb, one[1], one[2]))
+        b_ms, b_by = bound(6 * ENSEMBLE * vol * isz, 61.0 * ENSEMBLE * vol)
+        results[("dycore_fused_per_field", dn)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        say(f"fused per field {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by})")
+        del got_f, got_s, alt_f, alt_s, one, wb
+
+        # hdiff on the wrap-padded stack
+        src = fused_ref.pad_periodic(fs).reshape(-1, ny + 4, nx + 4)
+        tile_a = tiling.hdiff_tile(ny + 4, nx + 4)
+        tile_b = tiling.hdiff_tile(ny + 4, nx + 4, ty=16, tx=64)
+        got = hdiff_cuda(src, tile=tile_a)
+        torch.cuda.synchronize()
+        want = hdiff_ref.hdiff(src.float())
+        d = (got.float() - want).abs()
+        err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+        say(f"hdiff {dn} {tuple(src.shape)}: err {err:.3g}, excess "
+            f"{excess:.3g} (atol 1e-5 + {rtol:.3g}|want|)")
+        require(excess <= 1e-5, "hdiff kernel disagrees with its plain "
+                "version")
+        require(torch.equal(hdiff_cuda(src, tile=tile_b), got),
+                "hdiff: two tilings differ")
+        ms = time_ms(lambda: hdiff_cuda(src, tile=tile_a))
+        plain_ms = time_ms(lambda: hdiff_ref.hdiff(src))
+        planes = src.shape[0]
+        b_ms, b_by = bound(2 * src.numel() * isz,
+                           21.0 * planes * (ny * nx))
+        results[("hdiff", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by)
+        say(f"hdiff {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+        del src, got, want, d
+
+        # vadvc on the field-stacked state, each member's wcon shared by
+        # its fields, as the vadvc plan's whole-state step calls it
+        wconp = torch.cat([wcon, wcon[..., :1]], dim=-1)
+        tile_a = tiling.vadvc_tile(ny, nx)
+        tile_b = tiling.vadvc_tile(ny, nx, tj=4, ti=64)
+        got = vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a)
+        torch.cuda.synchronize()
+        want = vadvc_ref.vadvc(fs.float(), wconp.float().unsqueeze(1),
+                               fs.float(), ts.float(), ss.float())
+        d = (got.float() - want).abs()
+        err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+        say(f"vadvc {dn} {tuple(fs.shape)}: err {err:.3g}, excess "
+            f"{excess:.3g} (atol 2e-4 + {rtol:.3g}|want|)")
+        require(excess <= 2e-4, "vadvc kernel disagrees with its plain "
+                "version")
+        require(torch.equal(vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_b),
+                            got), "vadvc: two tilings differ")
+        ms = time_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a))
+        wpb = wconp.unsqueeze(1)
+        plain_ms = time_ms(lambda: vadvc_ref.vadvc(fs, wpb, fs, ts, ss))
+        # three fields read (u_pos is u_stage), one written, and each
+        # member's staggered wcon read once
+        nbytes = (4 * fs.numel() + wconp.numel()) * isz
+        b_ms, b_by = bound(nbytes, 38.0 * fs.numel())
+        results[("vadvc", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by)
+        say(f"vadvc {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+        del wconp, wpb, got, want, d, fs, ts, ss, wcon, w
+        torch.cuda.empty_cache()
+
+    # ---- 4. the main path and the per-kernel plans ----------------------
+    def energy(st):
+        return float(sum(float(f.float().square().sum())
+                         for f in st.fields.values()))
+
+    def stacked(st, part):
+        return dycore.stack_state(getattr(st, part))
+
+    main_launches = {}
+    for dtype in ("float32", "bfloat16"):
+        st = make_state(dtype, seed=2)
+        rtol = 0.0 if dtype == "float32" else BF16_RTOL
+        prog = StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                              dtype=dtype)
+        plan = compile(prog)
+        require(plan.variant == "whole_state" and plan.k_steps == 1,
+                f"main path resolved to {plan.variant}/k={plan.k_steps}")
+        _build.reset_launches()
+        out = plan.run(st, STEPS)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        expect = STEPS * plan.pallas_calls_per_round
+        say(f"main path {dtype}: launches {counts} (expect dycore_fused = "
+            f"{expect})")
+        require(counts == {"hdiff": 0, "vadvc": 0, "dycore_fused": expect},
+                "the main path did not run exactly one fused launch per "
+                "step")
+        if dtype == "float32":
+            main_launches["dycore_fused"] = counts["dycore_fused"]
+        for n in out.fields:
+            require(tuple(out.fields[n].shape) == (ENSEMBLE,) + GRID,
+                    f"field {n} has shape {tuple(out.fields[n].shape)}")
+            require(bool(torch.isfinite(out.fields[n]).all()
+                         and torch.isfinite(out.stage_tens[n]).all()),
+                    f"field {n} is not finite after {STEPS} steps")
+        # Every step against the plain version from the same input, so a
+        # flipped limiter branch cannot spread into the next comparison;
+        # then `run` must equal the repeated steps bit for bit.
+        cur = st
+        for i in range(STEPS):
+            nxt = plan.step(cur)
+            check_fused(f"main path {dtype} step {i + 1}",
+                        stacked(cur, "fields"),
+                        fused_ops.staggered_w(cur.wcon), stacked(cur, "tens"),
+                        stacked(cur, "stage_tens"), stacked(nxt, "fields"),
+                        stacked(nxt, "stage_tens"), rtol)
+            cur = nxt
+        require(all(torch.equal(cur.fields[n], out.fields[n])
+                    and torch.equal(cur.stage_tens[n], out.stage_tens[n])
+                    for n in out.fields),
+                f"main path {dtype}: run({STEPS}) differs from {STEPS} "
+                f"steps")
+        oracle = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                        dtype=dtype, variant="unfused")
+                         ).run(st, STEPS)
+        err = max(max_err(out.fields[n], oracle.fields[n])
+                  for n in out.fields)
+        err_s = max(max_err(out.stage_tens[n], oracle.stage_tens[n])
+                    for n in out.fields)
+        # Limiter branches that flip between the fused and unfused orders
+        # (measure-zero points, `limiter_fragile_mask`) move a point by at
+        # most LOOSE per step and diffuse afterwards; in bf16 the unfused
+        # plan also rounds the stage and the updated field to bf16 inside
+        # each step where the kernel keeps fp32, hence 0.25, the JAX
+        # package's bf16 tolerance.
+        tol = LOOSE if dtype == "float32" else 0.25
+        say(f"main path {dtype}: {STEPS} steps vs unfused plan: field err "
+            f"{err:.3g}, stage err {err_s:.3g} (atol {tol}); energy "
+            f"{energy(st):.6g} -> {energy(out):.6g}")
+        require(err <= tol and err_s <= tol,
+                "the main path disagrees with the unfused plan")
+        step_ms = time_ms(lambda: plan.step(st))
+        results[("main_step", dtype)] = dict(ms=step_ms)
+        say(f"main path {dtype}: one step {step_ms:.4f} ms")
+        del st, out, oracle, cur, nxt
+        torch.cuda.empty_cache()
+
+    # Every kernelled variant of every op, one step each from one state:
+    # launches counted, per_field bit-equal to whole_state, whole_state
+    # held against the plain version.
+    st = make_state("float32", seed=3)
+    for op, kernel in (("dycore", "dycore_fused"), ("hdiff", "hdiff"),
+                       ("vadvc", "vadvc")):
+        outs = {}
+        for variant in ("whole_state", "per_field"):
+            plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                          op=op, variant=variant))
+            _build.reset_launches()
+            outs[variant] = plan.run(st, 1)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            say(f"op={op} {variant}: launches {counts} (expect {kernel} = "
+                f"{plan.pallas_calls_per_round})")
+            require(counts[kernel] == plan.pallas_calls_per_round
+                    == sum(counts.values()),
+                    f"op={op} {variant} plan launched {counts}")
+            if op != "dycore" and variant == "whole_state":
+                main_launches[kernel] = counts[kernel]
+        ws, pf = outs["whole_state"], outs["per_field"]
+        require(all(torch.equal(ws.fields[n], pf.fields[n])
+                    and torch.equal(ws.stage_tens[n], pf.stage_tens[n])
+                    for n in ws.fields),
+                f"op={op}: per_field differs from whole_state")
+        if op == "dycore":
+            check_fused("op=dycore whole_state", stacked(st, "fields"),
+                        fused_ops.staggered_w(st.wcon), stacked(st, "tens"),
+                        stacked(st, "stage_tens"), stacked(ws, "fields"),
+                        stacked(ws, "stage_tens"), 0.0)
+            continue
+        tol = {"hdiff": 1e-5, "vadvc": 2e-4}[op]
+        oracle = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                        op=op, variant="unfused")).run(st, 1)
+        err = max(max_err(getattr(ws, part)[n], getattr(oracle, part)[n])
+                  for part in ("fields", "stage_tens") for n in ws.fields)
+        say(f"op={op}: per_field == whole_state bit for bit; vs unfused "
+            f"plan err {err:.3g} (atol {tol})")
+        require(err <= tol, f"op={op} plan disagrees with its unfused plan")
+        if op == "hdiff":
+            e0, e1 = energy(st), energy(ws)
+            say(f"op=hdiff: energy {e0:.6g} -> {e1:.6g}")
+            require(e1 < e0, "hdiff did not dissipate")
+    del st, outs, ws, pf, oracle
+
+    # ---- 5./6. the kernels line -----------------------------------------
+    sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
+                                "src/repro/kernels/dycore_fused/fused.py:276"),
+               "hdiff": ("src/repro_torch/csrc/hdiff.cu",
+                         "src/repro/kernels/hdiff/hdiff.py:171"),
+               "vadvc": ("src/repro_torch/csrc/vadvc.cu",
+                         "src/repro/kernels/vadvc/vadvc.py:111")}
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        r = results[(name, "float32")]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": main_launches[name],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    say("library_ms: no single PyTorch call computes the fused dycore step, "
+        "the limited compound hdiff or the vadvc Thomas sweep")
+    for (name, dn), r in sorted(results.items()):
+        say(f"time {name} {dn}: " + json.dumps(r))
+    say(card)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -1,0 +1,159 @@
+"""Build and load the CUDA kernels of `src/repro_torch/csrc/`.
+
+At first use, `nvcc` compiles each `.cu` source to an object for sm_90a, all
+sources at once in parallel processes, and links the objects into one shared
+library with a plain C interface, which `ctypes` loads. The build goes to
+`build/repro_torch_kernels/<hash of sources and flags>/` under the repository
+root and is reused while the sources stay the same. Nothing here runs when the
+module is imported.
+
+Every kernel wrapper counts its launches in `LAUNCHES` (one per launch, and
+nowhere else), so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
+    "nero_vadvc": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                   _I, _I, _P),
+    "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                          _F, _F, _I, _I, _I, _P),
+}
+
+LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path) -> Dict[str, str]:
+    """Compile every source in parallel, then link; returns ptxas reports."""
+    nvcc = _nvcc()
+    tmp = out_dir / f"tmp-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in SOURCES:
+        obj = tmp / (Path(src).stem + ".o")
+        procs[src] = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    reports, failed = {}, []
+    for src, p in procs.items():
+        out, _ = p.communicate()
+        reports[src] = out
+        if p.returncode:
+            failed.append(f"{src} (exit {p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    lib = tmp / "libnero_kernels.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(lib),
+         *(str(tmp / (Path(s).stem + ".o")) for s in SOURCES)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(lib, out_dir / "libnero_kernels.so")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return reports
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use (once per process)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out_dir = BUILD_ROOT / _digest()
+    so = out_dir / "libnero_kernels.so"
+    t0 = time.perf_counter()
+    reports: Dict[str, str] = {}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # one build at a time per directory
+        try:
+            if not so.exists():
+                reports = _compile(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    build_log.update(seconds=time.perf_counter() - t0, path=str(so),
+                     built=bool(reports), ptxas=reports)
+    _lib = lib
+    return lib
+
+
+def check_operand(kernel: str, name: str, t, shape, dtype) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `shape` and `dtype`
+    (float32 or bfloat16)."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} dtype {t.dtype}; expected "
+                         f"{dtype} (float32 or bfloat16)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)}; "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on `t`'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a nonzero cudaError_t."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")

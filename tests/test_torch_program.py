@@ -1,0 +1,296 @@
+"""The port's single-device plans against the JAX package's, end to end.
+
+For `dycore`, `hdiff` and `vadvc` under every ported variant, in float32
+and bfloat16, `repro.weather.program.compile(...).step` and the port's
+`compile(..., device="cpu").step` advance the same state; the two are
+compared step by step for 3 steps, each step from the same input (the
+reference's output of the step before), so a flipped limiter branch in one
+step cannot spread into the next comparison. Tolerances are the
+reference's own per-kernel ones. Also: programs round-trip as JSON across
+the packages, `report()` keeps the structural keys, the CPU launches no
+kernel, and the options not yet ported raise `NotImplementedError`.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.kernels.dycore_fused import ref as jref
+from repro.weather import fields as jfields
+from repro.weather.program import StencilProgram as JProgram
+from repro.weather.program import compile as jcompile
+from repro_torch.kernels import _build
+from repro_torch.weather import convert, dycore, fields
+from repro_torch.weather.program import StencilProgram, compile
+
+GRID, E = (4, 16, 16), 2
+STEPS = 3
+LOOSE = 0.05   # |coeff * flux| scale at a flipped limiter branch
+PLANS = [("dycore", "whole_state"), ("dycore", "per_field"),
+         ("dycore", "unfused"), ("hdiff", "whole_state"),
+         ("hdiff", "per_field"), ("hdiff", "unfused"),
+         ("vadvc", "whole_state"), ("vadvc", "per_field"),
+         ("vadvc", "unfused")]
+TOL = {"dycore": 1e-5, "hdiff": 1e-5, "vadvc": 2e-4}
+STRUCTURAL = ("op", "variant", "k_steps", "local_grid", "compute_grid",
+              "pallas_calls_per_round", "collectives_per_round", "footprint")
+
+
+def _np(a):
+    return np.asarray(a)
+
+
+def _to_port(js, device="cpu"):
+    d = lambda m: {k: _np(v) for k, v in m.items()}
+    return convert.state_from_numpy(d(js.fields), _np(js.wcon), d(js.tens),
+                                    d(js.stage_tens), device=device)
+
+
+def _as_f32(a):
+    """A port array from `state_to_numpy` (bf16 as uint16 bits) as float32."""
+    return (a.view(jnp.bfloat16) if a.dtype == np.uint16 else a).astype(
+        np.float32)
+
+
+def _jax_state(dtype, seed=0):
+    st = jfields.initial_state(jax.random.PRNGKey(seed), GRID, ensemble=E,
+                               dtype=jnp.dtype(dtype))
+    # Nonzero stage tendencies from the first step on.
+    noise = jfields.initial_state(jax.random.PRNGKey(seed + 1), GRID,
+                                  ensemble=E, dtype=jnp.dtype(dtype))
+    return jfields.WeatherState(fields=st.fields, wcon=st.wcon, tens=st.tens,
+                                stage_tens=noise.tens)
+
+
+def _compare(op, dtype, want, got, inp):
+    fw, _, _, sw = want
+    fg, _, _, sg = got
+    for name in fw:
+        a, b = _as_f32(fg[name]), np.asarray(fw[name], np.float32)
+        s_a, s_b = _as_f32(sg[name]), np.asarray(sw[name], np.float32)
+        if dtype == "bfloat16":
+            tol = 0.25 if op == "dycore" else 0.15
+            np.testing.assert_allclose(a, b, atol=tol, err_msg=name)
+            np.testing.assert_allclose(s_a, s_b, atol=tol, err_msg=name)
+            continue
+        np.testing.assert_allclose(s_a, s_b, atol=TOL[op], err_msg=name)
+        err = np.abs(a - b)
+        if op == "dycore":
+            f2 = inp.fields[name] + jref.DEFAULT_DT * jnp.asarray(s_b)
+            fragile = np.asarray(jref.limiter_fragile_mask(f2))
+            assert err[~fragile].max(initial=0.0) <= TOL[op], name
+            assert err.max() <= LOOSE, name
+        else:
+            assert err.max() <= TOL[op], name
+
+
+@pytest.mark.parametrize("op,variant", PLANS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_steps_match_the_reference(op, variant, dtype):
+    kw = dict(grid_shape=GRID, ensemble=E, op=op, variant=variant,
+              dtype=dtype)
+    jplan = jcompile(JProgram(**kw))
+    plan = compile(StencilProgram(**kw), device="cpu")
+    assert plan.pallas_calls_per_round == jplan.pallas_calls_per_round
+    js = _jax_state(dtype)
+    for _ in range(STEPS):
+        want = jplan.step(js)
+        got = plan.step(_to_port(js))
+        assert set(got.fields) == set(want.fields)
+        jw = ({k: _np(v) for k, v in want.fields.items()}, None, None,
+              {k: _np(v) for k, v in want.stage_tens.items()})
+        _compare(op, dtype, jw, convert.state_to_numpy(got), js)
+        js = want
+
+
+def test_run_is_repeated_step():
+    js = _jax_state("float32")
+    plan = compile(StencilProgram(grid_shape=GRID, ensemble=E), device="cpu")
+    st = _to_port(js)
+    ran = plan.run(st, 2)
+    stepped = plan.step(plan.step(st))
+    for n in ran.fields:
+        assert torch.equal(ran.fields[n], stepped.fields[n])
+        assert torch.equal(ran.stage_tens[n], stepped.stage_tens[n])
+    assert plan.run(st, 0) is st
+    assert plan.round_plan(1) is plan
+    with pytest.raises(ValueError):
+        plan.run(st, -1)
+
+
+def test_cpu_plans_launch_no_kernel():
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              device="cpu")
+    _build.reset_launches()
+    for op in ("dycore", "hdiff", "vadvc"):
+        for variant in ("whole_state", "per_field"):
+            compile(StencilProgram(grid_shape=GRID, ensemble=E, op=op,
+                                   variant=variant), device="cpu").run(st, 2)
+    assert _build.LAUNCHES == {"hdiff": 0, "vadvc": 0, "dycore_fused": 0}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(op="dycore"), dict(op="hdiff", dtype="bfloat16", ensemble=3),
+    dict(op="vadvc", variant="per_field", fields=("u", "t")),
+    dict(op="dycore", variant="kstep", k_steps=2),
+    dict(op="dycore", exchange_dtype="bfloat16", hardware="power9"),
+])
+def test_program_json_round_trips_across_packages(kw):
+    jprog = JProgram(grid_shape=GRID, **kw)
+    prog = StencilProgram(grid_shape=GRID, **kw)
+    assert json.dumps(prog.to_json()) == json.dumps(jprog.to_json())
+    assert StencilProgram.from_json(
+        json.loads(json.dumps(jprog.to_json()))) == prog
+    assert JProgram.from_json(
+        json.loads(json.dumps(prog.to_json()))) == jprog
+
+
+@pytest.mark.parametrize("kw", [
+    dict(grid_shape=(4, 16)), dict(ensemble=0), dict(fields=()),
+    dict(boundary="open"), dict(halo=3), dict(variant="fancy"),
+    dict(k_steps=0), dict(op="vadvc", k_steps=2),
+    dict(variant="whole_state", k_steps=2), dict(variant="kstep", k_steps=1),
+    dict(op="nope"), dict(hardware="nope"),
+])
+def test_program_checks_match_the_reference(kw):
+    kw = {"grid_shape": GRID, **kw}
+    with pytest.raises(ValueError):
+        JProgram(**kw)
+    with pytest.raises(ValueError):
+        StencilProgram(**kw)
+
+
+@pytest.mark.parametrize("op,variant", PLANS)
+def test_report_structural_keys_match(op, variant):
+    kw = dict(grid_shape=GRID, ensemble=E, op=op, variant=variant)
+    want = jcompile(JProgram(**kw)).report()
+    got = compile(StencilProgram(**kw), device="cpu").report()
+    for key in STRUCTURAL:
+        assert got[key] == want[key], key
+    assert got["program"] == want["program"]
+    assert (got["tile"] is None) == (want["tile"] is None)
+    if got["tile"] is not None:
+        assert got["tile"]["ty"] >= 1
+    json.dumps(got)
+
+
+@pytest.mark.parametrize("call", [
+    lambda p: compile(p, mesh=object(), device="cpu"),
+    lambda p: compile(p.__class__(grid_shape=GRID, k_steps=2), device="cpu"),
+    lambda p: compile(p.__class__(grid_shape=GRID, variant="kstep"),
+                      device="cpu"),
+    lambda p: compile(p, tune="measure", device="cpu"),
+    lambda p: compile(p.__class__(grid_shape=GRID, hardware="tpu_v5e"),
+                      device="cpu"),
+    lambda p: compile(p, device="cpu").model_by_hardware(),
+    lambda p: StencilProgram.from_json({**p.to_json(), "stages": []}),
+])
+def test_unported_options_raise(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(StencilProgram(grid_shape=GRID))
+
+
+def test_plan_refuses_a_state_on_another_device_or_shape():
+    plan = compile(StencilProgram(grid_shape=GRID, ensemble=E), device="cpu")
+    st = fields.zeros_state(GRID, E, device="meta")
+    with pytest.raises(ValueError, match="compiled for cpu"):
+        plan.step(st)
+    with pytest.raises(ValueError, match="ensemble"):
+        plan.step(fields.zeros_state(GRID, E + 1, device="cpu"))
+    with pytest.raises(ValueError, match="dtype"):
+        plan.step(fields.zeros_state(GRID, E, dtype="bfloat16",
+                                     device="cpu"))
+
+
+def test_compile_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile(StencilProgram(grid_shape=GRID))
+
+
+def test_initial_state_recipe():
+    st = fields.initial_state(torch.Generator().manual_seed(3), GRID, E,
+                              dtype="bfloat16", device="cpu")
+    again = fields.initial_state(torch.Generator().manual_seed(3), GRID, E,
+                                 dtype=torch.bfloat16, device="cpu")
+    assert set(st.fields) == set(fields.PROGNOSTIC)
+    assert st.grid_shape == GRID and st.dtype == torch.bfloat16
+    for n in fields.PROGNOSTIC:
+        assert st.fields[n].shape == (E,) + GRID
+        assert torch.equal(st.fields[n], again.fields[n])
+        assert not torch.any(st.stage_tens[n])
+        assert st.tens[n].float().abs().max() < st.fields[n].float().abs(
+        ).max()
+    assert 0 < float(st.wcon.float().abs().max()) < 1.0
+
+
+def test_state_conversion_keeps_bf16_bits():
+    js = _jax_state("bfloat16")
+    back = convert.state_to_numpy(_to_port(js))
+    for name, arr in js.fields.items():
+        assert back[0][name].dtype == np.uint16
+        np.testing.assert_array_equal(back[0][name], _np(arr).view(np.uint16))
+    np.testing.assert_array_equal(back[1], _np(js.wcon).view(np.uint16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["dycore", "hdiff", "vadvc"])
+@pytest.mark.parametrize("variant", ["whole_state", "per_field"])
+def test_cuda_plan_matches_cpu_plan(op, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              device="cpu")
+    prog = StencilProgram(grid_shape=GRID, ensemble=E, op=op,
+                          variant=variant)
+    on_card = fields.WeatherState(
+        fields=fields.field_views(dycore.stack_state(st.fields).cuda(),
+                                  fields.PROGNOSTIC),
+        wcon=st.wcon.cuda(),
+        tens={k: v.cuda() for k, v in st.tens.items()},
+        stage_tens={k: v.cuda() for k, v in st.stage_tens.items()})
+    plan = compile(prog, device="cuda")
+    _build.reset_launches()
+    got = plan.run(on_card, 2)
+    kernel = {"dycore": "dycore_fused"}.get(op, op)
+    assert _build.LAUNCHES[kernel] == 2 * plan.pallas_calls_per_round
+    assert sum(_build.LAUNCHES.values()) == _build.LAUNCHES[kernel]
+    want = compile(prog, device="cpu").run(st, 2)
+    for n in want.fields:
+        assert (got.fields[n].cpu() - want.fields[n]).abs().max() <= LOOSE
+        assert (got.stage_tens[n].cpu() - want.stage_tens[n]).abs().max() \
+            <= 2e-4
+
+
+def test_stack_state_takes_stacked_states_without_a_copy():
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              device="cpu")
+    plan = compile(StencilProgram(grid_shape=GRID, ensemble=E), device="cpu")
+    nxt = plan.step(st)
+    for d in (st.fields, st.tens, st.stage_tens, nxt.stage_tens,
+              dycore.unstack_state(torch.randn((E, 4) + GRID)),
+              _to_port(_jax_state("float32")).fields):
+        stacked = dycore.stack_state(d)
+        assert stacked.is_contiguous()
+        assert stacked.data_ptr() == d["u"].data_ptr()
+        assert torch.equal(stacked, torch.stack(list(d.values()), dim=1))
+
+
+@pytest.mark.parametrize("names", [("v", "u", "t", "pp"), ("u", "t")])
+def test_stack_state_copies_what_is_not_one_stack(names):
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              device="cpu")
+    stacked = dycore.stack_state(st.fields, names)
+    if names == ("u", "t"):          # a subset: not consecutive planes
+        assert stacked.data_ptr() != st.fields["u"].data_ptr()
+    assert torch.equal(stacked,
+                       torch.stack([st.fields[n] for n in names], dim=1))
+    apart = {n: st.fields[n].clone() for n in fields.PROGNOSTIC}
+    assert torch.equal(dycore.stack_state(apart),
+                       dycore.stack_state(st.fields))
