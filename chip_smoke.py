@@ -6,13 +6,16 @@
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/`; holds each kernel against its
 plain PyTorch version on the card at the main path's shapes (float32 and
-bfloat16), and two tilings of each against each other bit for bit; drives
+bfloat16), and two tilings of each against each other bit for bit (the
+k-step kernels also against k launches of their one-step kernels); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
-ensemble=4)).run(state, 10)` — in float32 and bfloat16 and the hdiff and
-vadvc plans, counting the kernel launches of each run and comparing with
-the unfused plan; times every kernel, its plain version and one main-path
-step with CUDA events; prints one JSON `kernels` line, then the result
-line. Any failure exits nonzero. Imports nothing of JAX.
+ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
+plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
+a ragged tail) and the hadv_upwind plan, counting the kernel launches of
+each run and comparing with the whole-state or unfused plan; times every
+kernel, its plain version, one main-path step and one k-step round with
+CUDA events; prints one JSON `kernels` line, then the result line. Any
+failure exits nonzero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
 LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
 BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
+KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
+PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
 
 
 class SmokeFailure(Exception):
@@ -88,8 +93,13 @@ def main() -> int:
         from repro_torch.kernels.dycore_fused import ops as fused_ops
         from repro_torch.kernels.dycore_fused import ref as fused_ref
         from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
+        from repro_torch.kernels.dycore_fused.kstep import (
+            fused_dycore_kstep_cuda)
+        from repro_torch.kernels.hadv import ref as hadv_ref
+        from repro_torch.kernels.hadv.hadv import hadv_cuda
         from repro_torch.kernels.hdiff import ref as hdiff_ref
-        from repro_torch.kernels.hdiff.hdiff import hdiff_cuda
+        from repro_torch.kernels.hdiff.hdiff import (hdiff_cuda,
+                                                     hdiff_kstep_cuda)
         from repro_torch.kernels.vadvc import ref as vadvc_ref
         from repro_torch.kernels.vadvc.vadvc import vadvc_cuda
         from repro_torch.weather import dycore, fields
@@ -98,6 +108,8 @@ def main() -> int:
         raise SmokeFailure(f"the repro_torch package is not importable "
                            f"from {ROOT / 'src'}: {e}") from None
     dev = torch.device("cuda")
+    # cuDNN would take float32 convolutions in TF32 (the hadv yardstick).
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. the card ----------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -164,6 +176,65 @@ def main() -> int:
             f"bound {float(flip.max()):.3g}")
         require(stage <= 2e-4 and field <= 1e-5,
                 f"{label}: the fused step disagrees with its plain version")
+        return max(float(df.max()), float(ds.max()))
+
+    # Checks of the k-step slice are gathered, not raised one by one, so a
+    # run that fails still reports every comparison; any failure fails the
+    # run before the result line.
+    failures = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(msg)
+            say(f"CHECK FAILED: {msg}")
+
+    def spread(mask):
+        """`mask` (..., nz, ny, nx) one step on: the whole column of each
+        marked point (the Thomas solve couples the levels) and 2 points
+        around it in y and x (hdiff's reach), periodic."""
+        col = mask.any(dim=-3).float()
+        lead = col.shape[:-2]
+        col = torch.nn.functional.pad(col.reshape(-1, 1, ny, nx),
+                                      (2, 2, 2, 2), mode="circular")
+        col = torch.nn.functional.max_pool2d(col, 5, stride=1) > 0
+        return col.reshape(*lead, 1, ny, nx).expand(mask.shape)
+
+    def check_kstep_plain(label, fs, w, ts, ss, got_f, got_s, k, rtol):
+        """Hold one k-step round (got_f, got_s) against its plain version,
+        `fused_kstep_ref`, computed in float32 from the same (possibly
+        bf16) inputs and the same summed `w`. A limiter branch that flips
+        at one step moves its point, and in each later step reaches the
+        whole column and 2 points further in y and x. So stage 2e-4 and
+        field 1e-5 (plus rtol·|want|, one bf16 rounding) hold outside the
+        plain trajectory's fragile points of every step, each spread so;
+        every point holds LOOSE. Returns the largest absolute error."""
+        args = [a.float() for a in (fs, w.unsqueeze(-4), ts, ss)]
+        want_f, want_s = fused_ref.fused_kstep_ref(*args, k)
+        f, wb, t, s = args
+        near = torch.zeros(fs.shape, dtype=torch.bool, device=dev)
+        for _ in range(k):
+            f_prev = f
+            f, s = fused_ref.fused_step_ref_summed(f, wb, t, s)
+            near = spread(near) | fused_ref.limiter_fragile_mask(
+                f_prev + fused_ref.DEFAULT_DT * s)
+        require(torch.equal(f, want_f) and torch.equal(s, want_s),
+                f"{label}: the plain trajectory differs from fused_kstep_ref")
+        df = (got_f.float() - want_f).abs()
+        ds = (got_s.float() - want_s).abs()
+        xf = df - rtol * want_f.abs()
+        xs = ds - rtol * want_s.abs()
+        far = ~near
+        field, stage = float(xf[far].max()), float(xs[far].max())
+        every = max(float(xf.max()), float(xs.max()))
+        say(f"{label}: vs fused_kstep_ref: field err {float(df.max()):.3g}, "
+            f"stage err {float(ds.max()):.3g}; off the {int(near.sum())} "
+            f"points near a fragile branch (of {near.numel()}): field "
+            f"excess {field:.3g} (atol 1e-5 + {rtol:.3g}|want|), stage "
+            f"excess {stage:.3g} (atol 2e-4); every point: excess {every:.3g} "
+            f"(atol {LOOSE}), {int((xf > 1e-5).sum())} field points over "
+            f"1e-5")
+        check(field <= 1e-5 and stage <= 2e-4 and every <= LOOSE,
+              f"{label}: the k-step round disagrees with fused_kstep_ref")
         return max(float(df.max()), float(ds.max()))
 
     # ---- 3. each kernel against its plain version on the card ----------
@@ -272,7 +343,151 @@ def main() -> int:
                                       bound_ms=b_ms, bound_by=b_by)
         say(f"vadvc {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
-        del wconp, wpb, got, want, d, fs, ts, ss, wcon, w
+        del wconp, wpb, got, want, d
+
+        # dycore k-step rounds. float32: k chained whole-state launches,
+        # each held against its plain version from the same input, and the
+        # k-step round equal to the chain bit for bit. bf16: the kernel
+        # computes in fp32 and rounds once, so it is the float32 kernel on
+        # the same values upcast, rounded once, bit for bit. `wcon` is
+        # scaled down to 0.05 here: at 0.15 the Thomas diagonal
+        # 0.15 + 0.125·(w_k − w_{k+1}) crosses zero in some columns of this
+        # grid, the stage grows step by step there, and after one step the
+        # two operation orders part by 0.15 (H100 run), so a comparison past
+        # step 1 would test the conditioning, not the kernel. At 0.05 the
+        # diagonal stays above 0.08.
+        w = fused_ops.staggered_w(noise(0.05, ENSEMBLE, *GRID).to(dtype))
+        wb = w.unsqueeze(1)
+        for k in KSTEPS:
+            name = "dycore_kstep" + ("" if k == KSTEPS[0] else f"_k{k}")
+            tile_a = tiling.dycore_kstep_tile(ny, nx, k)
+            tile_b = tiling.dycore_kstep_tile(ny, nx, k, ty=4, tx=64)
+            got_f, got_s = fused_dycore_kstep_cuda(fs, w, ts, ss, k_steps=k,
+                                                   tile=tile_a)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                cf, cs = fs, ss
+                for i in range(k):
+                    nf_, ns_ = fused_dycore_cuda(cf, w, ts, cs)
+                    check_fused(f"dycore k={k} chain step {i + 1}", cf, w, ts,
+                                cs, nf_, ns_, 0.0)
+                    cf, cs = nf_, ns_
+                check(torch.equal(got_f, cf) and torch.equal(got_s, cs),
+                      f"dycore k-step k={k}: differs from {k} whole-state "
+                      f"launches")
+                del cf, cs, nf_, ns_
+            else:
+                up_f, up_s = fused_dycore_kstep_cuda(
+                    fs.float(), w.float(), ts.float(), ss.float(), k_steps=k,
+                    tile=tile_a)
+                check(torch.equal(got_f, up_f.to(dtype))
+                      and torch.equal(got_s, up_s.to(dtype)),
+                      f"dycore k-step k={k} bf16: differs from the float32 "
+                      f"kernel on the same values rounded once")
+                del up_f, up_s
+            err = check_kstep_plain(f"dycore k-step {dn} k={k}", fs, w, ts,
+                                    ss, got_f, got_s, k, rtol)
+            alt_f, alt_s = fused_dycore_kstep_cuda(fs, w, ts, ss, k_steps=k,
+                                                   tile=tile_b)
+            check(torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s),
+                  f"dycore k-step k={k}: tiles {tile_a.ty}x{tile_a.tx} and "
+                  f"{tile_b.ty}x{tile_b.tx} differ")
+            del got_f, got_s, alt_f, alt_s
+            ms = time_ms(lambda: fused_dycore_kstep_cuda(
+                fs, w, ts, ss, k_steps=k, tile=tile_a))
+            plain_ms = time_ms(lambda: fused_ref.fused_kstep_ref(
+                fs, wb, ts, ss, k))
+            # The round moves the bytes of one whole-state step and does the
+            # operations of k.
+            nbytes = (3 * ENSEMBLE * nf + ENSEMBLE + 2 * ENSEMBLE * nf) * vol \
+                * isz
+            b_ms, b_by = bound(nbytes, 61.0 * k * ENSEMBLE * nf * vol)
+            results[(name, dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+            say(f"dycore k-step {dn} k={k}: {ms:.4f} ms, {ms / k:.4f} ms a "
+                f"step (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}); tiles bitwise equal")
+            torch.cuda.empty_cache()
+        del wb
+
+        # hdiff k-step rounds on the 2k-wrap-padded stack the hdiff k-step
+        # plan gives the kernel: k launches of the one-step kernel, bit for
+        # bit (every step rounds through the storage dtype), and the plain
+        # version, which rounds so too.
+        for k in KSTEPS:
+            name = "hdiff_kstep" + ("" if k == KSTEPS[0] else f"_k{k}")
+            src = fused_ref.pad_periodic(fs, 2 * k).reshape(
+                -1, ny + 4 * k, nx + 4 * k)
+            planes, Y, X = src.shape
+            tile_a = tiling.hdiff_kstep_tile(Y, X, k)
+            tile_b = tiling.hdiff_kstep_tile(Y, X, k, ty=16, tx=64)
+            got = hdiff_kstep_cuda(src, k_steps=k, tile=tile_a)
+            chain = src
+            for _ in range(k):
+                chain = hdiff_cuda(chain)
+            torch.cuda.synchronize()
+            check(torch.equal(got, chain), f"hdiff k-step {dn} k={k}: "
+                  f"differs from {k} hdiff launches")
+            want = hdiff_ref.hdiff_kstep(src, k=k).float()
+            d = (got.float() - want).abs()
+            err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+            say(f"hdiff k-step {dn} k={k} {tuple(src.shape)}: err {err:.3g}, "
+                f"excess {excess:.3g} (atol 1e-5 + {rtol:.3g}|want|)")
+            check(excess <= 1e-5, f"hdiff k-step {dn} k={k}: disagrees with "
+                  f"its plain version")
+            check(torch.equal(hdiff_kstep_cuda(src, k_steps=k, tile=tile_b),
+                              got), f"hdiff k-step {dn} k={k}: two tilings "
+                  f"differ")
+            del got, chain, want, d
+            ms = time_ms(lambda: hdiff_kstep_cuda(src, k_steps=k,
+                                                  tile=tile_a))
+            plain_ms = time_ms(lambda: hdiff_ref.hdiff_kstep(src, k=k))
+            b_ms, b_by = bound(2 * src.numel() * isz,
+                               21.0 * k * planes * (Y - 4) * (X - 4))
+            results[(name, dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+            say(f"hdiff k-step {dn} k={k}: {ms:.4f} ms (plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+            del src
+
+        # hadv on the stack the hadv_upwind plan gives it: wrap-padded by 1
+        # on the low sides only.
+        src = torch.cat([fs[..., -1:, :], fs], dim=-2)
+        src = torch.cat([src[..., :, -1:], src], dim=-1).reshape(
+            -1, ny + 1, nx + 1)
+        planes, Y, X = src.shape
+        cfl = fused_ref.DEFAULT_COEFF          # the program's coeff is its cfl
+        tile_a = tiling.hadv_tile(Y, X)
+        tile_b = tiling.hadv_tile(Y, X, ty=4, tx=128)
+        got = hadv_cuda(src, cfl=cfl, tile=tile_a)
+        torch.cuda.synchronize()
+        want = hadv_ref.hadv_upwind(src.float(), cfl=cfl)
+        d = (got.float() - want).abs()
+        err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+        say(f"hadv {dn} {tuple(src.shape)}: err {err:.3g}, excess "
+            f"{excess:.3g} (atol 1e-5 + {rtol:.3g}|want|)")
+        check(excess <= 1e-5, f"hadv {dn}: disagrees with its plain version")
+        check(torch.equal(hadv_cuda(src, cfl=cfl, tile=tile_b), got),
+              f"hadv {dn}: two tilings differ")
+        del got, want, d
+        ms = time_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a))
+        plain_ms = time_ms(lambda: hadv_ref.hadv_upwind(src, cfl=cfl))
+        # One convolution computes the same interior (not the passed-through
+        # row 0 and column 0): the yardstick, never called by the port.
+        weight = torch.tensor([[0.0, cfl], [cfl, 1.0 - 2.0 * cfl]],
+                              dtype=dtype, device=dev).reshape(1, 1, 2, 2)
+        planes4 = src.reshape(planes, 1, Y, X)
+        library_ms = time_ms(lambda: torch.nn.functional.conv2d(planes4,
+                                                                weight))
+        b_ms, b_by = bound(2 * src.numel() * isz,
+                           5.0 * planes * (Y - 1) * (X - 1))
+        results[("hadv", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=library_ms)
+        say(f"hadv {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, conv2d "
+            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
+            f"bitwise equal")
+        del src, planes4, fs, ts, ss, wcon, w
         torch.cuda.empty_cache()
 
     # ---- 4. the main path and the per-kernel plans ----------------------
@@ -282,6 +497,10 @@ def main() -> int:
 
     def stacked(st, part):
         return dycore.stack_state(getattr(st, part))
+
+    def launches_of(**nonzero):
+        """A full launch count: the named kernels as given, every other 0."""
+        return {k: nonzero.get(k, 0) for k in _build.LAUNCHES}
 
     main_launches = {}
     for dtype in ("float32", "bfloat16"):
@@ -299,7 +518,7 @@ def main() -> int:
         expect = STEPS * plan.pallas_calls_per_round
         say(f"main path {dtype}: launches {counts} (expect dycore_fused = "
             f"{expect})")
-        require(counts == {"hdiff": 0, "vadvc": 0, "dycore_fused": expect},
+        require(counts == launches_of(dycore_fused=expect),
                 "the main path did not run exactly one fused launch per "
                 "step")
         if dtype == "float32":
@@ -398,13 +617,116 @@ def main() -> int:
             require(e1 < e0, "hdiff did not dissipate")
     del st, outs, ws, pf, oracle
 
+    # The k-step paths: `run(state, 5)` is full rounds and a ragged tail
+    # round. A dycore k=2 plan runs 2 k-step launches and a 1-step tail on
+    # the whole-state kernel; k=3 a 3-step round and a 2-step tail, both
+    # k-step launches; hdiff k=2 like dycore k=2. Each against the
+    # whole-state plan's run(state, 5): float32 bit for bit (the state stays
+    # in float32 between the steps of a round, as a float32 whole-state step
+    # stores it); hdiff also in bf16 (every in-kernel step rounds through
+    # bf16); a bf16 dycore round rounds once where whole-state steps round
+    # every step, so within 0.5, the JAX package's k-step bf16 tolerance.
+    # Then the hadv_upwind plan against its unfused plan.
+    def state_err(a, b):
+        return max(max_err(getattr(a, part)[n], getattr(b, part)[n])
+                   for part in ("fields", "stage_tens") for n in a.fields)
+
+    def state_equal(a, b):
+        return all(torch.equal(getattr(a, part)[n], getattr(b, part)[n])
+                   for part in ("fields", "stage_tens") for n in a.fields)
+
+    paths = (("dycore", 2, launches_of(dycore_kstep=2, dycore_fused=1)),
+             ("dycore", 3, launches_of(dycore_kstep=2)),
+             ("hdiff", 2, launches_of(hdiff_kstep=2, hdiff=1)))
+    for dtype in ("float32", "bfloat16"):
+        st = make_state(dtype, seed=4)
+        whole = {}
+        for op in ("dycore", "hdiff"):
+            plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                          op=op, dtype=dtype))
+            whole[op] = (plan, plan.run(st, PATH_STEPS))
+        for op, k, want_counts in paths:
+            plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                          op=op, dtype=dtype, variant="kstep",
+                                          k_steps=k))
+            require(plan.variant == "kstep" and plan.k_steps == k,
+                    f"op={op} k={k} resolved to {plan.variant}/"
+                    f"k={plan.k_steps}")
+            _build.reset_launches()
+            out = plan.run(st, PATH_STEPS)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            label = f"k-step path op={op} k={k} {dtype}"
+            say(f"{label}: run({PATH_STEPS}) launches {counts}")
+            check(counts == want_counts, f"{label}: launched {counts}, "
+                  f"expected {want_counts}")
+            if dtype == "float32" and k == KSTEPS[0]:
+                kernel = {"dycore": "dycore_kstep", "hdiff": "hdiff_kstep"}[op]
+                main_launches[kernel] = counts[kernel]
+            check(all(bool(torch.isfinite(out.fields[n]).all()
+                           and torch.isfinite(out.stage_tens[n]).all())
+                      and tuple(out.fields[n].shape) == (ENSEMBLE,) + GRID
+                      for n in out.fields), f"{label}: not finite or "
+                  f"misshapen")
+            ref_out = whole[op][1]
+            err = state_err(out, ref_out)
+            if op == "dycore" and dtype == "bfloat16":
+                say(f"{label}: vs whole_state run({PATH_STEPS}) err {err:.3g} "
+                    f"(atol 0.5)")
+                check(err <= 0.5, f"{label}: disagrees with the whole-state "
+                      f"plan")
+            else:
+                say(f"{label}: vs whole_state run({PATH_STEPS}) err {err:.3g} "
+                    f"(bit for bit)")
+                check(state_equal(out, ref_out), f"{label}: differs from the "
+                      f"whole-state plan")
+            round_ms = time_ms(lambda: plan.step(st))
+            step_ms = time_ms(lambda: whole[op][0].step(st))
+            results[(f"round_{op}_k{k}", dtype)] = dict(
+                ms=round_ms, per_step_ms=round_ms / k,
+                whole_state_step_ms=step_ms)
+            say(f"{label}: one round {round_ms:.4f} ms, {round_ms / k:.4f} "
+                f"ms a step; one whole-state step {step_ms:.4f} ms")
+            del out
+        del whole, ref_out
+
+        plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                      op="hadv_upwind", dtype=dtype))
+        require(plan.variant == "whole_state",
+                f"op=hadv_upwind resolved to {plan.variant}")
+        _build.reset_launches()
+        out = plan.run(st, 1)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        say(f"op=hadv_upwind {dtype}: launches {counts}")
+        check(counts == launches_of(hadv=1),
+              f"op=hadv_upwind {dtype}: launched {counts}")
+        if dtype == "float32":
+            main_launches["hadv"] = counts["hadv"]
+        oracle = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                        op="hadv_upwind", dtype=dtype,
+                                        variant="unfused")).run(st, 1)
+        err = state_err(out, oracle)
+        say(f"op=hadv_upwind {dtype}: vs unfused plan err {err:.3g} (atol "
+            f"1e-5)")
+        check(err <= 1e-5, f"op=hadv_upwind {dtype}: disagrees with its "
+              f"unfused plan")
+        del st, out, oracle
+        torch.cuda.empty_cache()
+
     # ---- 5./6. the kernels line -----------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
                "hdiff": ("src/repro_torch/csrc/hdiff.cu",
                          "src/repro/kernels/hdiff/hdiff.py:171"),
                "vadvc": ("src/repro_torch/csrc/vadvc.cu",
-                         "src/repro/kernels/vadvc/vadvc.py:111")}
+                         "src/repro/kernels/vadvc/vadvc.py:111"),
+               "dycore_kstep": ("src/repro_torch/csrc/dycore_kstep.cu",
+                                "src/repro/kernels/dycore_fused/fused.py:434"),
+               "hdiff_kstep": ("src/repro_torch/csrc/hdiff_kstep.cu",
+                               "src/repro/kernels/hdiff/hdiff.py:128"),
+               "hadv": ("src/repro_torch/csrc/hadv.cu",
+                        "src/repro/kernels/hadv/hadv.py:47")}
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[(name, "float32")]
@@ -413,9 +735,15 @@ def main() -> int:
                         "launches": main_launches[name],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
-    say("library_ms: no single PyTorch call computes the fused dycore step, "
-        "the limited compound hdiff or the vadvc Thomas sweep")
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
+    say("library_ms: no single PyTorch call computes the fused dycore step "
+        "or its k-step round, the limited compound hdiff or its k-step "
+        "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
+        "interior")
+    if failures:
+        raise SmokeFailure(f"{len(failures)} check(s) failed: "
+                           + "; ".join(failures))
     for (name, dn), r in sorted(results.items()):
         say(f"time {name} {dn}: " + json.dumps(r))
     say(card)

@@ -16,7 +16,8 @@
 // device memory about once. One thread per column of the haloed tile
 // (ty+4) x (tx+4). The TPU kernel keeps x whole and rolls it; here x is tiled
 // too, and both halos come from periodic indexing ((j+ny)%ny, (i+nx)%nx).
-// Each thread runs the forward sweep of its column; halo columns are solved
+// Each thread runs the forward sweep of its column (`nero::thomas_forward`,
+// dycore_column.cuh, shared with the k-step kernel); halo columns are solved
 // redundantly, as the TPU kernel solves its halo rows. The sweep's (ccol,
 // dcol) are nz deep per column and live in an fp32 global scratch the
 // wrapper allocates, laid out (block, k, column) so every level coalesces.
@@ -28,7 +29,7 @@
 // operation. Ragged edge tiles are masked, so no tile has to divide the grid.
 #include <climits>
 
-#include "common.cuh"
+#include "dycore_column.cuh"
 
 namespace {
 
@@ -39,8 +40,6 @@ __global__ void dycore_fused_kernel(
     T* __restrict__ fout, T* __restrict__ sout, float* __restrict__ ccol,
     float* __restrict__ dcol, int nf, int nz, int ny, int nx, int ty, int tx,
     int tiles_y, int tiles_x, float dt, float coeff) {
-  using nero::kBetM;
-  using nero::kBetP;
   using nero::kDtrStage;
   extern __shared__ float lvl[];  // two (ty+4) x (tx+4) planes
   const int tw = tx + 4;
@@ -75,57 +74,16 @@ __global__ void dycore_fused_kernel(
   float* cc = ccol + static_cast<int64_t>(blockIdx.x) * nz * ncol + c;
   float* dc = dcol + static_cast<int64_t>(blockIdx.x) * nz * ncol + c;
 
-  // ---- forward sweep, k = 0 ----
-  float f0 = f(0), f1 = f(1), w1 = wk(1);
-  float gcv = 0.25f * w1;
-  float cs = gcv * kBetM;
-  float ck = gcv * kBetP;
-  float corr = -cs * (f1 - f0);
-  float divided = 1.0f / (kDtrStage - ck);
-  float cprev = ck * divided;
-  float dprev = (rhs(0, f0) + corr) * divided;
-  cc[0] = cprev;
-  dc[0] = dprev;
-
-  // ---- forward sweep, 0 < k < nz-1 ----
-  for (int k = 1; k < nz - 1; ++k) {
-    const float gav = -0.25f * w1;
-    w1 = wk(k + 1);
-    gcv = 0.25f * w1;
-    const float as = gav * kBetM;
-    cs = gcv * kBetM;
-    const float acol = gav * kBetP;
-    ck = gcv * kBetP;
-    const float bcol = (kDtrStage - acol) - ck;
-    const float fm = f0;
-    f0 = f1;
-    f1 = f(k + 1);
-    corr = -as * (fm - f0) - cs * (f1 - f0);
-    divided = 1.0f / (bcol - cprev * acol);
-    cprev = ck * divided;
-    dprev = ((rhs(k, f0) + corr) - dprev * acol) * divided;
-    cc[static_cast<int64_t>(k) * ncol] = cprev;
-    dc[static_cast<int64_t>(k) * ncol] = dprev;
-  }
-
-  // ---- forward sweep, k = nz-1 ----
   const int kl = nz - 1;
-  const float gav = -0.25f * w1;
-  const float as = gav * kBetM;
-  const float acol = gav * kBetP;
-  corr = -as * (f0 - f1);
-  divided = 1.0f / ((kDtrStage - acol) - cprev * acol);
-  float datac = ((rhs(kl, f1) + corr) - dprev * acol) * divided;
+  float f_last;
+  float datac = nero::thomas_forward(f, wk, rhs, cc, dc, ncol, nz, f_last);
 
   // ---- backward sweep + update + hdiff, one level at a time ----
   for (int k = kl; k >= 0; --k) {
-    if (k < kl)
-      datac = dc[static_cast<int64_t>(k) * ncol] -
-              cc[static_cast<int64_t>(k) * ncol] * datac;
-    const float fk = (k == kl) ? f1 : f(k);
-    const float stage = kDtrStage * (datac - fk);
+    const float fk = (k == kl) ? f_last : f(k);
     float* buf = lvl + (k & 1) * ncol;
-    buf[c] = fk + dt * stage;
+    const float stage =
+        nero::thomas_back_level(datac, k, kl, cc, dc, ncol, fk, dt, buf, c);
     const int64_t o = fbase + k * plane;
     if (interior) nero::st(sout, o, stage);
     __syncthreads();

@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu")
+SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
+           "hdiff_kstep.cu", "hadv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -41,9 +42,14 @@ _SIGNATURES = {
                    _I, _I, _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                           _F, _F, _I, _I, _I, _P),
+    "nero_dycore_kstep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                          _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
+    "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+    "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
 }
 
-LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0}
+LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,
+                             "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, object] = {}

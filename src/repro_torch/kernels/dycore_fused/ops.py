@@ -5,9 +5,12 @@
   default (`variant="whole_state"`) hot path of compiled dycore plans.
 * `fused_step` — one field per launch (`variant="per_field"`), the same
   kernel at nf = 1.
+* `fused_step_kstep` — k steps of every field in ONE launch, the state
+  held in fp32 between the steps (`variant="kstep"`).
 
-A CPU tensor takes the plain unfused composition (`ref.fused_step_ref`); a
-CUDA tensor launches the kernel (`fused.fused_dycore_cuda`) or raises.
+A CPU tensor takes the plain unfused composition (`ref.fused_step_ref`,
+`ref.fused_kstep_ref`); a CUDA tensor launches the kernel
+(`fused.fused_dycore_cuda`, `kstep.fused_dycore_kstep_cuda`) or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from repro_torch.core import tiling
 from repro_torch.kernels.dycore_fused import ref as _ref
 from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
+from repro_torch.kernels.dycore_fused.kstep import fused_dycore_kstep_cuda
 
 DEFAULT_COEFF = _ref.DEFAULT_COEFF
 DEFAULT_DT = _ref.DEFAULT_DT
@@ -61,3 +65,21 @@ def fused_step(f: torch.Tensor, wcon: torch.Tensor, utens: torch.Tensor,
                                      one(utens_stage), coeff=coeff, dt=dt,
                                      tile=tile)
     return f_new.squeeze(-4), stage.squeeze(-4)
+
+
+def fused_step_kstep(fs: torch.Tensor, wcon: torch.Tensor,
+                     utens: torch.Tensor, utens_stage: torch.Tensor,
+                     k_steps: int = 2, coeff: float = DEFAULT_COEFF,
+                     dt: float = DEFAULT_DT,
+                     tile: Optional[tiling.CudaTile] = None):
+    """`k_steps` whole-state steps in one launch; shapes as
+    `fused_step_whole_state`. `w` is summed in the storage dtype, as the
+    JAX package sums it, on either device. Returns `(f_new, stage)` after
+    `k_steps` steps."""
+    w = staggered_w(wcon)
+    if fs.device.type == "cpu":
+        return _ref.fused_kstep_ref(fs, w.unsqueeze(-4), utens, utens_stage,
+                                    k_steps, coeff=coeff, dt=dt)
+    return fused_dycore_kstep_cuda(fs, w, utens, utens_stage,
+                                   k_steps=k_steps, coeff=coeff, dt=dt,
+                                   tile=tile)

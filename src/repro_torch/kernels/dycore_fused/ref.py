@@ -49,6 +49,23 @@ def fused_step_ref_summed(f: torch.Tensor, w: torch.Tensor,
     return _update_and_diffuse(f, stage, coeff, dt), stage
 
 
+def fused_kstep_ref(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
+                    utens_stage: torch.Tensor, k: int,
+                    coeff: float = DEFAULT_COEFF, dt: float = DEFAULT_DT):
+    """k fused steps, the plain version of the k-step kernel: k iterations
+    of `fused_step_ref_summed` in float32 from the storage-dtype inputs,
+    the field and the stage carried from step to step, rounded once to the
+    storage dtype at the end (the TPU kernel keeps its state in fp32
+    between steps). `w` is the staggered sum, broadcastable against `fs`.
+    Returns `(f_new, stage)` after `k` steps, the stage the last step's."""
+    f, stage = fs.float(), utens_stage.float()
+    w, utens = w.float(), utens.float()
+    for _ in range(k):
+        f, stage = fused_step_ref_summed(f, w, utens, stage, coeff=coeff,
+                                         dt=dt)
+    return f.to(fs.dtype), stage.to(fs.dtype)
+
+
 def _update_and_diffuse(f, stage, coeff, dt):
     ny, nx = f.shape[-2:]
     # 2) point-wise explicit update.

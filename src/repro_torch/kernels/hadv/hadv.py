@@ -1,0 +1,37 @@
+"""The CUDA upwind advection kernel (`csrc/hadv.cu`) and its launcher.
+
+Replaces the TPU kernel `repro.kernels.hadv.hadv.hadv_pallas`. The plain
+version beside it is `ref.hadv_upwind`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import tiling
+from repro_torch.kernels import _build
+from repro_torch.kernels.hadv.ref import DEFAULT_CFL
+
+
+def hadv_cuda(src: torch.Tensor, cfl: float = DEFAULT_CFL,
+              tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
+    """Upwind advection of a contiguous CUDA stack `(planes, ny, nx)`,
+    float32 or bfloat16; row 0 and column 0 of every plane pass through."""
+    if src.dim() != 3:
+        raise ValueError(f"hadv: src must be (planes, ny, nx), got "
+                         f"{tuple(src.shape)}")
+    planes, ny, nx = src.shape
+    _build.check_operand("hadv", "src", src, src.shape, src.dtype)
+    tile = tile or tiling.hadv_tile(ny, nx)
+    out = torch.empty_like(src)
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        err = lib.nero_hadv(src.data_ptr(), out.data_ptr(), planes, ny, nx,
+                            cfl, tile.ty, tile.tx,
+                            int(src.dtype == torch.bfloat16),
+                            _build.stream_of(src))
+    _build.check(err, "hadv")
+    _build.LAUNCHES["hadv"] += 1
+    return out

@@ -50,3 +50,12 @@ def hdiff(src: torch.Tensor, coeff: float = DEFAULT_COEFF) -> torch.Tensor:
     out = f.clone()
     out[..., 2:-2, 2:-2] = interior
     return out.to(src.dtype)
+
+
+def hdiff_kstep(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
+                k: int = 1) -> torch.Tensor:
+    """`k` steps of `hdiff`, each rounded through `src`'s dtype, as `k`
+    separate launches round (the plain version of the k-step kernel)."""
+    for _ in range(k):
+        src = hdiff(src, coeff=coeff)
+    return src

@@ -3,21 +3,22 @@
 A port of `repro.weather.program` for a single device:
 
 * `StencilProgram` is the *what*: the registered op (`"dycore"`, `"hdiff"`,
-  `"vadvc"`), grid, ensemble, field set, precision and step policy. It
-  keeps the JAX package's checks, and `to_json` / `from_json` round-trip
-  with the JAX package's JSON.
+  `"vadvc"`, `"hadv_upwind"`), grid, ensemble, field set, precision and
+  step policy. It keeps the JAX package's checks, and `to_json` /
+  `from_json` round-trip with the JAX package's JSON.
 * `compile(program, device="cuda")` is the planner: it resolves the
   execution variant, the kernel tile and the launch count per round once.
-* `ExecutionPlan` is the *how*: `step(state)` advances one round,
-  `run(state, steps)` loops over rounds, `report()` returns the structural
-  strategy under the JAX package's key names.
+* `ExecutionPlan` is the *how*: `step(state)` advances one round of
+  `k_steps` timesteps, `run(state, steps)` runs `steps // k_steps` rounds and
+  one shorter tail round (`round_plan(steps % k_steps)`), `report()` returns
+  the structural strategy under the JAX package's key names.
 
 What runs is decided by the plan's device: on CUDA every kernelled variant
-launches the hand-written kernels; on the CPU the same lowering takes their
-plain versions. Not yet ported, each raising `NotImplementedError`: the
-k-step round (`variant="kstep"`, `k_steps > 1`; ROADMAP queue 1 item 3),
-meshes (item 6), `tune="measure"` (item 2), `hardware=` and the modeled
-blocks of `report()` (item 4).
+launches the hand-written kernels (a k-step round is ONE launch of the
+k-step kernel); on the CPU the same lowering takes their plain versions.
+Not yet ported, each raising `NotImplementedError`: meshes (ROADMAP queue
+1, item 6), `tune="measure"` (item 2), `hardware=` and the modeled blocks
+of `report()` (item 4).
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ class ExecutionPlan:
 
     program: StencilProgram
     variant: str                                # resolved, never "auto"
-    k_steps: int                                # resolved int (1)
+    k_steps: int                                # resolved timesteps a round
     tile_ty: Optional[int]                      # None for unfused
     tile: Optional[tiling.CudaTile]             # None for unfused
     local_grid: Tuple[int, int, int]
@@ -173,21 +174,35 @@ class ExecutionPlan:
         return self._step_fn()(state)
 
     def run(self, state: WeatherState, steps: int) -> WeatherState:
-        """Advance `steps` timesteps, one round at a time."""
+        """Advance `steps` timesteps: `steps // k_steps` full rounds plus,
+        when `steps % k_steps != 0`, one shorter tail round through
+        `round_plan(steps % k_steps)`."""
         if not isinstance(steps, int) or steps < 0:
             raise ValueError(f"steps={steps!r} must be a non-negative int")
         self._check_state(state)
+        rounds, tail = divmod(steps, self.k_steps)
         step = self._step_fn()
-        for _ in range(steps // self.k_steps):
+        for _ in range(rounds):
             state = step(state)
+        if tail:
+            state = self.round_plan(tail).step(state)
         return state
 
     def round_plan(self, k: int) -> "ExecutionPlan":
-        """The plan that advances a round of exactly `k` timesteps."""
+        """The plan that advances a round of exactly `k` timesteps: `self`
+        when `k == k_steps`, else a derived plan for the shorter round,
+        compiled on the same device and cached (`run()`'s tail)."""
         if not isinstance(k, int) or not 1 <= k <= self.k_steps:
             raise ValueError(f"round_plan(k={k!r}): k must be an int in "
                              f"[1, k_steps={self.k_steps}]")
-        return self
+        if k == self.k_steps:
+            return self
+        plan = self._cache.get(("tail", k))
+        if plan is None:
+            plan = compile(dataclasses.replace(self.program, variant="auto",
+                                               k_steps=k), device=self.device)
+            self._cache[("tail", k)] = plan
+        return plan
 
     def report(self) -> Dict[str, Any]:
         """The structural strategy under the JAX package's key names. The
@@ -263,9 +278,6 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
         raise _not_ported("tune='measure'", "item 2")
     if program.hardware is not None:
         raise _not_ported("hardware= (modeled numbers)", "item 4")
-    if program.variant == "kstep" or program.k_steps not in ("auto", 1):
-        raise _not_ported("the k-step round (variant='kstep', k_steps > 1)",
-                          "item 3")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("compile(device='cuda'): no CUDA device is "
@@ -277,8 +289,13 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
     opdef = get_stencil_op(program.op)
     nz, ny, nx = program.grid_shape
     nf = program.n_fields
-    k = 1   # one device: no collectives to amortize
-    variant = "whole_state" if program.variant == "auto" else program.variant
+    # One device: no collectives to amortize, so "auto" is one step a round.
+    k = 1 if program.k_steps == "auto" else program.k_steps
+    variant = program.variant
+    if variant == "auto":
+        variant = "kstep" if k > 1 else "whole_state"
+    if variant == "kstep" and k == 1:
+        variant = "whole_state"    # k resolved to 1: same round, one step
     if (program.exchange_dtype is not None
             and variant not in opdef.packed_variants):
         raise ValueError("exchange_dtype requires a packed (stacked) "
@@ -292,10 +309,12 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
         for name, dy, dx in rides:
             if max(dy) > ny or max(dx) > nx:
                 raise ValueError(
-                    f"op {program.op!r} needs a ({max(dy)}, {max(dx)})-deep "
-                    f"halo for {name!r} but the grid is only ({ny}, {nx})")
+                    f"op {program.op!r} at k_steps={k} needs a ({max(dy)}, "
+                    f"{max(dx)})-deep halo for {name!r} but the grid is "
+                    f"only ({ny}, {nx}); use a bigger grid or a smaller "
+                    f"k_steps")
     tile = opdef.resolve_tile(variant, compute_grid, program.dtype, nf,
-                              program.ensemble)
+                              program.ensemble, k)
     return ExecutionPlan(
         program=program, variant=variant, k_steps=k,
         tile_ty=None if tile is None else tile.ty, tile=tile,

@@ -6,13 +6,15 @@ halo footprint (`OperandRide`), its stencil reach, flop count and execution
 variants, and its lowerings: tile resolution and the single-device step.
 `weather/program.py::compile` consumes only this declaration. Registered:
 
-  "dycore" — the fused compound step (vadvc + point-wise + hdiff);
-  "hdiff"  — compound horizontal diffusion alone (fields only);
-  "vadvc"  — vertical advection alone (updates the stage tendencies).
+  "dycore"      — the fused compound step (vadvc + point-wise + hdiff);
+  "hdiff"       — compound horizontal diffusion alone (fields only);
+  "vadvc"       — vertical advection alone (updates the stage tendencies);
+  "hadv_upwind" — first-order upwind advection (backward-only reach).
 
-On one device the halo exchange of the JAX package degenerates to periodic
-wrap-padding, which the lowerings here do directly. Distributed rounds and
-the in-kernel k-step round are later work (ROADMAP queue 1, items 6 and 3).
+`dycore` and `hdiff` also run the k-step round (`variant="kstep"`): k
+timesteps in ONE kernel launch. On one device the halo exchange of the JAX
+package degenerates to periodic wrap-padding, which the lowerings here do
+directly. Distributed rounds are later work (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 from repro_torch.core import tiling
 from repro_torch.kernels.dycore_fused import ops as fused_ops
 from repro_torch.kernels.dycore_fused.ref import pad_periodic
+from repro_torch.kernels.hadv import ops as hadv_ops
+from repro_torch.kernels.hadv import ref as hadv_ref
 from repro_torch.kernels.hdiff import ops as hdiff_ops
 from repro_torch.kernels.hdiff import ref as hdiff_ref
 from repro_torch.kernels.vadvc import ops as vadvc_ops
@@ -39,6 +43,7 @@ VARIANTS = ("auto", "unfused", "per_field", "whole_state", "kstep")
 DYCORE_FLOPS_PER_POINT = 61.0
 HDIFF_FLOPS_PER_POINT = 21.0
 VADVC_FLOPS_PER_POINT = 38.0
+HADV_UPWIND_FLOPS_PER_POINT = 5.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +76,8 @@ class OperandRide:
 class StencilOpDef:
     """A registered stencil operator: footprint declaration + lowerings.
 
-    * `resolve_tile(variant, compute_grid, dtype, n_fields, ensemble)` ->
-      `tiling.CudaTile`, or None for the unfused oracle variant;
+    * `resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k)`
+      -> `tiling.CudaTile`, or None for the unfused oracle variant;
     * `build_local_step(plan)` -> `state -> state`, the single-device round;
     * `pallas_calls(variant, n_fields, k)` -> kernel launches per round
       (the JAX package's key name, kept for schema parity).
@@ -147,9 +152,12 @@ def _new_state(state: WeatherState, fields, stage_tens) -> WeatherState:
 # ---------------------------------------------------------------------------
 
 
-def _dycore_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble):
+def _dycore_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
+                         k):
     if variant == "unfused":
         return None
+    if variant == "kstep":
+        return tiling.dycore_kstep_tile(compute_grid[1], compute_grid[2], k)
     return tiling.dycore_tile(compute_grid[1], compute_grid[2])
 
 
@@ -189,10 +197,22 @@ def _dycore_local_step(plan):
     stack = lambda d: _dycore.stack_state(d, names)
     unstack = lambda a: _dycore.unstack_state(a, names)
 
-    def step(state: WeatherState) -> WeatherState:    # whole_state
-        f_new, stage = fused_ops.fused_step_whole_state(
+    if variant == "whole_state":
+        def step(state: WeatherState) -> WeatherState:
+            f_new, stage = fused_ops.fused_step_whole_state(
+                stack(state.fields), state.wcon.contiguous(),
+                stack(state.tens), stack(state.stage_tens), coeff=coeff,
+                dt=dt, tile=tile)
+            return _new_state(state, unstack(f_new), unstack(stage))
+        return step
+
+    k = plan.k_steps
+
+    def step(state: WeatherState) -> WeatherState:    # kstep: ONE launch
+        f_new, stage = fused_ops.fused_step_kstep(
             stack(state.fields), state.wcon.contiguous(), stack(state.tens),
-            stack(state.stage_tens), coeff=coeff, dt=dt, tile=tile)
+            stack(state.stage_tens), k_steps=k, coeff=coeff, dt=dt,
+            tile=tile)
         return _new_state(state, unstack(f_new), unstack(stage))
     return step
 
@@ -229,26 +249,34 @@ register_stencil_op(StencilOpDef(
 # ---------------------------------------------------------------------------
 
 
-def _hdiff_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble):
+def _hdiff_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
+                        k):
     if variant == "unfused":
         return None
+    if variant == "kstep":
+        return tiling.hdiff_kstep_tile(compute_grid[1], compute_grid[2], k)
     return tiling.hdiff_tile(compute_grid[1], compute_grid[2])
 
 
 def _hdiff_local_step(plan):
-    """Single-device hdiff round: wrap-pad by the stencil's reach (the JAX
-    package's packed exchange on one shard), then the local compute — the
-    oracle, one launch per field, or one launch for the whole state (the
+    """Single-device hdiff round: wrap-pad by the round's reach, `k·2` (the
+    JAX package's packed exchange on one shard), then the local compute —
+    the oracle, one launch per field, one launch for the whole state (the
     fully z-parallel stencil folds (ensemble, field, z) into the kernel's
-    plane axis) — and the interior crop."""
+    plane axis), or ONE k-step launch for the whole round — and the interior
+    crop. The k-step round is bit-equal to k whole-state rounds: each
+    in-kernel step rounds through the storage dtype, and the crop keeps
+    only points the k steps left exact."""
     prog = plan.program
     names, coeff, variant, tile = prog.fields, prog.coeff, plan.variant, \
         plan.tile
+    k = plan.k_steps
+    halo = k * HALO
 
     def step(state: WeatherState) -> WeatherState:
         fs = _dycore.stack_state(state.fields, names)   # (e, nf, nz, ly, lx)
         ly, lx = fs.shape[-2:]
-        fs = pad_periodic(fs, HALO)
+        fs = pad_periodic(fs, halo)
         Y, X = fs.shape[-2:]
         if variant == "unfused":
             out = hdiff_ref.hdiff(fs.reshape(-1, Y, X), coeff=coeff)
@@ -257,10 +285,13 @@ def _hdiff_local_step(plan):
                 [hdiff_ops.hdiff(fs[:, i].reshape(-1, Y, X), coeff=coeff,
                                  tile=tile).reshape(fs[:, i].shape)
                  for i in range(len(names))], dim=1)
-        else:                                        # whole_state
+        elif variant == "whole_state":
             out = hdiff_ops.hdiff(fs.reshape(-1, Y, X), coeff=coeff,
                                   tile=tile)
-        out = out.reshape(fs.shape)[..., HALO:HALO + ly, HALO:HALO + lx]
+        else:                                        # kstep: ONE launch
+            out = hdiff_ops.hdiff_kstep(fs.reshape(-1, Y, X), coeff=coeff,
+                                        k=k, tile=tile)
+        out = out.reshape(fs.shape)[..., halo:halo + ly, halo:halo + lx]
         return _new_state(state, {n: out[:, i] for i, n in enumerate(names)},
                           dict(state.stage_tens))
     return step
@@ -292,7 +323,8 @@ register_stencil_op(StencilOpDef(
 # ---------------------------------------------------------------------------
 
 
-def _vadvc_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble):
+def _vadvc_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
+                        k):
     if variant == "unfused":
         return None
     return tiling.vadvc_tile(compute_grid[1], compute_grid[2])
@@ -346,5 +378,66 @@ register_stencil_op(StencilOpDef(
     resolve_tile=_vadvc_resolve_tile,
     build_local_step=_vadvc_local_step,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
+                                         "whole_state": 1}[variant],
+))
+
+
+# ---------------------------------------------------------------------------
+# "hadv_upwind" — first-order upwind horizontal advection (backward-only
+# reach: the registry's asymmetric-ride op)
+# ---------------------------------------------------------------------------
+
+
+def _hadv_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+    if variant == "unfused":
+        return None
+    return tiling.hadv_tile(compute_grid[1], compute_grid[2])
+
+
+def _hadv_local_step(plan):
+    """Single-device hadv round: wrap-pad the LOW sides only, by 1 (the
+    donor cell only looks backward; the JAX package's packed exchange at the
+    asymmetric `(1, 0)` depth on one shard), then the oracle or one launch
+    for the whole state, and the interior crop. The compute grid the plan
+    reports is padded symmetrically, as the JAX package reports it; the
+    slab the kernel runs on is `(ny+1, nx+1)` and the kernel masks its own
+    ragged tiles."""
+    prog = plan.program
+    names, cfl, variant, tile = prog.fields, prog.coeff, plan.variant, \
+        plan.tile
+
+    def step(state: WeatherState) -> WeatherState:
+        fs = _dycore.stack_state(state.fields, names)   # (e, nf, nz, ly, lx)
+        ly, lx = fs.shape[-2:]
+        fs = torch.cat([fs[..., -1:, :], fs], dim=-2)
+        fs = torch.cat([fs[..., :, -1:], fs], dim=-1)
+        Y, X = fs.shape[-2:]
+        if variant == "unfused":
+            out = hadv_ref.hadv_upwind(fs.reshape(-1, Y, X), cfl=cfl)
+        else:                                        # whole_state
+            out = hadv_ops.hadv_upwind(fs.reshape(-1, Y, X), cfl=cfl,
+                                       tile=tile)
+        out = out.reshape(fs.shape)[..., 1:1 + ly, 1:1 + lx]
+        return _new_state(state, {n: out[:, i] for i, n in enumerate(names)},
+                          dict(state.stage_tens))
+    return step
+
+
+register_stencil_op(StencilOpDef(
+    name="hadv_upwind",
+    title="upwind horizontal advection (donor cell, backward-only reach)",
+    reads=("fields",),
+    writes=("fields",),
+    halo=hadv_ops.HALO,
+    flops_per_point=HADV_UPWIND_FLOPS_PER_POINT,
+    rides=(OperandRide("fields", y=(hadv_ops.HALO, 0),
+                       x=(hadv_ops.HALO, 0), per_field=True),),
+    variants=("unfused", "whole_state"),
+    inkernel_kstep=False,
+    pads_single_chip=True,
+    packed_variants=("unfused", "whole_state"),
+    resolve_tile=_hadv_resolve_tile,
+    build_local_step=_hadv_local_step,
+    pallas_calls=lambda variant, nf, k: {"unfused": 0,
                                          "whole_state": 1}[variant],
 ))
