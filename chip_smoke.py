@@ -12,10 +12,14 @@ the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
 plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
 a ragged tail) and the hadv_upwind plan, counting the kernel launches of
-each run and comparing with the whole-state or unfused plan; times every
-kernel, its plain version, one main-path step and one k-step round with
-CUDA events; prints one JSON `kernels` line, then the result line. Any
-failure exits nonzero. Imports nothing of JAX.
+each run and comparing with the whole-state or unfused plan; drives the
+`NeroEngine` entry point (plan + run of hdiff and vadvc at the paper's
+domain in both dtypes and of copy, each equal to the direct kernel call bit
+for bit; the measured "auto-tuned" pick beside the model's; the copy
+kernel's sustained rate beside `Tensor.copy_`); times every kernel, its
+plain version, one main-path step and one k-step round with CUDA events;
+prints one JSON `kernels` line, then the result line. Any failure exits
+nonzero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,6 +75,25 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def stream_ms(fn, n: int = 50) -> float:
+    """Mean CUDA-event time of `n` calls of `fn()` queued back to back,
+    after warm-up: the host's launch overhead hides behind the kernels
+    whenever a kernel outlasts it."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
@@ -88,8 +111,11 @@ def main() -> int:
         raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.core import tiling
+        from repro_torch.core import autotune, hwspec, tiling
+        from repro_torch.core.engine import NeroEngine
         from repro_torch.kernels import _build
+        from repro_torch.kernels.copy_stencil import ref as copy_ref
+        from repro_torch.kernels.copy_stencil.copy_stencil import copy_cuda
         from repro_torch.kernels.dycore_fused import ops as fused_ops
         from repro_torch.kernels.dycore_fused import ref as fused_ref
         from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
@@ -714,7 +740,165 @@ def main() -> int:
         del st, out, oracle
         torch.cuda.empty_cache()
 
-    # ---- 5./6. the kernels line -----------------------------------------
+    # ---- 5. the NeroEngine entry point ---------------------------------
+    # plan + run for hdiff and vadvc at the paper's domain in both dtypes,
+    # and copy, on the card: each result against the direct kernel call
+    # with the tile the plan's window maps to (bit for bit), against its
+    # plain version, copy also against its input bit for bit. Then the
+    # paper's "auto-tuned" mode (measured picks) beside the model's, and
+    # the copy kernel's sustained rate, at the paper's domain (which fits
+    # the 50 MB L2, so repeated copies read L2) and at the main path's
+    # field-stacked state size (268 MB, which does not).
+    eng = NeroEngine()
+    fid = hwspec.execution_fidelity()
+    say(f"engine: hierarchy of {fid['spec']} ({fid['spec_fingerprint']}); "
+        f"fidelity {fid}")
+    check(fid["spec"] == "h100_sxm" and fid["walltime_trustworthy"],
+          f"execution fidelity: {fid}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        rtol = 0.0 if dtype == torch.float32 else BF16_RTOL
+        src = torch.randn(GRID, generator=gen, device=dev).to(dtype)
+        vargs = [torch.randn(GRID, generator=gen, device=dev).to(dtype)
+                 for _ in range(4)]
+        vargs.insert(1, 0.15 * torch.randn(nz, ny, nx + 1, generator=gen,
+                                           device=dev).to(dtype))
+        for op, args, direct, plain, tol in (
+                ("hdiff", (src,), hdiff_cuda, hdiff_ref.hdiff, 1e-5),
+                ("vadvc", tuple(vargs), vadvc_cuda, vadvc_ref.vadvc, 2e-4)):
+            tuned = eng.plan(op, GRID, dtype)
+            tile = tiling.cuda_tile_for(tuned.plan)
+            _build.reset_launches()
+            got = eng.run(tuned, *args)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            label = f"engine {op} {dn}"
+            check(counts == launches_of(**{op: 1}),
+                  f"{label}: launched {counts}")
+            check(torch.equal(got, direct(*args, tile=tile)),
+                  f"{label}: differs from the direct kernel call")
+            check(torch.equal(got, direct(*args)),
+                  f"{label}: differs from the kernel at its default tile")
+            want = plain(*(a.float() for a in args))
+            d = (got.float() - want).abs()
+            err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+            check(excess <= tol, f"{label}: disagrees with its plain version")
+            ms = time_ms(lambda: eng.run(tuned, *args))
+            queued_ms = stream_ms(lambda: eng.run(tuned, *args))
+            model_ms = tuned.est.time_s * 1e3
+            # each operand read once and the output written once
+            b_ms, _ = bound((sum(a.numel() for a in args) + got.numel())
+                            * got.element_size(), 0.0)
+            results[(f"engine_{op}", dn)] = dict(
+                window=list(tuned.plan.tile), tile=[tile.ty, tile.tx],
+                model_ms=model_ms, ms=ms, queued_ms=queued_ms, bound_ms=b_ms,
+                err=err)
+            say(f"{label}: window {tuned.plan.tile} -> CUDA tile "
+                f"{tile.ty}x{tile.tx} ({tile.threads} threads); modelled "
+                f"{model_ms:.4f} ms under h100_sxm ({tuned.est.bottleneck}), "
+                f"measured {ms:.4f} ms a call ({queued_ms:.4f} ms queued "
+                f"back to back), byte bound {b_ms:.4f} ms; vs direct call "
+                f"bit for bit; vs plain "
+                f"err {err:.3g}, excess {excess:.3g} (atol {tol} + "
+                f"{rtol:.3g}|want|)")
+            del got, want, d
+        try:
+            eng.run(eng.plan("hdiff", GRID, dtype), src.cpu())
+            check(False, f"engine hdiff {dn}: CPU operands did not raise")
+        except ValueError as e:
+            say(f"engine hdiff {dn}: CPU operands raise: {e}")
+        del src, vargs
+
+    # The paper's "auto-tuned" mode: every candidate window timed on the
+    # card through the kernel tile it maps to (windows that share a tile
+    # share one timing).
+    src = torch.randn(GRID, generator=gen, device=dev)
+    model_pick = eng.plan("hdiff", GRID, torch.float32)
+    timed = {}
+
+    def measure(plan):
+        tile = tiling.cuda_tile_for(plan)
+        key = (tile.ty, tile.tx)
+        if key not in timed:
+            timed[key] = autotune.measure_walltime(
+                lambda: hdiff_cuda(src, tile=tile), repeats=5, device=dev)
+        return timed[key]
+
+    measured_pick = eng.plan("hdiff", GRID, torch.float32, measure=measure)
+    m_tile = tiling.cuda_tile_for(model_pick.plan)
+    t_tile = tiling.cuda_tile_for(measured_pick.plan)
+    results[("engine_hdiff_autotuned", "float32")] = dict(
+        model_window=list(model_pick.plan.tile),
+        model_tile=[m_tile.ty, m_tile.tx],
+        model_tile_ms=timed[(m_tile.ty, m_tile.tx)] * 1e3,
+        measured_window=list(measured_pick.plan.tile),
+        measured_tile=[t_tile.ty, t_tile.tx],
+        measured_ms=measured_pick.pareto[0][0] * 1e3,
+        tiles_timed=len(timed))
+    say(f"engine hdiff float32 auto-tuned: {len(timed)} kernel tiles timed; "
+        f"model's pick {model_pick.plan.tile} -> {m_tile.ty}x{m_tile.tx} "
+        f"{timed[(m_tile.ty, m_tile.tx)] * 1e3:.4f} ms; measured pick "
+        f"{measured_pick.plan.tile} -> {t_tile.ty}x{t_tile.tx} "
+        f"{measured_pick.pareto[0][0] * 1e3:.4f} ms")
+    check(measured_pick.pareto[0][0] <= timed[(m_tile.ty, m_tile.tx)],
+          "auto-tuned hdiff: the measured pick is slower than the model's")
+    del src, timed
+
+    # copy: the engine's run at the paper's domain as a 2-D (rows, cols)
+    # view, then the rates at both sizes.
+    tuned = eng.plan("copy", GRID, torch.float32)
+    for label, rows in (("paper domain", nz * ny),
+                        ("field-stacked state", ENSEMBLE * nf * nz * ny)):
+        src = torch.randn(rows, nx, generator=gen, device=dev)
+        src[0, :4] = torch.tensor([-0.0, float("nan"), float("inf"), -1.0],
+                                  device=dev)
+        _build.reset_launches()
+        got = eng.run(tuned, src)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == launches_of(copy=1),
+              f"engine copy ({label}): launched {counts}")
+        if label == "paper domain":
+            main_launches["copy"] = counts["copy"]
+        check(torch.equal(got.view(torch.int32), src.view(torch.int32)),
+              f"engine copy ({label}): not bitwise equal to its input")
+        check(torch.equal(got.view(torch.int32),
+                          copy_cuda(src).view(torch.int32)),
+              f"engine copy ({label}): differs from the direct kernel call")
+        plain = copy_ref.copy_stencil(src)
+        check(torch.equal(torch.nan_to_num(got), torch.nan_to_num(plain)),
+              f"engine copy ({label}): differs from its plain version")
+        err = float((torch.nan_to_num(got) - torch.nan_to_num(plain))
+                    .abs().max())
+        nbytes = 2 * src.numel() * src.element_size()
+        dst = torch.empty_like(src)
+        ms = time_ms(lambda: copy_cuda(src))
+        plain_ms = time_ms(lambda: copy_ref.copy_stencil(src))
+        library_ms = time_ms(lambda: dst.copy_(src))
+        b_ms, b_by = bound(nbytes, 0.0)
+        results[("copy_" + label.replace(" ", "_"), "float32")] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 2 / 1e6,
+            tb_per_s=nbytes / ms * 1e-9, library_tb_per_s=nbytes / library_ms
+            * 1e-9, model_ms=tuned.est.time_s * 1e3)
+        say(f"engine copy ({label}, {tuple(src.shape)}, {nbytes / 2 / 1e6:.1f} "
+            f"MB): window {tuned.plan.tile} (unused by the kernel); bitwise "
+            f"equal to its input and the direct call; kernel {ms:.4f} ms = "
+            f"{nbytes / ms * 1e-9:.3f} TB/s, Tensor.copy_ {library_ms:.4f} ms "
+            f"= {nbytes / library_ms * 1e-9:.3f} TB/s, plain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms" + (" (L2-resident: not a device-memory "
+                                         "rate)" if rows == nz * ny else ""))
+        del src, got, plain, dst
+    big = results[("copy_field-stacked_state", "float32")]
+    results[("copy", "float32")] = big
+    say(f"copy bandwidth: {big['tb_per_s']:.3f} TB/s sustained by the copy "
+        f"kernel ({big['tb_per_s'] / (HBM_BYTES_PER_S * 1e-12):.3f} of the "
+        f"data sheet's 3.35), Tensor.copy_ {big['library_tb_per_s']:.3f} "
+        f"TB/s, 268 MB read and written, on {card}")
+    torch.cuda.empty_cache()
+
+    # ---- 6. the kernels line --------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
                "hdiff": ("src/repro_torch/csrc/hdiff.cu",
@@ -726,7 +910,9 @@ def main() -> int:
                "hdiff_kstep": ("src/repro_torch/csrc/hdiff_kstep.cu",
                                "src/repro/kernels/hdiff/hdiff.py:128"),
                "hadv": ("src/repro_torch/csrc/hadv.cu",
-                        "src/repro/kernels/hadv/hadv.py:47")}
+                        "src/repro/kernels/hadv/hadv.py:47"),
+               "copy": ("src/repro_torch/csrc/copy.cu",
+                        "src/repro/kernels/copy_stencil/copy_stencil.py:17")}
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[(name, "float32")]
@@ -740,7 +926,7 @@ def main() -> int:
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
-        "interior")
+        "interior; copy's is Tensor.copy_ into a preallocated tensor")
     if failures:
         raise SmokeFailure(f"{len(failures)} check(s) failed: "
                            + "; ".join(failures))

@@ -1,16 +1,30 @@
-"""Tile choice for the CUDA stencil kernels on an H100.
+"""Tile spaces of the planner and tile choice for the CUDA stencil kernels.
 
-The JAX package tunes its TPU tiles against VMEM (`repro.core.tiling` and
-`repro.core.autotune`). The port starts from fixed defaults per kernel that
-fit a Hopper block: at most 1024 threads and 227 KB of shared memory
-(232,448 bytes, NVIDIA's H100 data sheet). A tuner is later work. Every
-kernel masks its own ragged edge tiles, so a tile need not divide the grid;
-results do not depend on the tile, bit for bit.
+Two kinds of tile live here.
+
+* The planner's, ported from `repro.core.tiling`: an `OpSpec` describes a
+  memory-bound operator, a `TilePlan` one 3-D window of it with its
+  near-memory footprint and main-memory traffic, and `candidate_tiles`
+  enumerates the windows that fit a `Hierarchy`'s near memory. The
+  autotuner (`core/autotune.py`) and the performance model
+  (`core/perfmodel.py`) search and score these, in the JAX package's
+  arithmetic, so both packages pick the same window under the same spec.
+* The kernel's: a `CudaTile` is a block shape a CUDA kernel launches with,
+  at most 1024 threads and 227 KB of shared memory (232,448 bytes, NVIDIA's
+  H100 data sheet). Each kernel has a fixed default (`hdiff_tile`, ...);
+  `cuda_tile_for` maps a planner's window for hdiff or vadvc onto the
+  kernel's tile. Every kernel masks its own ragged edge tiles, so a tile
+  need not divide the grid; results do not depend on the tile, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import List, Sequence, Tuple
+
+from repro_torch.core import hierarchy as hw
+from repro_torch.weather.fields import dtype_name
 
 MAX_THREADS_PER_BLOCK = 1024
 SMEM_BYTES_PER_BLOCK = 232_448
@@ -126,3 +140,262 @@ def hadv_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
     """One thread per output point; no shared memory."""
     ty, tx = min(ty, ny), min(tx, nx)
     return CudaTile("hadv", ty, tx, ty * tx, 0)
+
+
+# ---------------------------------------------------------------------------
+# The planner's tile space (a port of `repro.core.tiling`)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """Abstract description of a memory-bound operator for planning.
+
+    `fields_in` / `fields_out`: number of same-shaped 3-D input/output
+    fields the op streams (vadvc: 7 in / 1 out; hdiff: 1 in / 1 out); may be
+    fractional when a stream is amortized across an outer batch axis.
+    `halo`: per-axis one-sided halo (hdiff: (0, 2, 2)). `halo_tiles`: extra
+    per-axis halo in multiples of the tile extent (dycore_kstep: (0, 1, 0)).
+    `seq_axes`: axes kept whole because the op is sequential along them
+    (vadvc: z; lru_scan: t). `flops_per_point`: useful FLOPs per output
+    point. `scratch_fields`: tile-shaped fp32 temporaries, sized to the
+    padded window when `scratch_padded`. `extra_vmem_buffers`:
+    padded-window dtype-width buffers beyond those.
+    """
+
+    name: str
+    fields_in: float
+    fields_out: int
+    halo: Tuple[int, int, int]
+    seq_axes: Tuple[int, ...]
+    flops_per_point: float
+    scratch_fields: int = 0
+    parallel_axes: Tuple[int, ...] = ()
+    halo_tiles: Tuple[int, int, int] = (0, 0, 0)
+    scratch_padded: bool = False
+    extra_vmem_buffers: float = 0.0
+
+    @property
+    def bytes_moved_per_point(self) -> float:
+        """Ideal main-memory traffic per point per dtype-byte."""
+        return float(self.fields_in + self.fields_out)
+
+    def arithmetic_intensity(self, dtype) -> float:
+        return self.flops_per_point / (
+            self.bytes_moved_per_point * hw.dtype_bytes(dtype))
+
+
+# The JAX package's op specs, value for value (`repro/core/tiling.py`).
+HDIFF = OpSpec(
+    name="hdiff", fields_in=1, fields_out=1, halo=(0, 2, 2),
+    seq_axes=(), parallel_axes=(0, 1, 2), flops_per_point=21.0)
+
+# vadvc: 7 input fields (ccol, dcol, wcon, ustage, upos, utens,
+# utensstage), 1 output, ~38 flops a point, sequential in z.
+VADVC = OpSpec(
+    name="vadvc", fields_in=7, fields_out=1, halo=(0, 0, 1),
+    seq_axes=(0,), parallel_axes=(1, 2), flops_per_point=38.0,
+    scratch_fields=3)
+
+COPY = OpSpec(
+    name="copy", fields_in=1, fields_out=1, halo=(0, 0, 0),
+    seq_axes=(), parallel_axes=(0, 1, 2), flops_per_point=0.0)
+
+LRU_SCAN = OpSpec(
+    name="lru_scan", fields_in=3, fields_out=1, halo=(0, 0, 0),
+    seq_axes=(0,), parallel_axes=(1,), flops_per_point=9.0,
+    scratch_fields=1)
+
+# vadvc (38) + update (2) + hdiff (21) flops a point; z and x whole.
+DYCORE_FUSED = OpSpec(
+    name="dycore_fused", fields_in=4, fields_out=2, halo=(0, 2, 0),
+    seq_axes=(0, 2), parallel_axes=(1,), flops_per_point=61.0,
+    scratch_fields=6)
+
+HADV_UPWIND = OpSpec(
+    name="hadv_upwind", fields_in=1, fields_out=1, halo=(0, 1, 1),
+    seq_axes=(), parallel_axes=(0, 1, 2), flops_per_point=5.0)
+
+VADVC_UPDATE = OpSpec(
+    name="vadvc_update", fields_in=7, fields_out=2, halo=(0, 0, 1),
+    seq_axes=(0,), parallel_axes=(1, 2), flops_per_point=40.0,
+    scratch_fields=3)
+
+ASSELIN = OpSpec(
+    name="asselin", fields_in=3, fields_out=1, halo=(0, 0, 0),
+    seq_axes=(), parallel_axes=(0, 1, 2), flops_per_point=3.0)
+
+
+def dycore_whole_state_spec(n_fields: int = 4) -> OpSpec:
+    """Tile space of the whole-state fused dycore step: 3 private input
+    streams per field plus the shared `w` amortized over the field axis,
+    and `w`'s window resident beside the 6 temporaries (7 scratch)."""
+    if n_fields < 1:
+        raise ValueError(f"n_fields={n_fields} must be >= 1")
+    return OpSpec(
+        name="dycore_whole_state", fields_in=3 + 1.0 / n_fields,
+        fields_out=2, halo=(0, 2, 0), seq_axes=(0, 2), parallel_axes=(1,),
+        flops_per_point=61.0, scratch_fields=7)
+
+
+DYCORE_WHOLE_STATE = dycore_whole_state_spec()
+
+
+def dycore_kstep_spec(n_fields: int = 4, k_steps: int = 2) -> OpSpec:
+    """Tile space of the k-step fused dycore round: a three-window working
+    slab (`halo_tiles=(0, 1, 0)`), 8 padded temporaries, 2 padded `w`
+    prefetch buffers; the bytes of one step and the flops of k."""
+    if n_fields < 1:
+        raise ValueError(f"n_fields={n_fields} must be >= 1")
+    if k_steps < 1:
+        raise ValueError(f"k_steps={k_steps} must be >= 1")
+    return OpSpec(
+        name="dycore_kstep", fields_in=3 + 1.0 / n_fields, fields_out=2,
+        halo=(0, 0, 0), halo_tiles=(0, 1, 0), seq_axes=(0, 2),
+        parallel_axes=(1,), flops_per_point=61.0 * k_steps,
+        scratch_fields=8, scratch_padded=True, extra_vmem_buffers=2.0)
+
+
+DYCORE_KSTEP = dycore_kstep_spec()
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """A concrete 3-D window choice for an OpSpec on a grid."""
+
+    op: OpSpec
+    grid_shape: Tuple[int, int, int]     # full (z, y, x) domain
+    tile: Tuple[int, int, int]           # window shape (z, y, x)
+    dtype: str
+    pipeline_depth: int = 2              # double buffering
+
+    @property
+    def tile_points(self) -> int:
+        return int(self.tile[0] * self.tile[1] * self.tile[2])
+
+    @property
+    def padded_tile(self) -> Tuple[int, int, int]:
+        """Window + halos staged into near memory."""
+        return tuple(t + 2 * h + 2 * ht * t for t, h, ht in
+                     zip(self.tile, self.op.halo, self.op.halo_tiles))
+
+    @property
+    def num_tiles(self) -> int:
+        return int(math.prod(
+            math.ceil(g / t) for g, t in zip(self.grid_shape, self.tile)))
+
+    @property
+    def vmem_bytes(self) -> int:
+        """Near-memory bytes the plan claims: double-buffered streamed
+        fields, fp32 scratch and the op's extra buffers."""
+        b = hw.dtype_bytes(self.dtype)
+        pt = math.prod(self.padded_tile)
+        streamed = (self.op.fields_in + self.op.fields_out) * pt * b
+        scratch_pts = pt if self.op.scratch_padded else self.tile_points
+        scratch = self.op.scratch_fields * scratch_pts * max(b, 4)
+        extra = self.op.extra_vmem_buffers * pt * b
+        return int(streamed * self.pipeline_depth + scratch + extra)
+
+    def fits(self, hier: hw.Hierarchy) -> bool:
+        return self.vmem_bytes <= hier.vmem.capacity_bytes
+
+    @property
+    def lane_aligned(self) -> bool:
+        """Minor-most dim a multiple of 128 lanes, next of 8 sublanes (the
+        JAX package's candidate order)."""
+        z, y, x = self.padded_tile
+        return (x % hw.VPU_LANES[1] == 0) and (y % hw.VPU_LANES[0] == 0)
+
+    @property
+    def hbm_bytes_per_tile(self) -> int:
+        b = hw.dtype_bytes(self.dtype)
+        pt = math.prod(self.padded_tile)
+        return int((self.op.fields_in * pt + self.op.fields_out *
+                    self.tile_points) * b)
+
+    @property
+    def hbm_bytes_total(self) -> int:
+        return self.hbm_bytes_per_tile * self.num_tiles
+
+    @property
+    def halo_overhead(self) -> float:
+        """Fraction of main-memory traffic that is redundant halo
+        re-reads."""
+        ideal = (self.op.bytes_moved_per_point *
+                 hw.dtype_bytes(self.dtype) * math.prod(self.grid_shape))
+        return self.hbm_bytes_total / max(ideal, 1.0) - 1.0
+
+    @property
+    def flops_total(self) -> float:
+        return self.op.flops_per_point * math.prod(self.grid_shape)
+
+    def describe(self) -> dict:
+        return {"op": self.op.name,
+                "grid": list(self.grid_shape),
+                "tile": list(self.tile),
+                "padded_tile": list(self.padded_tile),
+                "dtype": self.dtype,
+                "vmem_bytes": int(self.vmem_bytes),
+                "lane_aligned": bool(self.lane_aligned),
+                "hbm_bytes_total": int(self.hbm_bytes_total),
+                "halo_overhead": float(self.halo_overhead)}
+
+
+def candidate_tiles(op: OpSpec,
+                    grid_shape: Sequence[int],
+                    dtype,
+                    hier: hw.Hierarchy | None = None,
+                    max_candidates: int = 512) -> List[TilePlan]:
+    """Enumerate the legal tile space (the autotuner's search domain):
+    sequential axes whole, the others power-of-two sizes (and the full
+    extent), every window within `hier`'s near memory; larger, aligned
+    tiles first. `hier` defaults to the H100's."""
+    hier = hier or hw.h100_sxm()
+    grid_shape = tuple(int(g) for g in grid_shape)
+
+    def axis_options(ax: int) -> List[int]:
+        g = grid_shape[ax]
+        if ax in op.seq_axes:
+            return [g]
+        opts = []
+        s = 1
+        while s <= g:
+            opts.append(s)
+            s *= 2
+        if g not in opts:
+            opts.append(g)
+        return opts
+
+    plans: List[TilePlan] = []
+    for tz in axis_options(0):
+        for ty in axis_options(1):
+            for tx in axis_options(2):
+                plan = TilePlan(op=op, grid_shape=grid_shape,
+                                tile=(tz, ty, tx), dtype=dtype_name(dtype))
+                if plan.fits(hier):
+                    plans.append(plan)
+    plans.sort(key=lambda p: (-int(p.lane_aligned), -p.tile_points))
+    return plans[:max_candidates]
+
+
+def cuda_tile_for(plan: TilePlan) -> CudaTile:
+    """The kernel tile that launches a planner's hdiff or vadvc window.
+
+    The planner sizes a window against near memory; a CUDA block has one
+    thread per output point (hdiff) or column (vadvc), so its (y, x) extent
+    is clamped: x first, to the grid and 1024 threads (neighbouring threads
+    on neighbouring x keep loads coalesced), then y to the grid and the
+    threads x leaves. The window's z extent is not a kernel parameter: both
+    kernels take one plane (hdiff) or the whole column (vadvc) per block.
+    The tile's shared memory stays within 232,448 bytes at any such shape
+    (`CudaTile` checks both limits)."""
+    _, ny, nx = plan.grid_shape
+    _, ty, tx = plan.tile
+    tx = max(1, min(tx, nx, MAX_THREADS_PER_BLOCK))
+    ty = max(1, min(ty, ny, MAX_THREADS_PER_BLOCK // tx))
+    if plan.op.name == "hdiff":
+        return hdiff_tile(ny, nx, ty, tx)
+    if plan.op.name == "vadvc":
+        return vadvc_tile(ny, nx, ty, tx)
+    raise ValueError(f"no CUDA tile for op {plan.op.name!r}; the copy "
+                     f"kernel takes no tile and the others have none yet")

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
-           "hdiff_kstep.cu", "hadv.cu")
+           "hdiff_kstep.cu", "hadv.cu", "copy.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -46,10 +46,12 @@ _SIGNATURES = {
                           _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
+    "nero_copy": (_P, _P, _LL, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,
-                             "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0}
+                             "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0,
+                             "copy": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, object] = {}

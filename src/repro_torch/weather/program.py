@@ -11,14 +11,15 @@ A port of `repro.weather.program` for a single device:
 * `ExecutionPlan` is the *how*: `step(state)` advances one round of
   `k_steps` timesteps, `run(state, steps)` runs `steps // k_steps` rounds and
   one shorter tail round (`round_plan(steps % k_steps)`), `report()` returns
-  the structural strategy under the JAX package's key names.
+  the structural strategy under the JAX package's key names and the
+  paper's cross-machine table (`model_by_hardware`).
 
 What runs is decided by the plan's device: on CUDA every kernelled variant
 launches the hand-written kernels (a k-step round is ONE launch of the
 k-step kernel); on the CPU the same lowering takes their plain versions.
 Not yet ported, each raising `NotImplementedError`: meshes (ROADMAP queue
-1, item 6), `tune="measure"` (item 2), `hardware=` and the modeled blocks
-of `report()` (item 4).
+1, item 6), `tune="measure"` (item 2), `hardware=` and the `model` /
+`traffic` blocks of `report()` (item 4).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import tiling
+from repro_torch.core import autotune, hwspec, perfmodel, tiling
 from repro_torch.weather import stencil_ops as _sops
 from repro_torch.weather.fields import PROGNOSTIC, WeatherState, dtype_name
 from repro_torch.weather.stencil_ops import (StencilOpDef, get_stencil_op,
@@ -36,9 +37,9 @@ from repro_torch.weather.stencil_ops import (StencilOpDef, get_stencil_op,
                                              registered_stencil_ops)
 
 VARIANTS = _sops.VARIANTS
-# Hardware specs the JAX package ships (`repro/specs/*.json`); a program
-# naming one is valid, but the port's models of them are not ported yet.
-KNOWN_HARDWARE = ("nero_ad9h7", "power9", "tpu_v5e")
+# The hardware specs the port ships (`repro_torch/specs/*.json`); a program
+# naming one is valid, though `compile(hardware=...)` is not ported yet.
+KNOWN_HARDWARE = hwspec.available_specs()
 
 __all__ = ["StencilProgram", "ExecutionPlan", "compile",
            "StencilOpDef", "get_stencil_op",
@@ -142,7 +143,8 @@ class StencilProgram:
         return cls(**d)
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether `a` and `b` name one device (`cuda` matches `cuda:0`)."""
     return a.type == b.type and (a.index is None or b.index is None
                                  or a.index == b.index)
 
@@ -205,9 +207,9 @@ class ExecutionPlan:
         return plan
 
     def report(self) -> Dict[str, Any]:
-        """The structural strategy under the JAX package's key names. The
-        modeled blocks (traffic, GFLOPS, per-hardware tables) are not ported
-        yet: see `model_by_hardware`."""
+        """The structural strategy under the JAX package's key names and
+        the cross-machine table `model_by_hardware`. The `model` and
+        `traffic` blocks are not ported yet (ROADMAP queue 1, item 4)."""
         prog = self.program
         return {
             "op": prog.op,
@@ -224,10 +226,49 @@ class ExecutionPlan:
             "exchange": None,
             "pallas_calls_per_round": self.pallas_calls_per_round,
             "collectives_per_round": self.collectives_per_round,
+            "model_by_hardware": self.model_by_hardware(),
         }
 
-    def model_by_hardware(self, grid_shape=None) -> Dict[str, Any]:
-        raise _not_ported("the modeled blocks of report()", "item 4")
+    def model_by_hardware(self, grid_shape: Optional[Tuple[int, int, int]]
+                          = None) -> Dict[str, Any]:
+        """The paper's cross-machine two-kernel table, modelled: for hdiff
+        and vadvc and every shipped hardware spec, re-tune the window for
+        that machine's hierarchy and model time / GFLOPS / GFLOPS per watt
+        under its spec, with the speedup over the POWER9 baseline. The JAX
+        package's table, plus the `h100_sxm` row. `grid_shape` defaults to
+        the program's grid; cached per grid. A kernel with no legal tile
+        at the grid on some spec has no row, as in the JAX package."""
+        grid = tuple(int(g) for g in (grid_shape or self.program.grid_shape))
+        cached = self._cache.get(("model_by_hardware", grid))
+        if cached is not None:
+            return cached
+        spec_names = hwspec.available_specs()
+        out: Dict[str, Any] = {
+            "grid_shape": list(grid),
+            "dtype": self.program.dtype,
+            "baseline": "power9",
+            "specs": {n: hwspec.load_spec(n).describe() for n in spec_names},
+            "kernels": {},
+        }
+        for kname in ("hdiff", "vadvc"):
+            try:
+                ests = perfmodel.estimate_by_hardware(
+                    autotune.get_op(kname), grid, self.program.dtype,
+                    specs=spec_names)
+            except ValueError:
+                continue
+            t_p9 = ests["power9"].time_s if "power9" in ests else 0.0
+            out["kernels"][kname] = {
+                name: {"time_us": est.time_s * 1e6,
+                       "gflops": est.gflops,
+                       "gflops_per_watt": est.gflops_per_watt,
+                       "bottleneck": est.bottleneck,
+                       "kernel_class": est.kernel_class,
+                       "speedup_vs_power9": (t_p9 / est.time_s
+                                             if est.time_s > 0 else 0.0)}
+                for name, est in ests.items()}
+        self._cache[("model_by_hardware", grid)] = out
+        return out
 
     def _check_state(self, state: WeatherState) -> None:
         if state.grid_shape != self.program.grid_shape:
@@ -244,7 +285,7 @@ class ExecutionPlan:
             raise ValueError(
                 f"state ensemble {int(state.wcon.shape[0])} does not match "
                 f"the program's ensemble={self.program.ensemble}")
-        if not _same_device(state.device, self.device):
+        if not same_device(state.device, self.device):
             raise ValueError(f"state is on {state.device} but the plan was "
                              f"compiled for {self.device}")
         missing = [n for n in self.program.fields if n not in state.fields]

@@ -138,7 +138,8 @@ def test_cpu_plans_launch_no_kernel():
         compile(StencilProgram(grid_shape=GRID, ensemble=E, **kw),
                 device="cpu").run(st, 5)
     assert set(_build.LAUNCHES) == {"hdiff", "vadvc", "dycore_fused",
-                                    "dycore_kstep", "hdiff_kstep", "hadv"}
+                                    "dycore_kstep", "hdiff_kstep", "hadv",
+                                    "copy"}
     assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
 
 
@@ -291,7 +292,6 @@ def test_report_structural_keys_match(op, variant):
     lambda p: compile(p, tune="measure", device="cpu"),
     lambda p: compile(p.__class__(grid_shape=GRID, hardware="tpu_v5e"),
                       device="cpu"),
-    lambda p: compile(p, device="cpu").model_by_hardware(),
     lambda p: StencilProgram.from_json({**p.to_json(), "stages": []}),
 ])
 def test_unported_options_raise(call):
