@@ -16,10 +16,19 @@ each run and comparing with the whole-state or unfused plan; drives the
 `NeroEngine` entry point (plan + run of hdiff and vadvc at the paper's
 domain in both dtypes and of copy, each equal to the direct kernel call bit
 for bit; the measured "auto-tuned" pick beside the model's; the copy
-kernel's sustained rate beside `Tensor.copy_`); times every kernel, its
-plain version, one main-path step and one k-step round with CUDA events;
-prints one JSON `kernels` line, then the result line. Any failure exits
-nonzero. Imports nothing of JAX.
+kernel's sustained rate beside `Tensor.copy_`); then the LM serving path:
+the flash-attention and LRU-scan kernels against their plain versions
+(both models' prefill shapes, GQA, MQA at head_dim 256, window, softcap,
+ragged T, T != S; float32 and bfloat16), `ServeEngine` over
+recurrentgemma-9b and tinyllama-1.1b at their full published widths and
+depths with random bf16 weights (8 requests, 4 slots, 256-1024-token
+prompts, 32 new tokens each; launch counts as planned, tokens equal to a
+hand-rolled prefill + decode loop), the reduced configs on the card
+against the CPU, and the times of prefill, decode and both kernels (flash
+beside `scaled_dot_product_attention`); times every kernel, its plain
+version, one main-path step and one k-step round with CUDA events; prints
+one JSON `kernels` line, then the result line. Any failure exits nonzero.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -37,10 +47,20 @@ STEPS = 10
 REPS = 20                      # timed launches per median
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
 BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
 KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
+SERVE_ARCHS = ("recurrentgemma-9b", "tinyllama-1.1b")   # full width, bf16
+# the flash kernel's timed case at each of SERVE_ARCHS' prefill shapes, in
+# that order: (case label, results key)
+FLASH_TIMES = (("recurrentgemma prefill", "flash_attn"),
+               ("tinyllama prefill (GQA g=8)", "flash_attn_tinyllama"))
+SERVE_REQUESTS = 8
+SERVE_SLOTS = 4
+SERVE_NEW = 32                 # new tokens a request
+PROMPT_LENS = (256, 1024)      # prompt lengths, drawn from a seed
 
 
 class SmokeFailure(Exception):
@@ -94,9 +114,9 @@ def stream_ms(fn, n: int = 50) -> float:
     return a.elapsed_time(b) / n
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -104,11 +124,385 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def kernel_category(name: str) -> str:
+    """The group a device kernel's time is reported under."""
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "flash_attn"
+    if "lru_scan" in n:
+        return "lru_scan"
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "other"
+
+
+def device_breakdown(fn):
+    """Run `fn()` under `torch.profiler` and read its device kernels:
+    the host window (ms, profiler on, ending in a synchronise), the union
+    of kernel intervals (busy ms), the idle share of the window, and the
+    kernel time by `kernel_category`. None when the profiler saw no
+    device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    by = {}
+    for start, end, name in spans:
+        cat = kernel_category(name)
+        by[cat] = by.get(cat, 0.0) + (end - start) / 1e3
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy_ms = (busy + hi - lo) / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, kernels=len(spans),
+                by_category_ms=dict(sorted(by.items(),
+                                           key=lambda kv: -kv[1])))
+
+
+def serve_phase(torch, dev, check, results, main_launches):
+    """The LM serving path on the card (phase 6): the flash-attention and
+    LRU kernels against their plain versions, then `ServeEngine` over both
+    full-width models with the planned launch counts, equal to a hand-rolled
+    prefill + decode loop, the reduced models on the card against the CPU,
+    and the times of prefill, decode and the two kernels. Returns each
+    serving path's launch counts of the two kernels, by arch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash as flash_k
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+    from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+    from repro_torch.models import api, lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def within(got, want, rtol):
+        """|got − want| ≤ 2e-5 + rtol·|want| everywhere (fp32: rtol 2e-5,
+        the JAX kernel tests' tolerance; bf16 adds one rounding of the
+        output, 2^-8·|want|); returns (ok, max abs err)."""
+        d = (got.float() - want).abs()
+        return bool((d <= 2e-5 + rtol * want.abs()).all()), float(d.max())
+
+    # ---- (a) the kernels against their plain versions, white noise ------
+    flash_cases = [
+        # label, b, t, s, h, kh, hd, causal, window, softcap
+        ("recurrentgemma prefill", 4, 1024, 1024, 16, 1, 256, True, 0, 0.0),
+        ("tinyllama prefill (GQA g=8)", 4, 1024, 1024, 32, 4, 64, True, 0,
+         0.0),
+        ("window 128", 2, 512, 512, 8, 2, 128, True, 128, 0.0),
+        ("softcap 30", 2, 256, 256, 8, 1, 64, True, 0, 30.0),
+        ("ragged T=77", 2, 77, 77, 8, 1, 256, True, 0, 0.0),
+        ("T != S non-causal", 2, 200, 333, 8, 2, 64, False, 0, 0.0),
+        ("window, rows with no key", 1, 300, 200, 8, 1, 32, True, 50, 0.0),
+        ("reduced-config head_dim 16", 2, 24, 24, 4, 1, 16, True, 16, 0.0),
+    ]
+    flash_shapes = {}
+    for label, b, t, s, h, kh, hd, causal, window, softcap in flash_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, t, h, hd), (b, s, kh, hd),
+                                     (b, s, kh, hd)))
+            want = flash_ref.mha(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window,
+                                 softcap=softcap)
+            rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+            blocks = flash_k.BLOCKS if t == 1024 else (
+                flash_ops.auto_blocks(hd),)
+            worst = 0.0
+            for bq, bk in blocks:
+                got = flash_k.flash_mha_cuda(q, k, v, causal=causal,
+                                             window=window, softcap=softcap,
+                                             block_q=bq, block_k=bk)
+                torch.cuda.synchronize()
+                ok, err = within(got, want, rtol)
+                say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} "
+                    f"{str(dtype)[6:]} blocks ({bq}, {bk}): err {err:.3g} "
+                    f"(atol 2e-5 + {rtol:.3g}|want|)")
+                check(ok, f"flash {label} {dtype} ({bq}, {bk}): disagrees "
+                      f"with its plain version")
+                worst = max(worst, err)
+            if t == 1024:
+                flash_shapes[label] = (q, k, v, worst, causal)
+            del q, k, v, want, got
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = (4, 1024, 4096)
+        a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=dev)
+             ).to(dtype)
+        bb = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        want = lru_ref.lru_scan_ref(a.float(), bb.float())
+        rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8 + 2e-5
+        ok, err = within(lru_scan_cuda(a, bb), want, rtol)
+        ok2, err2 = within(lru_scan_cuda(a[0], bb[0]), want[0], rtol)
+        say(f"lru_scan {shape} {str(dtype)[6:]}: err {err:.3g}, (T, C) "
+            f"layout err {err2:.3g} (atol 2e-5 + {rtol:.3g}|want|)")
+        check(ok and ok2, f"lru_scan {dtype}: disagrees with its plain "
+              f"version")
+        if dtype == torch.float32:
+            lru_ms = time_ms(lambda: lru_scan_cuda(a, bb))
+            lru_plain_ms = time_ms(lambda: lru_ref.lru_scan_ref(a, bb))
+            b_ms, b_by = bound(3 * a.numel() * a.element_size(),
+                               2.0 * a.numel())
+            results[("lru_scan", "float32")] = dict(
+                err=err, ms=lru_ms, plain_ms=lru_plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape=list(shape))
+            say(f"lru_scan {shape} float32: {lru_ms:.4f} ms (plain "
+                f"{lru_plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; no "
+                f"single PyTorch call computes it)")
+        del a, bb, want
+    torch.cuda.empty_cache()
+
+    # The flash kernel's times at both models' prefill shapes (bf16, as
+    # the models run) beside the plain version and SDPA, the library
+    # yardstick, which the port never calls.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, name in FLASH_TIMES:
+        q, k, v, err, causal = flash_shapes[label]
+        b, t, h, hd = q.shape
+        ms = time_ms(lambda: flash_ops.flash_mha(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: flash_ref.mha(q, k, v, causal=causal))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True))
+        flops = flash_k.attention_flops(b, t, k.shape[1], h, hd,
+                                        causal=causal)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        results[(name, "bfloat16")] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by, shape=[list(q.shape),
+                                                 list(k.shape)],
+            tflops=flops / ms * 1e-9)
+        say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} bf16: "
+            f"{ms:.4f} ms = {flops / ms * 1e-9:.2f} TFLOP/s (plain "
+            f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms by {b_by})")
+        del q, k, v, qt, kt, vt
+    flash_shapes.clear()
+    torch.cuda.empty_cache()
+
+    # ---- (b) serving at full width -------------------------------------
+    path_launches = {}
+    for arch in SERVE_ARCHS:
+        cfg = registry.get_config(arch)
+        kinds = lm.layer_kinds(cfg)
+        n_attn = sum(kd != "rec" for kd in kinds)
+        n_rec = len(kinds) - n_attn
+        torch.cuda.reset_peak_memory_stats()
+        model = api.build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in params.parameters())
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(
+            np.int32) for n in rng.integers(PROMPT_LENS[0],
+                                            PROMPT_LENS[1] + 1,
+                                            size=SERVE_REQUESTS)]
+        plen = max(len(p) for p in prompts)
+        max_len = plen + SERVE_NEW
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        eng = ServeEngine(model, params, batch=SERVE_SLOTS, max_len=max_len)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+        want = {k: 0 for k in counts}
+        want["flash_attn"] = waves * n_attn
+        want["lru_scan"] = waves * n_rec * SERVE_NEW   # prefill + 31 steps
+        label = f"serve {arch}"
+        say(f"{label}: {n_params / 1e9:.3f} B parameters "
+            f"({cfg.param_dtype}), {SERVE_REQUESTS} requests, "
+            f"{SERVE_SLOTS} slots, prompts {min(map(len, prompts))}-{plen} "
+            f"tokens (padded to {plen}), {SERVE_NEW} new each; launches "
+            f"{counts} (planned {want})")
+        check(counts == want, f"{label}: launched {counts}, planned {want}")
+        path_launches[arch] = {k: counts[k] for k in ("flash_attn",
+                                                      "lru_scan")}
+        if arch == SERVE_ARCHS[0]:
+            main_launches.update(path_launches[arch])
+        check(sorted(out) == list(range(SERVE_REQUESTS))
+              and all(len(v) == SERVE_NEW for v in out.values()),
+              f"{label}: not every request got {SERVE_NEW} tokens")
+        check(all(0 <= t < cfg.vocab_size for v in out.values() for t in v),
+              f"{label}: a token outside the vocab")
+
+        # The first wave again by hand: prefill + decode_step, greedy, the
+        # same left-padded batch; flash launches only in the prefill.
+        toks = np.zeros((SERVE_SLOTS, plen), np.int64)
+        for i, r in enumerate(reqs[:SERVE_SLOTS]):
+            toks[i, plen - len(r.prompt):] = r.prompt
+        with torch.inference_mode():
+            _build.reset_launches()
+            logits, cache = model.prefill(
+                params, {"tokens": torch.from_numpy(toks).to(dev)},
+                max_len=max_len)
+            nxt = logits[:, -1].argmax(dim=-1)
+            finite = bool(torch.isfinite(logits[:, -1]).all())
+            del logits
+            torch.cuda.synchronize()
+            after_prefill = dict(_build.LAUNCHES)
+            hand = [nxt.cpu()]
+            for step in range(SERVE_NEW - 1):
+                lg, cache = model.decode_step(params, cache, nxt[:, None],
+                                              plen + step)
+                finite &= bool(torch.isfinite(lg).all())
+                nxt = lg[:, -1].argmax(dim=-1)
+                hand.append(nxt.cpu())
+            del cache, lg
+        torch.cuda.synchronize()
+        after_decode = dict(_build.LAUNCHES)
+        hand = torch.stack(hand, dim=1).tolist()
+        same = all(out[i] == hand[i] for i in range(SERVE_SLOTS))
+        say(f"{label}: engine vs hand-rolled loop, wave 1: "
+            f"{'equal token for token' if same else 'DIFFERENT'}; launches "
+            f"after prefill {after_prefill['flash_attn']} flash, "
+            f"{after_prefill['lru_scan']} lru; after {SERVE_NEW - 1} decode "
+            f"steps {after_decode['flash_attn']} flash, "
+            f"{after_decode['lru_scan']} lru; logits finite {finite}")
+        check(same, f"{label}: the engine differs from its stepwise loop")
+        check(finite, f"{label}: non-finite logits")
+        check(after_prefill["flash_attn"] == n_attn
+              and after_prefill["lru_scan"] == n_rec
+              and after_decode["flash_attn"] == n_attn
+              and after_decode["lru_scan"] == n_rec * SERVE_NEW,
+              f"{label}: stepwise launches {after_prefill} then "
+              f"{after_decode}")
+
+        # Where the device time goes: one wave's prefill, then 8 decode
+        # steps (fewer if the cache would not hold them), each under the
+        # profiler.
+        n_dec = min(8, SERVE_NEW - 1)
+        with torch.inference_mode():
+            tk = torch.from_numpy(toks).to(dev)
+            holder = {}
+
+            def prefill():
+                holder["lg"], holder["cache"] = model.prefill(
+                    params, {"tokens": tk}, max_len=max_len)
+                holder["nxt"] = holder["lg"][:, -1:].argmax(dim=-1)
+
+            def decode():
+                for step in range(n_dec):
+                    lg, holder["cache"] = model.decode_step(
+                        params, holder["cache"], holder["nxt"], plen + step)
+                    holder["nxt"] = lg[:, -1:].argmax(dim=-1)
+
+            prof = {"prefill": device_breakdown(prefill)}
+            del holder["lg"]
+            prof[f"decode_{n_dec}_steps"] = device_breakdown(decode)
+            del holder
+        results[(f"profile_{arch}", cfg.dtype)] = prof
+        for part, br in prof.items():
+            if br is None:
+                say(f"{label} {part}: the profiler saw no device kernel "
+                    f"(device breakdown not measured)")
+                continue
+            say(f"{label} {part} under torch.profiler: host window "
+                f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
+                f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
+                f"kernels; by kind (ms) " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in br["by_category_ms"].items()))
+
+        # ---- (c) times: the engine's host clock, which each wave's
+        # sampling synchronises
+        pre = eng.stats["prefill_s"]
+        dec = eng.stats["decode_s"]
+        # prompt tokens/s over every wave (padded tokens: what the device
+        # computes); the first wave also pays for the library's first calls
+        # at these shapes
+        prompt_tps = SERVE_SLOTS * plen * len(pre) / sum(pre)
+        decode_ms = statistics.median(dec) * 1e3
+        results[(f"serve_{arch}", cfg.dtype)] = dict(
+            params_b=n_params / 1e9, prompt_tokens=sum(map(len, prompts)),
+            padded_prompt_len=plen, waves=len(pre),
+            prefill_ms_per_wave=[x * 1e3 for x in pre],
+            prefill_tokens_per_s=prompt_tps,
+            decode_ms_per_step=decode_ms, decode_steps=len(dec),
+            decode_tokens_per_s=SERVE_SLOTS / statistics.median(dec),
+            latency_s=[r.latency_s for r in reqs],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        say(f"{label}: prefill {[round(x * 1e3, 2) for x in pre]} ms a wave "
+            f"({SERVE_SLOTS} x {plen} tokens: {prompt_tps:.0f} prompt "
+            f"tokens/s over the waves), decode {decode_ms:.3f} ms a "
+            f"step (median of {len(dec)}; "
+            f"{SERVE_SLOTS / statistics.median(dec):.1f} tokens/s); request "
+            f"latency {min(r.latency_s for r in reqs):.2f}-"
+            f"{max(r.latency_s for r in reqs):.2f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del model, params, eng, out
+        torch.cuda.empty_cache()
+
+    # Reduced configs, fp32: the same model on the card (kernels) and on
+    # the CPU (plain versions), at the fp32 parity test's 3e-4.
+    for arch in ("tinyllama-1.1b", "recurrentgemma-9b", "gemma3-27b",
+                 "olmo-1b"):
+        cfg = dataclasses.replace(
+            registry.reduced_config(registry.get_config(arch)),
+            dtype="float32", param_dtype="float32")
+        model = api.build(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(2, 25)))
+        logits = []
+        for where in ("cpu", dev):
+            if where != "cpu":
+                model = api.build(cfg)
+                params = params.to(dev)          # moves the module in place
+            with torch.inference_mode():
+                tk = toks.to(where)
+                lp, cache = model.prefill(params, {"tokens": tk[:, :24]},
+                                          max_len=32)
+                ld, _ = model.decode_step(params, cache, tk[:, 24:], 24)
+            logits.append((lp.float().cpu(), ld.float().cpu()))
+        err = max(float((c - g).abs().max()) for c, g in zip(*logits))
+        scale = max(float(c.abs().max()) for c in logits[0])
+        say(f"reduced {arch} fp32: card vs CPU logits err {err:.3g} (atol "
+            f"3e-4 + 3e-4|want|, |logits| <= {scale:.3g})")
+        check(all(bool(((g - c).abs() <= 3e-4 + 3e-4 * c.abs()).all())
+                  for c, g in zip(*logits)),
+              f"reduced {arch}: the card disagrees with the CPU")
+        del model, params
+    torch.cuda.empty_cache()
+    return path_launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    t_phase = [time.perf_counter()]
+
+    def phase_done(label: str) -> None:
+        """Print the seconds a phase took on the host's clock."""
+        now = time.perf_counter()
+        say(f"{label}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import autotune, hwspec, tiling
@@ -145,6 +539,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+
+    phase_done("phase 1 (the card)")
 
     # ---- 2. build -------------------------------------------------------
     _build.load()
@@ -262,6 +658,8 @@ def main() -> int:
         check(field <= 1e-5 and stage <= 2e-4 and every <= LOOSE,
               f"{label}: the k-step round disagrees with fused_kstep_ref")
         return max(float(df.max()), float(ds.max()))
+
+    phase_done("phase 2 (build)")
 
     # ---- 3. each kernel against its plain version on the card ----------
     # White noise at the main path's shapes, scaled as the JAX package's
@@ -516,6 +914,8 @@ def main() -> int:
         del src, planes4, fs, ts, ss, wcon, w
         torch.cuda.empty_cache()
 
+    phase_done("phase 3 (kernel checks)")
+
     # ---- 4. the main path and the per-kernel plans ----------------------
     def energy(st):
         return float(sum(float(f.float().square().sum())
@@ -740,6 +1140,8 @@ def main() -> int:
         del st, out, oracle
         torch.cuda.empty_cache()
 
+    phase_done("phase 4 (main path)")
+
     # ---- 5. the NeroEngine entry point ---------------------------------
     # plan + run for hdiff and vadvc at the paper's domain in both dtypes,
     # and copy, on the card: each result against the direct kernel call
@@ -898,7 +1300,14 @@ def main() -> int:
         f"TB/s, 268 MB read and written, on {card}")
     torch.cuda.empty_cache()
 
-    # ---- 6. the kernels line --------------------------------------------
+    phase_done("phase 5 (NeroEngine)")
+
+    # ---- 6. LM serving --------------------------------------------------
+    path_launches = serve_phase(torch, dev, check, results, main_launches)
+
+    phase_done("phase 6 (LM serving)")
+
+    # ---- 7. the kernels line --------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
                "hdiff": ("src/repro_torch/csrc/hdiff.cu",
@@ -912,10 +1321,15 @@ def main() -> int:
                "hadv": ("src/repro_torch/csrc/hadv.cu",
                         "src/repro/kernels/hadv/hadv.py:47"),
                "copy": ("src/repro_torch/csrc/copy.cu",
-                        "src/repro/kernels/copy_stencil/copy_stencil.py:17")}
+                        "src/repro/kernels/copy_stencil/copy_stencil.py:17"),
+               "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
+                              "src/repro/kernels/flash_attention/flash.py:77"),
+               "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
+                            "src/repro/kernels/lru_scan/lru_scan.py:41")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        r = results[(name, "float32")]
+        # the LM path runs flash attention in bf16, the rest in fp32
+        r = results[(name, "bfloat16" if name == "flash_attn" else "float32")]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": main_launches[name],
@@ -923,10 +1337,26 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if name in ("flash_attn", "lru_scan"):
+            # each serving path's own launches; flash also its own times
+            # at that model's prefill shape
+            paths = {arch: {"launches": n[name]}
+                     for arch, n in path_launches.items()}
+            if name == "flash_attn":
+                for (label, key), arch in zip(FLASH_TIMES, SERVE_ARCHS):
+                    r = results[(key, "bfloat16")]
+                    paths[arch].update(
+                        shape=r["shape"], max_abs_err=r["err"], ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"],
+                        library_ms=r["library_ms"])
+            kernels[-1]["paths"] = paths
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
-        "interior; copy's is Tensor.copy_ into a preallocated tensor")
+        "interior; copy's is Tensor.copy_ into a preallocated tensor; "
+        "flash_attn's is scaled_dot_product_attention (causal, enable_gqa) "
+        "at recurrentgemma-9b's prefill shape; none computes the LRU sweep")
     if failures:
         raise SmokeFailure(f"{len(failures)} check(s) failed: "
                            + "; ".join(failures))

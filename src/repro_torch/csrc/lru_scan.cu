@@ -1,0 +1,86 @@
+// First-order linear recurrence h_t = a_t·h_{t-1} + b_t, h_{-1} = 0 (the
+// RG-LRU sweep of Griffin / RecurrentGemma), fp32 carry, float32 or
+// bfloat16 in and out.
+//
+// Replaces the TPU kernel `lru_scan_pallas`
+// (src/repro/kernels/lru_scan/lru_scan.py, body `_lru_kernel`).
+//
+// Bound: device-memory bytes. Each element of a and b is read once and each
+// h written once, with two flops per element.
+//
+// Design: the TPU kernel sweeps (tt, tc) tiles with the carry in VMEM
+// scratch across its sequential time axis. Here the time axis is a loop
+// inside one thread per channel: channels are contiguous, so a warp's loads
+// and stores at each step are coalesced, and the carry lives in a register
+// for the whole sweep. Each thread loads kUnroll steps of a and b before it
+// uses them, so that many loads are in flight. It takes a batch of
+// independent (T, C) sweeps (the model's (B, T, W) layout); one block of
+// 64 channels of one batch row keeps enough blocks for the SMs at the
+// serving path's B = 4, C = 4096. Multiply and add round separately (the
+// library is built with -fmad=false), as `a * h + b` does in PyTorch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 64;
+constexpr int kUnroll = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                    T* __restrict__ h, int steps, int channels) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= channels) return;
+  const long long base =
+      static_cast<long long>(blockIdx.y) * steps * channels + c;
+  const T* ap = a + base;
+  const T* bp = b + base;
+  T* hp = h + base;
+  float carry = 0.0f;
+  int t = 0;
+  for (; t + kUnroll <= steps; t += kUnroll) {
+    float av[kUnroll], bv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = static_cast<long long>(t + u) * channels;
+      av[u] = nero::ld(ap, i);
+      bv[u] = nero::ld(bp, i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      carry = av[u] * carry + bv[u];
+      nero::st(hp, static_cast<long long>(t + u) * channels, carry);
+    }
+  }
+  for (; t < steps; ++t) {
+    const long long i = static_cast<long long>(t) * channels;
+    carry = nero::ld(ap, i) * carry + nero::ld(bp, i);
+    nero::st(hp, i, carry);
+  }
+}
+
+}  // namespace
+
+// a, b, h: (batch, steps, channels), contiguous; `bf16` selects bfloat16
+// over float32.
+extern "C" int nero_lru_scan(const void* a, const void* b, void* h, int bf16,
+                             int batch, int steps, int channels,
+                             void* stream) {
+  if (batch <= 0 || steps <= 0 || channels <= 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((channels + kThreads - 1) / kThreads, batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    lru_scan_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(h),
+        steps, channels);
+  else
+    lru_scan_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(h), steps, channels);
+  return static_cast<int>(cudaGetLastError());
+}

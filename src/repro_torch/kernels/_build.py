@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
-           "hdiff_kstep.cu", "hadv.cu", "copy.cu")
+           "hdiff_kstep.cu", "hadv.cu", "copy.cu", "flash_attn.cu",
+           "lru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -47,11 +48,15 @@ _SIGNATURES = {
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
     "nero_copy": (_P, _P, _LL, _P),
+    "nero_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                        _LL, _LL, _I, _I, _F, _F, _P),
+    "nero_lru_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,
                              "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0,
-                             "copy": 0}
+                             "copy": 0, "flash_attn": 0, "lru_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, object] = {}

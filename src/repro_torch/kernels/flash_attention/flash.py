@@ -1,0 +1,111 @@
+"""Flash attention: the CUDA kernel's launcher (`csrc/flash_attn.cu`).
+
+Replaces the TPU kernel
+`repro.kernels.flash_attention.flash.flash_mha_pallas`. The kernel computes
+what it computes — per (batch, head, q block), an online softmax over kv
+blocks with q scaled in float32, the finite -1e30 mask sentinel and fp32
+running max, sum and accumulator — and also takes T and S that the blocks
+do not divide (the last block is ragged; keys past S add nothing), where
+the TPU kernel refuses them. Its plain version is `ref.mha`. Forward only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's instantiations
+BLOCKS = ((64, 64), (32, 32))          # (block_q, block_k), largest first
+
+
+def smem_bytes(hd: int, block_q: int, block_k: int) -> int:
+    """Dynamic shared memory of one kernel block (`Smem` in the source):
+    fp32 q and k tiles with padded rows, the v tile, the score tile with
+    padded rows, and the running max, sum and correction of each row."""
+    floats = (block_q * (hd + 1) + block_k * (hd + 1) + block_k * hd
+              + block_q * (block_k + 1) + 3 * block_q)
+    return 4 * floats
+
+
+def check_operands(q, k, v, window: int) -> None:
+    """The shapes the kernel and its plain version take: q (B, T, H, hd), k and v
+    (B, S, KH, hd), H % KH == 0, one float dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attn: q, k, v must be 4-D, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, t, h, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"flash_attn: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B={b}, S, KH, hd={hd})")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"flash_attn: H={h} is not a multiple of "
+                         f"KH={k.shape[2]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attn: dtypes differ: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if window < 0:
+        raise ValueError(f"flash_attn: window={window} < 0")
+
+
+def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, block_q: int = 64,
+                   block_k: int = 64) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors q (B, T, H, hd) and k, v
+    (B, S, KH, hd), float32 or bfloat16, each with a contiguous last axis
+    (any other strides); returns a new contiguous (B, T, H, hd) tensor in
+    q's dtype. Raises on what the kernel does not take."""
+    check_operands(q, k, v, window)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+            raise ValueError(f"flash_attn: {name} must be a CUDA tensor, got "
+                             f"{getattr(x, 'device', type(x))}")
+        if x.device != q.device:
+            raise ValueError("flash_attn: q, k, v lie on different devices")
+        if x.stride(-1) != 1:
+            raise ValueError(f"flash_attn: {name} needs a contiguous last "
+                             f"axis, got strides {x.stride()}")
+        if x.requires_grad:
+            raise ValueError("flash_attn: the kernel is forward only; "
+                             f"{name} requires grad")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attn: dtype {q.dtype}; expected float32 or "
+                         f"bfloat16")
+    b, t, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attn: head_dim {hd} not in {HEAD_DIMS}")
+    if (block_q, block_k) not in BLOCKS:
+        raise ValueError(f"flash_attn: blocks ({block_q}, {block_k}) not in "
+                         f"{BLOCKS}")
+    out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or s == 0:
+        raise ValueError(f"flash_attn: empty operands {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.nero_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, t, s, h, kh, hd, block_q,
+            block_k, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal), int(window), float(softcap),
+            float(hd ** -0.5), _build.stream_of(q))
+    _build.check(err, "flash_attn")
+    _build.LAUNCHES["flash_attn"] += 1
+    return out
+
+
+def attention_flops(b: int, t: int, s: int, h: int, hd: int, *,
+                    causal: bool, window: int = 0) -> float:
+    """The operations the mask's kept (query, key) pairs need: 2·hd for
+    q·k and 2·hd for p·v each (masked pairs need none)."""
+    qpos = torch.arange(t, dtype=torch.float64)[:, None]
+    kpos = torch.arange(s, dtype=torch.float64)[None, :]
+    keep = torch.ones((t, s), dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= (qpos - kpos) < window
+    return 4.0 * hd * b * h * float(keep.sum())

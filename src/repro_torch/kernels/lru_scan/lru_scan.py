@@ -1,0 +1,47 @@
+"""The CUDA LRU-sweep kernel (`csrc/lru_scan.cu`) and its launcher.
+
+Replaces the TPU kernel `repro.kernels.lru_scan.lru_scan.lru_scan_pallas`.
+The plain version beside it is `ref.lru_scan_ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    """a and b of one shape, (T, C) or (B, T, C), and one dtype."""
+    if a.shape != b.shape or a.dim() not in (2, 3):
+        raise ValueError(f"lru_scan: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} must both be (T, C) or (B, T, C)")
+    if a.dtype != b.dtype:
+        raise ValueError(f"lru_scan: dtypes differ: {a.dtype}, {b.dtype}")
+
+
+def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis -2 of contiguous CUDA tensors
+    (T, C) or (B, T, C), float32 or bfloat16, with an fp32 carry; returns a
+    new tensor in a's dtype. Forward only."""
+    check_operands(a, b)
+    for name, x in (("a", a), ("b", b)):
+        _build.check_operand("lru_scan", name, x, a.shape, a.dtype)
+        if x.requires_grad:
+            raise ValueError("lru_scan: the kernel is forward only; "
+                             f"{name} requires grad")
+    if b.device != a.device:
+        raise ValueError("lru_scan: a and b lie on different devices")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    steps, channels = a.shape[-2], a.shape[-1]
+    h = torch.empty_like(a)
+    if h.numel() == 0:
+        return h
+    lib = _build.load()
+    with torch.cuda.device(a.device):
+        err = lib.nero_lru_scan(a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                                int(a.dtype == torch.bfloat16), batch, steps,
+                                channels, _build.stream_of(a))
+    _build.check(err, "lru_scan")
+    _build.LAUNCHES["lru_scan"] += 1
+    return h

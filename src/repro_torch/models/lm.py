@@ -1,0 +1,143 @@
+"""Decoder-only LM assembled from blocks.
+
+A port of `repro.models.lm` for serving. The JAX package scans one pattern
+period (super-block) per step over stacked params, then runs an explicit
+remainder; the port keeps one `Block` module per layer and loops over them
+in the same order — the super-blocks' layers, repeat by repeat, then
+`rem{r}`. A cache is a list with one entry per layer, in that order.
+Positions are `arange(T)` from 0 in prefill even when prompts are
+left-padded, exactly as in the JAX package. The training loss
+(`chunked_xent`, `loss_fn`) is not ported yet (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models.common import (ParamTree, embed_init, norm_apply,
+                                       norm_init, torch_dtype)
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Every layer's block kind, in the order the forward pass runs them."""
+    return (list(cfg.pattern) * cfg.n_repeats
+            + [cfg.pattern[r] for r in range(cfg.n_remainder)])
+
+
+class LM(nn.Module):
+    """The model's parameters: the embedding, one `Block` per layer, the
+    final norm and (untied) the LM head, all named and laid out as the JAX
+    package's (`head` is `(d_model, padded_vocab)`)."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
+                 block_params: Sequence[Mapping[str, object]],
+                 final_norm: Mapping[str, torch.Tensor],
+                 head: Optional[torch.Tensor] = None):
+        super().__init__()
+        kinds = layer_kinds(cfg)
+        if len(block_params) != len(kinds):
+            raise ValueError(f"{len(block_params)} blocks for {len(kinds)} "
+                             f"layers")
+        if cfg.tie_embeddings != (head is None):
+            raise ValueError("a tied config takes no head; an untied one "
+                             "needs one")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.blocks = nn.ModuleList(
+            B.Block(kind, cfg, p) for kind, p in zip(kinds, block_params))
+        self.final_norm = ParamTree(final_norm)
+        self.head = (None if head is None
+                     else nn.Parameter(head, requires_grad=False))
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> LM:
+    """Random parameters from `gen`, on its device."""
+    dtype = torch_dtype(cfg.param_dtype)
+    blocks = [B.block_init(kind, gen, cfg, dtype) for kind in layer_kinds(cfg)]
+    embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)
+    head = None
+    if not cfg.tie_embeddings:
+        head = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype).T
+        head = head.contiguous()
+    return LM(cfg, embed, blocks, norm_init(cfg, cfg.d_model, gen.device),
+              head)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
+    dtype = torch_dtype(cfg.dtype)
+    return [B.init_block_cache(kind, cfg, batch, max_len, dtype, device)
+            for kind in layer_kinds(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _positions(b: int, t: int, offset: int, device) -> torch.Tensor:
+    pos = offset + torch.arange(t, device=device)
+    return pos.expand(b, t)
+
+
+def apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor, *,
+          mode: str = "train", cache: Optional[list] = None, pos: int = 0):
+    """Forward pass.
+
+    tokens: (B, T) integer. mode "train": logits only. "prefill": logits +
+    filled cache. "decode": T == 1, reads/writes cache at `pos`.
+    Returns (logits, new_cache).
+    """
+    x = params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    b, t = x.shape[:2]
+    positions = _positions(b, t, pos if mode == "decode" else 0, x.device)
+    new_cache = [] if cache is not None else None
+    for i, block in enumerate(params.blocks):
+        c = cache[i] if cache is not None else None
+        x, nc = block(x, positions=positions, mode=mode, cache=c, pos=pos)
+        if cache is not None:
+            new_cache.append(nc)
+    x = norm_apply(cfg, params.final_norm, x)
+    head = params.embed.T if cfg.tie_embeddings else params.head
+    logits = x @ head.to(x.dtype)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    logits = mask_padded_vocab(logits, cfg.vocab_size)
+    return logits, new_cache
+
+
+def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-1e30 out the physical padding columns (padded_vocab > vocab_size) so
+    sampling never sees them."""
+    pv = logits.shape[-1]
+    if pv == vocab:
+        return logits
+    valid = torch.arange(pv, device=logits.device) < vocab
+    return torch.where(valid, logits,
+                       torch.tensor(-1e30, dtype=logits.dtype,
+                                    device=logits.device))
+
+
+def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+            max_len: Optional[int] = None):
+    """Run the prompt, return (logits, cache ready for decode at pos=T)."""
+    b, t = tokens.shape
+    cache = init_cache(cfg, b, max_len or t, tokens.device)
+    logits, cache = apply(cfg, params, tokens, mode="prefill", cache=cache)
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params: LM, cache: list,
+                token: torch.Tensor, pos: int):
+    """token: (B, 1) -> (logits (B,1,V), cache). Writes the new token's K/V
+    into `cache` in place."""
+    logits, cache = apply(cfg, params, token, mode="decode", cache=cache,
+                          pos=pos)
+    return logits, cache

@@ -1,0 +1,205 @@
+"""PyTorch port of the flash-attention kernel against the JAX package.
+
+The same seeded numpy inputs go through the JAX package's Pallas kernel
+(`flash_mha_pallas`, interpret mode) and through the port's plain versions
+on the CPU: `ref.mha` (materialized softmax), which `ops.flash_mha` runs
+on a CPU tensor; bf16 crosses as `uint16` bits. The
+tolerances are the JAX kernel test's (`tests/test_kernels_flash.py`): fp32
+2e-5, bf16 2e-2. Shapes the Pallas kernel refuses (T or S not a multiple
+of the blocks) are held against the JAX package's `ref.mha`. The `cuda`
+cases hold the CUDA kernel against its plain version on the card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import flash_mha_pallas
+from repro.kernels.flash_attention import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash, ops, ref
+from repro_torch.weather import convert
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    return torch.device("cuda")
+
+
+def _inputs(b, t, s, h, kh, hd, dtype, seed=0):
+    """q, k, v as jax arrays and as CPU tensors with the same bits."""
+    rng = np.random.default_rng(seed)
+    shapes = ((b, t, h, hd), (b, s, kh, hd), (b, s, kh, hd))
+    js = [jnp.asarray(rng.normal(size=sh).astype(np.float32)).astype(dtype)
+          for sh in shapes]
+    return js, [convert.tensor_from_numpy(np.asarray(x), "cpu") for x in js]
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _run(b, t, s, h, kh, hd, dtype, causal, window, softcap, bq=64, bk=64):
+    (jq, jk, jv), (q, k, v) = _inputs(b, t, s, h, kh, hd, dtype)
+    want = np.asarray(flash_mha_pallas(jq, jk, jv, causal=causal,
+                                       window=window, softcap=softcap,
+                                       block_q=bq, block_k=bk,
+                                       interpret=True), np.float32)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    got = ops.flash_mha(q, k, v, causal=causal, window=window,
+                        softcap=softcap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+    plain = ref.mha(q, k, v, causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(_np(plain), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_basic_shapes(dtype, causal):
+    _run(2, 128, 128, 4, 4, 32, dtype, causal, 0, 0.0)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_gqa_groups_and_head_dims(g, hd):
+    _run(1, 64, 64, 2 * g, 2, hd, "float32", True, 0, 0.0)
+
+
+def test_mqa_bf16_at_recurrentgemma_head_dim():
+    _run(1, 64, 64, 8, 1, 256, "bfloat16", True, 0, 0.0)
+
+
+def test_sliding_window():
+    _run(1, 256, 256, 2, 2, 32, "float32", True, 64, 0.0)
+
+
+def test_softcap():
+    _run(1, 128, 128, 2, 1, 32, "float32", True, 0, 30.0)
+
+
+def test_cross_attention_rectangular():
+    # prefill-style T != S, non-causal (whisper cross-attn shape)
+    _run(2, 64, 192, 4, 2, 32, "float32", False, 0, 0.0)
+
+
+@pytest.mark.parametrize("t,s,causal,window", [
+    (77, 77, True, 0), (77, 77, True, 16), (50, 130, False, 0),
+    (100, 40, True, 24), (1, 1, True, 0), (129, 65, False, 8)])
+def test_ragged_lengths_match_the_jax_reference(t, s, causal, window):
+    """T and S the blocks do not divide (the Pallas kernel refuses them);
+    (100, 40) with a window leaves rows 63.. with no key at all, which the
+    -1e30 sentinel turns into the mean of v, as in the reference."""
+    (jq, jk, jv), (q, k, v) = _inputs(2, t, s, 4, 2, 16, "float32")
+    want = np.asarray(jref.mha(jq, jk, jv, causal=causal, window=window))
+    got = ops.flash_mha(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+
+
+def test_auto_blocks_fit_the_shared_memory():
+    for hd in flash.HEAD_DIMS:
+        bq, bk = ops.auto_blocks(hd)
+        assert (bq, bk) == flash.BLOCKS[0]
+        assert flash.smem_bytes(hd, bq, bk) <= ops.SMEM_BUDGET
+    # hd 256 at (64, 64) needs 214,528 bytes: a smaller budget takes
+    # (32, 32); none fits 64 KB
+    assert flash.smem_bytes(256, 64, 64) == 214528
+    assert ops.auto_blocks(256, budget=150_000) == (32, 32)
+    with pytest.raises(ValueError, match="no block"):
+        ops.auto_blocks(256, budget=65536)
+
+
+def test_attention_flops_count_the_kept_pairs():
+    assert flash.attention_flops(1, 4, 4, 1, 8, causal=True) == 4 * 8 * 10
+    assert flash.attention_flops(2, 3, 5, 2, 8, causal=False) == \
+        4 * 8 * 2 * 2 * 15
+    assert flash.attention_flops(1, 6, 6, 1, 1, causal=True, window=2) == \
+        4 * 11
+
+
+def test_both_versions_refuse_the_same_shapes():
+    q = torch.zeros(1, 8, 3, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    for fn in (ops.flash_mha, flash.flash_mha_cuda):
+        with pytest.raises(ValueError, match="multiple"):
+            fn(q, k, k)
+        with pytest.raises(ValueError, match="window"):
+            fn(q, q, q, window=-1)
+        with pytest.raises(ValueError):
+            fn(q, q.double(), q)
+
+
+def test_cpu_call_launches_nothing():
+    (_, _, _), (q, k, v) = _inputs(1, 64, 64, 2, 1, 16, "float32")
+    before = dict(_build.LAUNCHES)
+    ops.flash_mha(q, k, v)
+    assert _build.LAUNCHES == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    (_, _, _), (q, k, v) = _inputs(1, 64, 64, 2, 1, 16, "float32")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash.flash_mha_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+CUDA_CASES = [
+    # b, t, s, h, kh, hd, causal, window, softcap
+    (2, 256, 256, 16, 1, 256, True, 0, 0.0),      # recurrentgemma MQA
+    (2, 256, 256, 32, 4, 64, True, 0, 0.0),       # tinyllama GQA g = 8
+    (2, 77, 77, 8, 1, 64, True, 0, 0.0),          # ragged T
+    (1, 256, 256, 2, 2, 32, True, 64, 0.0),       # window
+    (1, 128, 128, 2, 1, 32, True, 0, 30.0),       # softcap
+    (2, 64, 192, 4, 2, 128, False, 0, 0.0),       # T != S non-causal
+    (1, 300, 200, 8, 1, 16, True, 50, 0.0),       # rows with no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", flash.BLOCKS)
+def test_cuda_kernel_matches_plain(case, dtype, blocks, cuda):
+    b, t, s, h, kh, hd, causal, window, softcap = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, t, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    _build.reset_launches()
+    got = flash.flash_mha_cuda(q, k, v, causal=causal, window=window,
+                               softcap=softcap, block_q=blocks[0],
+                               block_k=blocks[1])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.mha(q.float(), k.float(), v.float(), causal=causal,
+                   window=window, softcap=softcap)
+    # fp32: the JAX kernel test's 2e-5; bf16: the output's one rounding
+    rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((got.float() - want).abs()
+                 <= 2e-5 + rtol * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_reads_strided_operands(cuda):
+    """q, k, v as views into fused projections (no copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 64, 8 + 2 + 2, 32, generator=gen, device=cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = ops.flash_mha(q, k, v)
+    want = ref.mha(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_grad(cuda):
+    q = torch.zeros(1, 8, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        flash.flash_mha_cuda(q, q.detach(), q.detach())

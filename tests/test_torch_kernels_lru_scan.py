@@ -1,0 +1,137 @@
+"""PyTorch port of the LRU-sweep kernel against the JAX package.
+
+The same seeded numpy inputs go through the JAX package's Pallas kernel
+(`lru_scan_pallas`, interpret mode) and its associative-scan oracle
+(`lru_scan_ref`), and through the port's plain version on the CPU
+(`ops.lru_scan`, a log-depth doubling scan in fp32), at the JAX kernel
+test's 2e-5 (`tests/test_kernels_copy_scan.py`). The model's batched
+(B, T, W) layout with a carried state goes through `models.rglru.lru_scan`
+in both packages. The `cuda` cases hold the CUDA kernel (one thread per
+channel, sequential in time) against the plain version on the card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp
+
+from repro.kernels.lru_scan.lru_scan import lru_scan_pallas
+from repro.kernels.lru_scan.ref import lru_scan_ref as jax_lru_scan_ref
+from repro.models import rglru as jrglru
+from repro_torch.kernels import _build
+from repro_torch.kernels.lru_scan import ops, ref
+from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+from repro_torch.models import rglru
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    return torch.device("cuda")
+
+
+def _ab(rng, shape):
+    a = rng.uniform(0.3, 0.99, size=shape).astype(np.float32)
+    b = rng.normal(size=shape).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("shape,tiles", [((32, 64), (8, 32)),
+                                         ((64, 128), (16, 128)),
+                                         ((16, 32), (16, 16))])
+def test_plain_version_matches_pallas_and_ref(shape, tiles, rng):
+    a, b = _ab(rng, shape)
+    got = ops.lru_scan(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    tt, tc = tiles
+    kern = np.asarray(lru_scan_pallas(jnp.asarray(a), jnp.asarray(b), tt=tt,
+                                      tc=tc, interpret=True))
+    oracle = np.asarray(jax_lru_scan_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, kern, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, oracle, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("t", [1, 2, 7, 33])
+def test_batched_layout_with_carried_state(t, rng):
+    """The model's call: (B, T, W) with h0 folded into the first step."""
+    a, b = _ab(rng, (3, t, 16))
+    h0 = rng.normal(size=(3, 16)).astype(np.float32)
+    want = np.asarray(jrglru.lru_scan(jnp.asarray(a), jnp.asarray(b),
+                                      jnp.asarray(h0)))
+    got = rglru.lru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(h0)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    # against the step-by-step recurrence
+    h = h0
+    for i in range(t):
+        h = a[:, i] * h + b[:, i]
+        np.testing.assert_allclose(got[:, i], h, rtol=2e-5, atol=2e-5)
+
+
+def test_bf16_operands_scan_in_fp32(rng):
+    a, b = _ab(rng, (40, 24))
+    ta = torch.from_numpy(a).bfloat16()
+    tb = torch.from_numpy(b).bfloat16()
+    got = ops.lru_scan(ta, tb)
+    assert got.dtype == torch.bfloat16
+    want = ref.lru_scan_ref(ta.float(), tb.float())
+    assert torch.equal(got, want.bfloat16())
+
+
+def test_plain_version_refuses_mismatched_operands():
+    a = torch.zeros(4, 8)
+    for b in (torch.zeros(4, 9), torch.zeros(4, 8).double()):
+        with pytest.raises(ValueError):
+            ops.lru_scan(a, b)
+    with pytest.raises(ValueError):
+        ops.lru_scan(torch.zeros(8), torch.zeros(8))
+
+
+def test_cpu_call_launches_nothing(rng):
+    a, b = _ab(rng, (8, 16))
+    before = dict(_build.LAUNCHES)
+    ops.lru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    assert _build.LAUNCHES == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors(rng):
+    a, b = _ab(rng, (8, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lru_scan_cuda(torch.from_numpy(a), torch.from_numpy(b))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128), (4, 1024, 4096), (3, 1, 4096),
+                                   (2, 13, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain(shape, dtype, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=cuda)).to(dtype)
+    b = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    _build.reset_launches()
+    got = ops.lru_scan(a, b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lru_scan"] == 1
+    assert got.dtype == dtype and got.shape == a.shape
+    want = ref.lru_scan_ref(a.float(), b.float())
+    # fp32: the JAX kernel test's 2e-5; bf16: the output's one rounding
+    rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8 + 2e-5
+    assert bool(((got.float() - want).abs()
+                 <= 2e-5 + rtol * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_model_scan_with_carried_state(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = 0.3 + 0.69 * torch.rand(2, 5, 64, generator=gen, device=cuda)
+    b = torch.randn(2, 5, 64, generator=gen, device=cuda)
+    h0 = torch.randn(2, 64, generator=gen, device=cuda)
+    got = rglru.lru_scan(a, b, h0)
+    want = rglru.lru_scan(a.cpu(), b.cpu(), h0.cpu())
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 2e-5
