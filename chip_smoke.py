@@ -25,10 +25,20 @@ depths with random bf16 weights (8 requests, 4 slots, 256-1024-token
 prompts, 32 new tokens each; launch counts as planned, tokens equal to a
 hand-rolled prefill + decode loop), the reduced configs on the card
 against the CPU, and the times of prefill, decode and both kernels (flash
-beside `scaled_dot_product_attention`); times every kernel, its plain
-version, one main-path step and one k-step round with CUDA events; prints
-one JSON `kernels` line, then the result line. Any failure exits nonzero.
-Imports nothing of JAX.
+beside `scaled_dot_product_attention`); then the LM training path: the
+cross-entropy kernel against its plain version (ragged N, padded vocab,
+softcap, valid mask, both head layouts; float32 and bfloat16; both
+training shapes) and the flash kernel at both training shapes, the
+gradients of the xent (float32 and bfloat16), LRU and flash autograd
+Functions against autograd of their plain versions, `train.loop.fit` over tinyllama-1.1b (full width
+and depth, 5 steps) and recurrentgemma-9b (full width, 3 layers, 3 steps)
+at batch 4 x 2048 in bf16 with `remat="full"` (launches as planned, finite
+losses, moved parameters), a reduced fp32 step on the card against the
+CPU, each step's time, tokens/s, mfu, peak memory and a profiler split,
+and the xent kernel's time at each training shape; times every kernel,
+its plain version, one main-path step and one k-step round with CUDA
+events; prints one JSON `kernels` line, then the result line. Any failure
+exits nonzero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,6 +71,9 @@ SERVE_REQUESTS = 8
 SERVE_SLOTS = 4
 SERVE_NEW = 32                 # new tokens a request
 PROMPT_LENS = (256, 1024)      # prompt lengths, drawn from a seed
+# LM training: (arch, layers kept (0: all), steps); full width, bf16
+TRAIN_RUNS = (("tinyllama-1.1b", 0, 5), ("recurrentgemma-9b", 3, 3))
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048      # tinyllama's published context
 
 
 class SmokeFailure(Exception):
@@ -131,6 +144,8 @@ def kernel_category(name: str) -> str:
         return "flash_attn"
     if "lru_scan" in n:
         return "lru_scan"
+    if "xent_partial" in n or "xent_combine" in n:
+        return "xent"
     if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     if "memcpy" in n or "memset" in n:
@@ -486,6 +501,365 @@ def serve_phase(torch, dev, check, results, main_launches):
                   for c, g in zip(*logits)),
               f"reduced {arch}: the card disagrees with the CPU")
         del model, params
+    torch.cuda.empty_cache()
+    return path_launches
+
+
+def train_phase(torch, dev, check, results):
+    """The LM training path on the card (phase 7): the cross-entropy
+    kernel against its plain version, the gradients of the three kernels'
+    autograd Functions against autograd of their plain versions, AdamW
+    steps of tinyllama-1.1b and recurrentgemma-9b at full width through
+    `train.loop.fit` with the planned launches, a reduced fp32 step on the
+    card against the CPU, and the times of a step (with a profiler split)
+    and of the xent kernel at each training shape. Returns each training
+    path's launch counts of the three kernels, by arch."""
+    import copy
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.kernels.lru_scan import ref as lru_ref
+    from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+    from repro_torch.kernels.xent import ops as xent_ops
+    from repro_torch.kernels.xent import ref as xent_ref
+    from repro_torch.kernels.xent import xent as xent_k
+    from repro_torch.models import api, lm
+    from repro_torch.train import loop, optim
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def head_of(d, vp, tied, dtype):
+        """A (D, Vp) head: `embed.T` (contiguous along D) when tied."""
+        w = (torch.randn(vp, d, generator=gen, device=dev) * 0.02).to(dtype)
+        return w.T if tied else w.T.contiguous()
+
+    # ---- (a) the xent kernel against its plain version ------------------
+    # label, n, d, vp, vocab, softcap, valid_frac, tied
+    xent_cases = [("tinyllama", n, 2048, 32000, 32000, 0.0, None, False)
+                  for n in (1024, 1000)]
+    xent_cases += [("recurrentgemma", n, 4096, 256000, 256000, 0.0, None,
+                    True) for n in (1024, 1000)]
+    xent_cases.append(("granite padded vocab, softcap 30, valid mask", 1000,
+                       1536, 49280, 49155, 30.0, 0.5, False))
+    for label, n, d, vp, vocab, softcap, vfrac, tied in xent_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            h = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+            w = head_of(d, vp, tied, dtype)
+            t = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+            v = (None if vfrac is None else
+                 (torch.rand(n, generator=gen, device=dev) < vfrac).float())
+            nll, lse = xent_k.xent_cuda(h, w, t, v, vocab=vocab,
+                                        softcap=softcap)
+            want_nll, want_lse = xent_ref.xent_rows(h.float(), w.float(), t,
+                                                    v, vocab, softcap)
+            torch.cuda.synchronize()
+            ok = all(bool(((g - wt).abs() <= 1e-4 + 1e-4 * wt.abs()).all())
+                     for g, wt in ((nll, want_nll), (lse, want_lse)))
+            sum_err = abs(float(nll.sum()) - float(want_nll.sum()))
+            ok &= sum_err <= 1e-4 * abs(float(want_nll.sum()))
+            if v is not None:
+                ok &= float(nll[v == 0].abs().max()) == 0.0
+            err = float((nll - want_nll).abs().max())
+            say(f"xent {label} N={n} D={d} Vp={vp} {str(dtype)[6:]}"
+                f"{' (embed.T)' if tied else ''}: nll err {err:.3g}, lse err "
+                f"{float((lse - want_lse).abs().max()):.3g} (per row 1e-4 + "
+                f"1e-4|want|), sum err {sum_err:.3g} (rtol 1e-4)"
+                + ("; masked rows exactly 0" if v is not None else ""))
+            check(ok, f"xent {label} N={n} {dtype}: disagrees with its "
+                  f"plain version")
+            del h, w, t, v, nll, lse, want_nll, want_lse
+    torch.cuda.empty_cache()
+    # the flash kernel at the training path's own shapes (bf16, the blocks
+    # `flash_mha` picks), at phase 6's limits
+    for label, qs, ks, window in (
+            ("tinyllama training (GQA g=8)", (TRAIN_BATCH, TRAIN_SEQ, 32, 64),
+             (TRAIN_BATCH, TRAIN_SEQ, 4, 64), 0),
+            ("recurrentgemma training (MQA, window 2048)",
+             (TRAIN_BATCH, TRAIN_SEQ, 16, 256),
+             (TRAIN_BATCH, TRAIN_SEQ, 1, 256), 2048)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in (qs, ks, ks))
+        got = flash_ops.flash_mha(q, k, v, window=window)
+        want = flash_ref.mha(q.float(), k.float(), v.float(), window=window)
+        d = (got.float() - want).abs()
+        say(f"flash {label} {qs}/{ks} bf16 blocks "
+            f"{flash_ops.auto_blocks(qs[3])}: err {float(d.max()):.3g} (atol "
+            f"2e-5 + {2.0 ** -8:.3g}|want|)")
+        check(bool((d <= 2e-5 + 2.0 ** -8 * want.abs()).all()),
+              f"flash {label}: disagrees with its plain version")
+        del q, k, v, got, want, d
+    torch.cuda.empty_cache()
+
+    # ---- (b) the Functions' gradients against autograd of the plain -----
+    def grads_close(label, got, want, rtol):
+        """Each gradient within rtol of its largest magnitude."""
+        errs = [float((g.float() - wt.float()).abs().max())
+                / max(float(wt.float().abs().max()), 1e-30)
+                for g, wt in zip(got, want)]
+        say(f"grad {label}: relative errs "
+            + ", ".join(f"{e:.3g}" for e in errs) + f" (limit {rtol:g})")
+        check(max(errs) <= rtol, f"grad {label}: disagrees with autograd "
+              f"of its plain version")
+
+    for tied in (False, True):
+        h = torch.randn(700, 256, generator=gen, device=dev)
+        w = head_of(256, 32000, tied, torch.float32)
+        t = torch.randint(0, 31900, (700,), generator=gen, device=dev)
+        cot = torch.randn(700, generator=gen, device=dev)
+        xs = [x.detach().requires_grad_() for x in (h, w)]
+        got = torch.autograd.grad((xent_ops.xent(
+            *xs, t, vocab=31900, softcap=30.0) * cot).sum(), xs)
+        ys = [x.detach().requires_grad_() for x in (h, w)]
+        want = torch.autograd.grad((xent_ref.xent_rows(
+            *ys, t, None, 31900, 30.0)[0] * cot).sum(), ys)
+        grads_close(f"XentFn (700, 256) x (256, 32000){' embed.T' if tied else ''}"
+                    f" fp32, vocab 31900, softcap 30", got, want, 2e-5)
+        # bf16, the training path's dtype, with logits of order 10, against
+        # autograd of the plain version in fp32 on the same values: two
+        # bf16 roundings (the gradient operand and the output)
+        h, w = h.bfloat16(), (w.float() * 30.0).bfloat16()
+        xs = [x.detach().requires_grad_() for x in (h, w)]
+        got = torch.autograd.grad((xent_ops.xent(
+            *xs, t, vocab=31900, softcap=30.0) * cot).sum(), xs)
+        ys = [x.detach().float().requires_grad_() for x in (h, w)]
+        want = torch.autograd.grad((xent_ref.xent_rows(
+            *ys, t, None, 31900, 30.0)[0] * cot).sum(), ys)
+        grads_close(f"XentFn (700, 256) x (256, 32000){' embed.T' if tied else ''}"
+                    f" bf16, vocab 31900, softcap 30", got, want, 2.0 ** -7)
+    a = 0.3 + 0.69 * torch.rand(2, 256, 512, generator=gen, device=dev)
+    b = torch.randn(2, 256, 512, generator=gen, device=dev)
+    cot = torch.randn(2, 256, 512, generator=gen, device=dev)
+    xs = [x.detach().requires_grad_() for x in (a, b)]
+    got = torch.autograd.grad((lru_ops.lru_scan(*xs) * cot).sum(), xs)
+    ys = [x.detach().requires_grad_() for x in (a, b)]
+    want = torch.autograd.grad((lru_ref.lru_scan_ref(*ys) * cot).sum(), ys)
+    grads_close("LruScanFn (2, 256, 512) fp32", got, want, 2e-5)
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = (TRAIN_BATCH, TRAIN_SEQ, 4096)
+        a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=dev)
+             ).to(dtype)
+        b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got = lru_scan_cuda(a, b, reverse=True)
+        want = lru_ref.lru_scan_ref(a.float().flip(1), b.float().flip(1)
+                                    ).flip(1)
+        rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8 + 2e-5
+        d = (got.float() - want).abs()
+        say(f"lru_scan reverse {shape} {str(dtype)[6:]}: err "
+            f"{float(d.max()):.3g} (atol 2e-5 + {rtol:.3g}|want|)")
+        check(bool((d <= 2e-5 + rtol * want.abs()).all()),
+              f"lru_scan reverse {dtype}: disagrees with the flipped plain "
+              f"version")
+        if dtype == torch.float32:
+            rev_ms = time_ms(lambda: lru_scan_cuda(a, b, reverse=True))
+            b_ms, _ = bound(3 * a.numel() * 4, 2.0 * a.numel())
+            results[("lru_scan_reverse", "float32")] = dict(
+                err=float(d.max()), ms=rev_ms, bound_ms=b_ms,
+                shape=list(shape))
+            say(f"lru_scan reverse {shape} float32: {rev_ms:.4f} ms (bound "
+                f"{b_ms:.4f} ms by bytes)")
+        del a, b, got, want, d
+    for label, shp in (("recurrentgemma MQA hd 256", ((2, 256, 16, 256),
+                                                        (2, 256, 1, 256))),
+                       ("tinyllama GQA g=8", ((2, 256, 32, 64),
+                                              (2, 256, 4, 64)))):
+        q = torch.randn(shp[0], generator=gen, device=dev)
+        k, v = (torch.randn(shp[1], generator=gen, device=dev)
+                for _ in range(2))
+        cot = torch.randn(shp[0], generator=gen, device=dev)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad((flash_ops.flash_mha(*xs) * cot).sum(), xs)
+        ys = [x.detach().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad((flash_ref.mha(*ys) * cot).sum(), ys)
+        grads_close(f"FlashFn {label} fp32", got, want, 2e-5)
+    torch.cuda.empty_cache()
+
+    # ---- (c) training at full width through fit --------------------------
+    path_launches = {}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for arch, layers, steps in TRAIN_RUNS:
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+        label = f"train {arch}"
+        if layers:
+            say(f"{label}: depth cut to {layers} layers (one "
+                f"{cfg.pattern} period) at full width: all "
+                f"{full.n_layers} layers ({full.param_count() / 1e9:.2f} B "
+                f"parameters) would need "
+                f"{full.param_count() * 16 / 1e9:.0f} GB for bf16 weights "
+                f"and gradients and fp32 m, v and master, more than the "
+                f"card's 80 GB")
+        kinds = lm.layer_kinds(cfg)
+        period = len(cfg.pattern)
+        recomputed = kinds[:cfg.n_repeats * period]    # remat="full"
+        n_rec = kinds.count("rec")
+        plan = {"flash_attn": len(kinds) - n_rec + sum(
+                    k != "rec" for k in recomputed),
+                "lru_scan": 2 * n_rec + recomputed.count("rec"),
+                "xent": 1}
+        torch.cuda.reset_peak_memory_stats()
+        model = api.build(cfg)
+        opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=5,
+                                  total_steps=steps)
+        data = synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                  device=dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        params, opt_state, hist = loop.fit(model, data, steps=steps,
+                                           opt_cfg=opt_cfg, remat="full",
+                                           log_every=0)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        want = {k: v * steps for k, v in plan.items() if v}
+        say(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
+            f"{len(kinds)} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"remat full, {steps} steps; launches {counts} (planned "
+            f"{want}: {plan} a step)")
+        check(counts == want, f"{label}: launched {counts}, planned {want}")
+        path_launches[arch] = {k: counts.get(k, 0)
+                               for k in ("flash_attn", "lru_scan", "xent")}
+        losses = [hh["loss"] for hh in hist]
+        finite = all(math.isfinite(hh["loss"])
+                     and math.isfinite(hh["grad_norm"]) for hh in hist)
+        init = model.init(torch.Generator(device=dev).manual_seed(0))
+        moved = all(not torch.equal(p0, p1) for p0, p1 in
+                    zip(init.parameters(), params.parameters()))
+        del init
+        say(f"{label}: loss per step {[round(x, 4) for x in losses]}, grad "
+            f"norm {[round(hh['grad_norm'], 3) for hh in hist]}; finite "
+            f"{finite}; every parameter moved {moved}")
+        check(finite, f"{label}: a non-finite loss or gradient norm")
+        check(moved, f"{label}: a parameter did not move")
+        step_s = statistics.median(hh["time_s"] for hh in hist[1:])
+        mfu = 6 * cfg.param_count() * tokens / step_s / BF16_FLOPS_PER_S
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # one more step, profiled in two halves: loss + gradients, then the
+        # optimizer update (the step `fit` runs, split)
+        batch = next(data)
+        holder = {}
+
+        def fwd_bwd():
+            loss = model.loss(params, batch, remat="full")
+            holder["grads"] = torch.autograd.grad(
+                loss, list(params.parameters()))
+
+        def update():
+            optim.apply_updates(opt_cfg, params, opt_state,
+                                holder.pop("grads"))
+
+        prof = {"loss_and_grads": device_breakdown(fwd_bwd),
+                "optimizer": device_breakdown(update)}
+        results[(f"train_{arch}", cfg.dtype)] = dict(
+            layers=len(kinds), params_b=cfg.param_count() / 1e9,
+            steps=steps, losses=losses, step_ms=step_s * 1e3,
+            step_ms_each=[hh["time_s"] * 1e3 for hh in hist],
+            tokens_per_s=tokens / step_s, mfu=mfu, peak_gb=peak,
+            launches_per_step=plan, profile=prof)
+        say(f"{label}: step {step_s * 1e3:.1f} ms (median after the first; "
+            f"each {[round(hh['time_s'] * 1e3, 1) for hh in hist]}), "
+            f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
+            f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens a step over "
+            f"989 TFLOP/s), peak memory {peak:.1f} GB")
+        for part, br in prof.items():
+            if br is None:
+                say(f"{label} {part}: the profiler saw no device kernel "
+                    f"(device breakdown not measured)")
+                continue
+            say(f"{label} {part} under torch.profiler: host window "
+                f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
+                f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
+                f"kernels; by kind (ms) " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in br["by_category_ms"].items()))
+        del model, params, opt_state, data, batch, holder
+        torch.cuda.empty_cache()
+
+        # the xent kernel at this training shape (bf16, as the model runs)
+        n, d, vp = TRAIN_BATCH * (TRAIN_SEQ - 1), cfg.d_model, cfg.padded_vocab
+        h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = head_of(d, vp, cfg.tie_embeddings, torch.bfloat16)
+        t = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev)
+        nll, lse = xent_ops.xent_rows(h, w, t, vocab=cfg.vocab_size)
+        want_nll, want_lse = xent_ref.xent_rows(h.float(), w.float(), t,
+                                                None, cfg.vocab_size)
+        err = float((nll - want_nll).abs().max())
+        sum_err = abs(float(nll.sum()) - float(want_nll.sum()))
+        ok = all(bool(((g - wt).abs() <= 1e-4 + 1e-4 * wt.abs()).all())
+                 for g, wt in ((nll, want_nll), (lse, want_lse)))
+        ok &= sum_err <= 1e-4 * abs(float(want_nll.sum()))
+        say(f"xent {arch} training shape N={n} ({xent_k.splits(n, vp, sms)[0]}"
+            f" vocab splits): nll err {err:.3g}, lse err "
+            f"{float((lse - want_lse).abs().max()):.3g} (per row 1e-4 + "
+            f"1e-4|want|), sum err {sum_err:.3g} (rtol 1e-4)")
+        check(ok, f"xent {arch} training shape: disagrees with its plain "
+              f"version")
+        del nll, lse, want_nll, want_lse
+        reps = 5
+        ms = time_ms(lambda: xent_ops.xent_rows(h, w, t,
+                                                vocab=cfg.vocab_size), reps)
+        plain_ms = time_ms(lambda: xent_ref.xent_rows(
+            h, w, t, None, cfg.vocab_size), reps)
+        library_ms = time_ms(lambda: F.cross_entropy(
+            h @ w, t.long(), reduction="none"), reps)
+        flops = 2.0 * n * d * vp           # the logits' products
+        nbytes = (n * d + d * vp) * 2 + n * (4 + 4 + 4)
+        # bf16 inputs: their products are exact in fp32, so the card's
+        # rate for this function is the bf16 tensor cores' (fp32
+        # accumulation); the fp32 cores' bound, the rate this kernel's
+        # fp32 product can reach, is kept beside it
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        fp32_ms, _ = bound(nbytes, flops)
+        results[(f"xent_{arch}", "bfloat16")] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_fp32_cores_ms=fp32_ms,
+            shape=[n, d, vp], tied=cfg.tie_embeddings,
+            tflops=flops / ms * 1e-9)
+        say(f"xent {arch} training shape N={n} D={d} Vp={vp} bf16"
+            f"{' (embed.T)' if cfg.tie_embeddings else ''}: {ms:.3f} ms = "
+            f"{flops / ms * 1e-9:.2f} TFLOP/s (err {err:.3g}; plain "
+            f"{plain_ms:.3f} ms; library pair h @ head + F.cross_entropy, "
+            f"two calls, {library_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
+            f"at 989 TFLOP/s bf16; on the fp32 cores' 67 TFLOP/s "
+            f"{fp32_ms:.3f} ms)")
+        del h, w, t
+        torch.cuda.empty_cache()
+
+    # ---- (d) reduced configs, fp32: one step on the card vs the CPU ------
+    for arch in ("tinyllama-1.1b", "recurrentgemma-9b"):
+        cfg = dataclasses.replace(
+            registry.reduced_config(registry.get_config(arch)),
+            dtype="float32", param_dtype="float32")
+        toks = torch.from_numpy(synthetic.lm_batch(cfg, 0, 0, 2, 33)["tokens"])
+        params = api.build(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        out = []
+        for where in ("cpu", dev):
+            model = api.build(cfg, device=where)
+            p = copy.deepcopy(params).to(where)
+            step = loop.make_train_step(model, optim.OptConfig(lr=1e-3),
+                                        remat="full")
+            p, _, m = step(p, optim.init_opt_state(p),
+                           {"tokens": toks.to(where)})
+            out.append(({k: float(v) for k, v in m.items()},
+                        [x.detach().cpu() for x in p.parameters()]))
+        (mc, pc), (mg, pg) = out
+        err_m = max(abs(mg[k] - mc[k]) / abs(mc[k])
+                    for k in ("loss", "grad_norm"))
+        err_p = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+        say(f"reduced {arch} fp32 train step: card vs CPU loss/grad-norm "
+            f"relative err {err_m:.3g}, updated params err {err_p:.3g} "
+            f"(limit 1e-4)")
+        check(err_m <= 1e-4 and err_p <= 1e-4,
+              f"reduced {arch} train step: the card disagrees with the CPU")
     torch.cuda.empty_cache()
     return path_launches
 
@@ -1307,7 +1681,15 @@ def main() -> int:
 
     phase_done("phase 6 (LM serving)")
 
-    # ---- 7. the kernels line --------------------------------------------
+    # ---- 7. LM training -------------------------------------------------
+    train_launches = train_phase(torch, dev, check, results)
+    # the kernels line reads the xent kernel on recurrentgemma's training
+    # path, the one that runs all three LM kernels
+    main_launches["xent"] = train_launches[TRAIN_RUNS[1][0]]["xent"]
+
+    phase_done("phase 7 (LM training)")
+
+    # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
                "hdiff": ("src/repro_torch/csrc/hdiff.cu",
@@ -1325,11 +1707,15 @@ def main() -> int:
                "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
                               "src/repro/kernels/flash_attention/flash.py:77"),
                "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
-                            "src/repro/kernels/lru_scan/lru_scan.py:41")}
+                            "src/repro/kernels/lru_scan/lru_scan.py:41"),
+               "xent": ("src/repro_torch/csrc/xent.cu",
+                        "src/repro/kernels/xent/xent.py:68")}
+    # the LM paths run flash attention and xent in bf16, the rest in fp32
+    keys = {"flash_attn": ("flash_attn", "bfloat16"),
+            "xent": (f"xent_{TRAIN_RUNS[1][0]}", "bfloat16")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        # the LM path runs flash attention in bf16, the rest in fp32
-        r = results[(name, "bfloat16" if name == "flash_attn" else "float32")]
+        r = results[keys.get(name, (name, "float32"))]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": main_launches[name],
@@ -1337,26 +1723,43 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        if name in ("flash_attn", "lru_scan"):
-            # each serving path's own launches; flash also its own times
-            # at that model's prefill shape
-            paths = {arch: {"launches": n[name]}
-                     for arch, n in path_launches.items()}
+        if name in ("flash_attn", "lru_scan", "xent"):
+            # each serving and training path's own launches; flash also its
+            # own times at that model's prefill shape, xent at that model's
+            # training shape
+            paths = {} if name == "xent" else {
+                arch: {"launches": n[name]}
+                for arch, n in path_launches.items()}
+            paths.update({f"train {arch}": {"launches": n[name]}
+                          for arch, n in train_launches.items()})
+            timed = []
             if name == "flash_attn":
-                for (label, key), arch in zip(FLASH_TIMES, SERVE_ARCHS):
-                    r = results[(key, "bfloat16")]
-                    paths[arch].update(
-                        shape=r["shape"], max_abs_err=r["err"], ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"],
-                        library_ms=r["library_ms"])
+                timed = [(arch, (key, "bfloat16")) for (_, key), arch in
+                         zip(FLASH_TIMES, SERVE_ARCHS)]
+            elif name == "xent":
+                timed = [(f"train {arch}", (f"xent_{arch}", "bfloat16"))
+                         for arch, _, _ in TRAIN_RUNS]
+            for path, key in timed:
+                r = results[key]
+                paths[path].update(
+                    shape=r["shape"], max_abs_err=r["err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                if "bound_fp32_cores_ms" in r:
+                    paths[path]["bound_fp32_cores_ms"] = r[
+                        "bound_fp32_cores_ms"]
             kernels[-1]["paths"] = paths
+        if name == "lru_scan":
+            kernels[-1]["reverse_ms"] = results[("lru_scan_reverse",
+                                                 "float32")]["ms"]
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
         "interior; copy's is Tensor.copy_ into a preallocated tensor; "
         "flash_attn's is scaled_dot_product_attention (causal, enable_gqa) "
-        "at recurrentgemma-9b's prefill shape; none computes the LRU sweep")
+        "at recurrentgemma-9b's prefill shape; none computes the LRU sweep; "
+        "xent's is a pair of calls, h @ head then F.cross_entropy, at "
+        "recurrentgemma-9b's training shape")
     if failures:
         raise SmokeFailure(f"{len(failures)} check(s) failed: "
                            + "; ".join(failures))

@@ -2,7 +2,11 @@
 
 At first use, `nvcc` compiles each `.cu` source to an object for sm_90a, all
 sources at once in parallel processes, and links the objects into one shared
-library with a plain C interface, which `ctypes` loads. The build goes to
+library with a plain C interface, which `ctypes` loads. Every source is
+compiled with `-fmad=false`, so that each stencil rounds bit for bit as its
+plain version, except those in `FMAD_SOURCES`: the cross-entropy kernel is
+held to its plain version within a tolerance, and fused multiply-adds double
+the rate of its product. The build goes to
 `build/repro_torch_kernels/<hash of sources and flags>/` under the repository
 root and is reused while the sources stay the same. Nothing here runs when the
 module is imported.
@@ -29,9 +33,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
            "hdiff_kstep.cu", "hadv.cu", "copy.cu", "flash_attn.cu",
-           "lru_scan.cu")
+           "lru_scan.cu", "xent.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+FMAD_SOURCES = ("xent.cu",)    # built with -fmad=true in place of -fmad=false
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,12 +56,15 @@ _SIGNATURES = {
     "nero_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                         _LL, _LL, _I, _I, _F, _F, _P),
-    "nero_lru_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "nero_lru_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "nero_xent": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _LL, _LL, _LL, _F, _I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,
                              "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0,
-                             "copy": 0, "flash_attn": 0, "lru_scan": 0}
+                             "copy": 0, "flash_attn": 0, "lru_scan": 0,
+                             "xent": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, object] = {}
@@ -76,8 +84,17 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def flags(src: str) -> tuple:
+    """The nvcc flags of one source."""
+    if src in FMAD_SOURCES:
+        return tuple("-fmad=true" if f == "-fmad=false" else f
+                     for f in NVCC_FLAGS)
+    return NVCC_FLAGS
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(FMAD_SOURCES).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -94,7 +111,7 @@ def _compile(out_dir: Path) -> Dict[str, str]:
     for src in SOURCES:
         obj = tmp / (Path(src).stem + ".o")
         procs[src] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            [nvcc, *flags(src), "-c", str(CSRC / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     reports, failed = {}, []
     for src, p in procs.items():

@@ -6,7 +6,10 @@ what it computes — per (batch, head, q block), an online softmax over kv
 blocks with q scaled in float32, the finite -1e30 mask sentinel and fp32
 running max, sum and accumulator — and also takes T and S that the blocks
 do not divide (the last block is ragged; keys past S add nothing), where
-the TPU kernel refuses them. Its plain version is `ref.mha`. Forward only.
+the TPU kernel refuses them. Its plain version is `ref.mha`. The launcher
+is the forward kernel alone: gradients go through `ops.FlashFn`, whose
+backward differentiates the plain version, so the launcher refuses an
+operand that would need one.
 """
 
 from __future__ import annotations
@@ -67,9 +70,10 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if x.stride(-1) != 1:
             raise ValueError(f"flash_attn: {name} needs a contiguous last "
                              f"axis, got strides {x.stride()}")
-        if x.requires_grad:
-            raise ValueError("flash_attn: the kernel is forward only; "
-                             f"{name} requires grad")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("flash_attn: the raw launcher is forward only; "
+                             f"{name} requires grad (ops.flash_mha "
+                             f"differentiates through FlashFn)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attn: dtype {q.dtype}; expected float32 or "
                          f"bfloat16")

@@ -1,7 +1,10 @@
 """The CUDA LRU-sweep kernel (`csrc/lru_scan.cu`) and its launcher.
 
 Replaces the TPU kernel `repro.kernels.lru_scan.lru_scan.lru_scan_pallas`.
-The plain version beside it is `ref.lru_scan_ref`.
+The plain version beside it is `ref.lru_scan_ref`. The launcher is one
+call of the kernel, forward or reverse in time; gradients go through
+`ops.LruScanFn`, whose backward is the reverse sweep, so the launcher
+refuses an operand that would need one.
 """
 
 from __future__ import annotations
@@ -20,16 +23,19 @@ def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"lru_scan: dtypes differ: {a.dtype}, {b.dtype}")
 
 
-def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                  reverse: bool = False) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along axis -2 of contiguous CUDA tensors
-    (T, C) or (B, T, C), float32 or bfloat16, with an fp32 carry; returns a
-    new tensor in a's dtype. Forward only."""
+    (T, C) or (B, T, C), float32 or bfloat16, with an fp32 carry; with
+    `reverse`, h_t = a_t h_{t+1} + b_t from the last step down. Returns a
+    new tensor in a's dtype."""
     check_operands(a, b)
     for name, x in (("a", a), ("b", b)):
         _build.check_operand("lru_scan", name, x, a.shape, a.dtype)
-        if x.requires_grad:
-            raise ValueError("lru_scan: the kernel is forward only; "
-                             f"{name} requires grad")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("lru_scan: the raw launcher is forward only; "
+                             f"{name} requires grad (ops.lru_scan "
+                             f"differentiates through LruScanFn)")
     if b.device != a.device:
         raise ValueError("lru_scan: a and b lie on different devices")
     batch = a.shape[0] if a.dim() == 3 else 1
@@ -41,7 +47,7 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         err = lib.nero_lru_scan(a.data_ptr(), b.data_ptr(), h.data_ptr(),
                                 int(a.dtype == torch.bfloat16), batch, steps,
-                                channels, _build.stream_of(a))
+                                channels, int(reverse), _build.stream_of(a))
     _build.check(err, "lru_scan")
     _build.LAUNCHES["lru_scan"] += 1
     return h

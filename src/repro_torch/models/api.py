@@ -1,7 +1,8 @@
-"""Unified model API for serving: one `Model` facade per configuration.
+"""Unified model API: one `Model` facade per configuration.
 
     model = build(cfg)                                  # device="cuda"
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    loss   = model.loss(params, {"tokens": tokens})
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
@@ -54,6 +55,10 @@ class Model:
             raise ValueError(f"generator on {generator.device}; the model "
                              f"runs on {self.device}")
         return lm.init_params(self.cfg, generator)
+
+    def loss(self, params: lm.LM, batch: Dict[str, torch.Tensor],
+             remat: str = "full") -> torch.Tensor:
+        return lm.loss_fn(self.cfg, params, batch, remat=remat)
 
     def init_cache(self, batch: int, max_len: int) -> list:
         return lm.init_cache(self.cfg, batch, max_len, self.device)

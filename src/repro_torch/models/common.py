@@ -20,9 +20,10 @@ from repro_torch.configs.base import ModelConfig
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each tensor leaf becomes a
-    parameter (no gradient: the port serves, and its kernels are forward
-    only), each dict a child `ParamTree`. `tree["wq"]` reads it as the JAX
-    package reads its param dicts."""
+    parameter, each dict a child `ParamTree`. `tree["wq"]` reads it as the
+    JAX package reads its param dicts. Parameters are made without gradient
+    (serving runs under `torch.inference_mode()`); training turns it on
+    with `requires_grad_()` (`train/loop.py`)."""
 
     def __init__(self, tree: Mapping[str, object]):
         super().__init__()

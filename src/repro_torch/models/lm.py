@@ -1,13 +1,19 @@
 """Decoder-only LM assembled from blocks.
 
-A port of `repro.models.lm` for serving. The JAX package scans one pattern
-period (super-block) per step over stacked params, then runs an explicit
+A port of `repro.models.lm`. The JAX package scans one pattern period
+(super-block) per step over stacked params, then runs an explicit
 remainder; the port keeps one `Block` module per layer and loops over them
 in the same order — the super-blocks' layers, repeat by repeat, then
 `rem{r}`. A cache is a list with one entry per layer, in that order.
 Positions are `arange(T)` from 0 in prefill even when prompts are
-left-padded, exactly as in the JAX package. The training loss
-(`chunked_xent`, `loss_fn`) is not ported yet (ROADMAP queue 2).
+left-padded, exactly as in the JAX package.
+
+Training: `apply(..., mode="train", remat=...)` recomputes each pattern
+period in the backward (`torch.utils.checkpoint`, as the JAX package wraps
+`superblock_body` in `jax.checkpoint`; the remainder is not recomputed,
+there as here), and `loss_fn` is the next-token cross-entropy through
+`chunked_xent`: on a CUDA tensor the fused cross-entropy kernel
+(`kernels/xent`), on a CPU tensor the JAX package's chunked body.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ from typing import List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamTree, embed_init, norm_apply,
                                        norm_init, torch_dtype)
@@ -87,24 +95,55 @@ def _positions(b: int, t: int, offset: int, device) -> torch.Tensor:
     return pos.expand(b, t)
 
 
+REMATS = ("none", "full")
+
+
+def _train_blocks(blocks, x, positions):
+    for block in blocks:
+        x, _ = block(x, positions=positions, mode="train")
+    return x
+
+
 def apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor, *,
-          mode: str = "train", cache: Optional[list] = None, pos: int = 0):
+          mode: str = "train", cache: Optional[list] = None, pos: int = 0,
+          remat: str = "full", return_hidden: bool = False):
     """Forward pass.
 
     tokens: (B, T) integer. mode "train": logits only. "prefill": logits +
     filled cache. "decode": T == 1, reads/writes cache at `pos`.
-    Returns (logits, new_cache).
+    `remat` ("full" or "none") applies in train mode with grad enabled:
+    each pattern period's activations are recomputed in the backward. The
+    JAX package's "dots" policy is not ported (ROADMAP queue 1 item 9).
+    `return_hidden` skips the LM head (the loss computes it chunk by chunk).
+    Returns (logits or hidden, new_cache).
     """
+    if remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" is not ported yet (ROADMAP queue 1 item 9)')
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}; expected one of {REMATS}")
     x = params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
     b, t = x.shape[:2]
     positions = _positions(b, t, pos if mode == "decode" else 0, x.device)
     new_cache = [] if cache is not None else None
-    for i, block in enumerate(params.blocks):
-        c = cache[i] if cache is not None else None
-        x, nc = block(x, positions=positions, mode=mode, cache=c, pos=pos)
-        if cache is not None:
-            new_cache.append(nc)
+    if mode == "train" and remat != "none" and torch.is_grad_enabled():
+        period = len(cfg.pattern)
+        for r in range(cfg.n_repeats):
+            x = checkpoint(_train_blocks,
+                           params.blocks[r * period:(r + 1) * period], x,
+                           positions, use_reentrant=False)
+        x = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
+                          positions)
+    else:
+        for i, block in enumerate(params.blocks):
+            c = cache[i] if cache is not None else None
+            x, nc = block(x, positions=positions, mode=mode, cache=c,
+                          pos=pos)
+            if cache is not None:
+                new_cache.append(nc)
     x = norm_apply(cfg, params.final_norm, x)
+    if return_hidden:
+        return x, new_cache
     head = params.embed.T if cfg.tie_embeddings else params.head
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap:
@@ -123,6 +162,48 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(valid, logits,
                        torch.tensor(-1e30, dtype=logits.dtype,
                                     device=logits.device))
+
+
+def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
+                 targets: torch.Tensor, chunk: int = 512,
+                 softcap: float = 0.0, vocab: int = 0) -> torch.Tensor:
+    """Mean next-token NLL without materializing (B, T, V).
+
+    hidden: (B, T, D); targets: (B, T) aligned with hidden; `vocab`: the
+    logical vocab size (masks physical padding columns). On a CUDA tensor
+    the fused cross-entropy kernel runs (its fp32 product; its backward
+    recomputes 512 rows at a time). On a CPU tensor the JAX package's body
+    runs: windows of `chunk` positions, the product in the activation
+    dtype, then fp32."""
+    if hidden.device.type != "cpu":
+        return xent_ops.fused_xent_mean(hidden, head, targets, vocab=vocab,
+                                        softcap=softcap)
+    b, t, _ = hidden.shape
+    w = head.to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32)
+    for i in range(0, t, chunk):
+        lg = (hidden[:, i:i + chunk] @ w).float()
+        if softcap:
+            lg = torch.tanh(lg / softcap) * softcap
+        if vocab:
+            lg = mask_padded_vocab(lg, vocab)
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, targets[:, i:i + chunk, None].long())[..., 0]
+        total = total + (logz - gold).sum()
+    return total / (b * t)
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch, remat: str = "full",
+            xent_chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy. batch: {"tokens": (B, T)}. (MoE configs,
+    whose loss adds an aux term, are refused by `api.build`.)"""
+    tokens = batch["tokens"]
+    hidden, _ = apply(cfg, params, tokens, mode="train", remat=remat,
+                      return_hidden=True)
+    head = params.embed.T if cfg.tie_embeddings else params.head
+    return chunked_xent(hidden[:, :-1], head, tokens[:, 1:],
+                        chunk=xent_chunk, softcap=cfg.logit_softcap,
+                        vocab=cfg.vocab_size)
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,

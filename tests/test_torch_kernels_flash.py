@@ -203,3 +203,61 @@ def test_cuda_kernel_refuses_grad(cuda):
     q = torch.zeros(1, 8, 2, 16, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="forward only"):
         flash.flash_mha_cuda(q, q.detach(), q.detach())
+
+
+# ---------------------------------------------------------------------------
+# the gradient: FlashFn
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,h,kh,window,softcap", [
+    (32, 4, 1, 0, 0.0), (40, 4, 2, 8, 0.0), (24, 2, 2, 0, 20.0)])
+def test_flashfn_matches_jax_grad(t, h, kh, window, softcap):
+    """`ops.flash_mha` through `FlashFn` (plain forward on the CPU; the
+    backward recomputes `ref.mha`) against `jax.grad` of the JAX model's
+    `attention.flash_attention`, which training differentiates, fp32."""
+    import jax
+
+    from repro.models import attention as jattn
+
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((2, t, h, 16), (2, t, kh, 16), (2, t, kh, 16)))
+    cot = rng.normal(size=(2, t, h, 16)).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jattn.flash_attention(q, k, v, causal=True, window=window,
+                                    q_chunk=8, kv_chunk=8, softcap=softcap)
+        return (out * cot).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = ops.flash_mha(*xs, causal=True, window=window, softcap=softcap)
+    assert out.grad_fn is not None and "FlashFn" in type(out.grad_fn).__name__
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), xs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flashfn_gradients_match_the_cpu(dtype, cuda):
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(sh, generator=gen).to(dtype)
+               for sh in ((2, 96, 8, 64), (2, 96, 2, 64), (2, 96, 2, 64)))
+    cot = torch.randn(2, 96, 8, 64, generator=gen)
+    out = []
+    for dev in ("cpu", cuda):
+        xs = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        _build.reset_launches()
+        o = ops.flash_mha(*xs, window=32)
+        grads = torch.autograd.grad((o.float() * cot.to(dev)).sum(), xs)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["flash_attn"] == 1
+        out.append([o.detach().float().cpu()] + [g.float().cpu()
+                                                  for g in grads])
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for c, g in zip(*out):
+        assert float((c - g).abs().max()) <= tol * max(1.0,
+                                                       float(c.abs().max()))

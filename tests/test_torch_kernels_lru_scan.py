@@ -135,3 +135,98 @@ def test_cuda_model_scan_with_carried_state(cuda):
     want = rglru.lru_scan(a.cpu(), b.cpu(), h0.cpu())
     torch.cuda.synchronize()
     assert float((got.cpu() - want).abs().max()) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the gradient: LruScanFn
+# ---------------------------------------------------------------------------
+
+def test_reverse_sweep_is_the_flipped_forward(rng):
+    a, b = _ab(rng, (2, 9, 5))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = ops.sweep(ta, tb, reverse=True).numpy()
+    h = np.zeros((2, 5), np.float32)
+    for t in range(8, -1, -1):
+        h = a[:, t] * h + b[:, t]
+        np.testing.assert_allclose(got[:, t], h, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("t", [1, 6, 33])
+def test_lru_scan_fn_matches_jax_grad(with_h0, t, rng):
+    """The model's `lru_scan` (h0 folded into the first step) through
+    `LruScanFn` against `jax.grad` of the JAX model's associative scan:
+    gradients of a, b and h0 for a weighted sum of h, fp32."""
+    import jax
+
+    a, b = _ab(rng, (2, t, 12))
+    h0 = rng.normal(size=(2, 12)).astype(np.float32)
+    cot = rng.normal(size=(2, t, 12)).astype(np.float32)
+    args = (a, b, h0) if with_h0 else (a, b)
+
+    def jloss(*xs):
+        return (jrglru.lru_scan(*xs) * cot).sum()
+
+    want = jax.grad(jloss, argnums=tuple(range(len(args))))(
+        *map(jnp.asarray, args))
+    xs = [torch.from_numpy(x).requires_grad_() for x in args]
+    h = rglru.lru_scan(*xs)
+    got = torch.autograd.grad((h * torch.from_numpy(cot)).sum(), xs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_lru_scan_fn_bf16_gradients_keep_the_dtype(rng):
+    a, b = _ab(rng, (2, 7, 8))
+    xs = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (a, b)]
+    da, db = torch.autograd.grad(ops.lru_scan(*xs).float().sum(), xs)
+    assert da.dtype == db.dtype == torch.bfloat16
+
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 4096), (2, 13, 100), (5, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_reverse_kernel_matches_flipped_plain(shape, dtype, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=cuda)).to(dtype)
+    b = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    _build.reset_launches()
+    got = lru_scan_cuda(a, b, reverse=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lru_scan"] == 1
+    want = ref.lru_scan_ref(a.float().flip(-2), b.float().flip(-2)).flip(-2)
+    rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8 + 2e-5
+    assert bool(((got.float() - want).abs()
+                 <= 2e-5 + rtol * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_fn_gradients_match_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(4)
+    a = 0.3 + 0.69 * torch.rand(2, 50, 96, generator=gen)
+    b = torch.randn(2, 50, 96, generator=gen)
+    h0 = torch.randn(2, 96, generator=gen)
+    cot = torch.randn(2, 50, 96, generator=gen)
+    out = []
+    for dev in ("cpu", cuda):
+        xs = [x.to(dev).requires_grad_() for x in (a, b, h0)]
+        _build.reset_launches()
+        h = rglru.lru_scan(*xs)
+        grads = torch.autograd.grad((h * cot.to(dev)).sum(), xs)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["lru_scan"] == 2    # forward, reverse
+        out.append([g.cpu() for g in grads])
+    for c, g in zip(*out):
+        assert float((c - g).abs().max()) <= 2e-5 * max(
+            1.0, float(c.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_raw_launcher_refuses_operands_that_need_grad(cuda):
+    a = torch.zeros(4, 8, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        lru_scan_cuda(a, a.detach())

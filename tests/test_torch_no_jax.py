@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no `repro`, in its package or its chip
-smoke script."""
+"""The port stands alone: no JAX, no `repro`, in its package (every
+module, the training slice's `train/`, `data/`, `kernels/xent/` and
+`launch/train.py` among them) or its chip smoke script."""
 
 import ast
 import os
@@ -41,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
-            "assert 'repro_torch.weather.program' in sys.modules\n")
+            "for m in ('repro_torch.weather.program', "
+            "'repro_torch.train.loop', 'repro_torch.kernels.xent.ops', "
+            "'repro_torch.data.synthetic', 'repro_torch.launch.train'):\n"
+            "    assert m in sys.modules, m\n")
     res = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ,
                               "PYTHONPATH": str(ROOT / "src")},

@@ -139,7 +139,8 @@ def test_cpu_plans_launch_no_kernel():
                 device="cpu").run(st, 5)
     assert set(_build.LAUNCHES) == {"hdiff", "vadvc", "dycore_fused",
                                     "dycore_kstep", "hdiff_kstep", "hadv",
-                                    "copy", "flash_attn", "lru_scan"}
+                                    "copy", "flash_attn", "lru_scan",
+                                    "xent"}
     assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
 
 

@@ -1,0 +1,397 @@
+"""PyTorch port of LM training against the JAX package.
+
+The JAX package's parameters (`model.init(PRNGKey(0))`) cross into the
+port through `models.convert.params_from_numpy` and come back through
+`params_to_numpy`; the same seeded tokens (`data.synthetic.lm_batch`, equal
+element for element) go through both packages. In fp32 the loss and every
+gradient of reduced tinyllama (untied head) and recurrentgemma (tied head,
+RG-LRU) agree with `jax.value_and_grad(lm.loss_fn)` within 1e-5 of each
+leaf's largest gradient, with and without rematerialisation, and one
+`make_train_step` step agrees with the JAX `step_fn` (`remat="none"`, mesh
+(1, 1)) in loss, grad norm and updated parameters within 1e-5. The
+schedule and AdamW update are held against the JAX ones on the same trees.
+The `cuda` cases run a step on the card against the same step on the CPU
+and count the kernel launches a step makes.
+"""
+
+import copy
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.configs import registry as jreg
+from repro.data import synthetic as jsynthetic
+from repro.launch.mesh import make_mesh
+from repro.models import api as japi
+from repro.train import loop as jloop
+from repro.train import optim as joptim
+from repro_torch.configs import registry as treg
+from repro_torch.data import synthetic
+from repro_torch.kernels import _build
+from repro_torch.models import api, convert, lm
+from repro_torch.train import loop, optim
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b"]      # untied, tied
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    return torch.device("cuda")
+
+
+def _configs(arch, layers=0):
+    """The reduced config in both packages, fp32."""
+    return [dataclasses.replace(reg.reduced_config(reg.get_config(arch),
+                                                   layers=layers),
+                                dtype="float32", param_dtype="float32")
+            for reg in (jreg, treg)]
+
+
+def _pair(arch, layers=0):
+    """(jax cfg, jax model, jax params, port cfg, port model, port params)
+    on the CPU, the same parameters in both."""
+    jcfg, tcfg = _configs(arch, layers)
+    jm = japi.build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = api.build(tcfg, device="cpu")
+    tp = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, jm, jp, tcfg, tm, tp
+
+
+def _as_tree(cfg, params, tensors):
+    """Tensors in `named_parameters()` order as the JAX param tree."""
+    holder = copy.deepcopy(params)
+    with torch.no_grad():
+        for p, t in zip(holder.parameters(), tensors):
+            p.copy_(t)
+    return convert.params_to_numpy(cfg, holder)
+
+
+def _assert_trees_close(got, want, tol=TOL):
+    """Every leaf within `tol` of the leaf's largest magnitude."""
+    flat_w, tree_w = jax.tree.flatten(want)
+    flat_g, tree_g = jax.tree.flatten(got)
+    assert tree_w == tree_g
+    for g, w in zip(flat_g, flat_w):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g - w).max()) <= tol * scale
+
+
+# ---------------------------------------------------------------------------
+# data, schedule, optimizer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["arith", "uniform"])
+def test_lm_batch_is_the_jax_packages(kind):
+    jcfg, tcfg = _configs("tinyllama-1.1b")
+    for step in (0, 7):
+        want = jsynthetic.lm_batch(jcfg, 3, step, 4, 16, kind=kind)
+        got = synthetic.lm_batch(tcfg, 3, step, 4, 16, kind=kind)
+        assert got.keys() == want.keys()
+        assert got["tokens"].dtype == want["tokens"].dtype
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("prefetch", [0, 1])
+def test_iterator_yields_lm_batch_from_start_step(prefetch):
+    _, tcfg = _configs("tinyllama-1.1b")
+    it = synthetic.iterator(tcfg, 2, 8, seed=1, start_step=3,
+                            prefetch=prefetch, device="cpu")
+    for step in (3, 4, 5):
+        b = next(it)
+        assert b["tokens"].device.type == "cpu"
+        np.testing.assert_array_equal(
+            b["tokens"].numpy(),
+            synthetic.lm_batch(tcfg, 1, step, 2, 8)["tokens"])
+    it.close()
+
+
+def test_schedule_is_the_jax_packages():
+    for cfg in (dict(lr=1.0, warmup_steps=10, total_steps=100),
+                dict(lr=3e-3, warmup_steps=5, total_steps=20),
+                dict(lr=1e-3, warmup_steps=0, total_steps=10)):
+        for step in (0, 1, 4, 5, 9, 10, 11, 50, 99, 150):
+            want = float(joptim.schedule(joptim.OptConfig(**cfg),
+                                         jnp.int32(step)))
+            got = optim.schedule(optim.OptConfig(**cfg),
+                                 torch.tensor(step, dtype=torch.int32))
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(float(got), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("clip_norm", [1.0, 1e9])
+def test_apply_updates_is_the_jax_packages(clip_norm):
+    """Three AdamW steps from the same params, moments and gradients."""
+    jcfg, _, jp, tcfg, _, tp = _pair("tinyllama-1.1b", layers=1)
+    cfg = dict(lr=1e-2, warmup_steps=1, total_steps=5, clip_norm=clip_norm)
+    jstate = joptim.init_opt_state(jp)
+    tstate = optim.init_opt_state(tp)
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        grads = [rng.normal(size=p.shape).astype(np.float32) * 0.3
+                 for p in tp.parameters()]
+        jgrads = _as_tree(tcfg, tp, [torch.from_numpy(g) for g in grads])
+        jgrads = jax.tree.map(jnp.asarray, jgrads)
+        jp, jstate, jm = jax.jit(joptim.apply_updates, static_argnums=0)(
+            joptim.OptConfig(**cfg), jp, jstate, jgrads)
+        tp, tstate, tm = optim.apply_updates(
+            optim.OptConfig(**cfg), tp, tstate,
+            [torch.from_numpy(g) for g in grads])
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert int(tstate["step"]) == int(jstate["step"]) == 3
+    _assert_trees_close(convert.params_to_numpy(tcfg, tp),
+                        jax.tree.map(np.asarray, jp), tol=1e-6)
+    _assert_trees_close(_as_tree(tcfg, tp, tstate["v"].values()),
+                        jax.tree.map(np.asarray, jstate["v"]), tol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the loss and its gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_loss_and_grads_match_jax(arch, remat):
+    jcfg, jm, jp, tcfg, tm, tp = _pair(arch)
+    toks = jsynthetic.lm_batch(jcfg, 0, 0, 2, 17, kind="uniform")["tokens"]
+    want, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)}, remat=remat)))(jp)
+    tp.requires_grad_(True)
+    loss = tm.loss(tp, {"tokens": torch.from_numpy(toks)}, remat=remat)
+    grads = torch.autograd.grad(loss, list(tp.parameters()))
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=TOL)
+    _assert_trees_close(_as_tree(tcfg, tp, grads),
+                        jax.tree.map(np.asarray, jgrads))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_modes_agree(arch):
+    """"full" recomputes; loss and gradients equal "none". "dots" is not
+    ported and raises."""
+    _, _, _, _, tm, tp = _pair(arch)
+    tp.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, size=(2, 12)))
+    out = []
+    for remat in ("none", "full"):
+        loss = tm.loss(tp, {"tokens": toks}, remat=remat)
+        out.append([loss.detach()] + list(torch.autograd.grad(
+            loss, list(tp.parameters()))))
+    for other in out[1:]:
+        for a, b in zip(out[0], other):
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="remat"):
+        tm.loss(tp, {"tokens": toks}, remat="some")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.loss(tp, {"tokens": toks}, remat="dots")
+
+
+def test_params_to_numpy_inverts_params_from_numpy():
+    _, _, jp, tcfg, _, tp = _pair("recurrentgemma-9b")
+    back = convert.params_to_numpy(tcfg, tp)
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# the train step and loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(arch):
+    """One step of `make_train_step` against the JAX `step_fn` (remat
+    "none", mesh (1, 1)), the launcher's optimizer settings: loss, grad
+    norm and lr within 1e-5, and each updated parameter within
+    1e-5 + 1e-5·|want| plus what the gradients' own tolerance allows.
+
+    Adam's first step moves a parameter by lr·r(g), r(g) = g/(|g| + eps)
+    with the clipped gradient g and eps = 1e-8. Where |g| is within a few
+    eps of zero, r is ill-conditioned: a gradient difference δ moves r by
+    up to δ·eps/(max(|g| − δ, 0) + eps)². With δ = 1e-5 of the leaf's
+    largest gradient (`test_loss_and_grads_match_jax`'s tolerance) that
+    term is ~0 for ordinary gradients and up to 2 (capped) for the few
+    within a few eps of zero (fewer than 1 in 100, asserted); each
+    parameter's bound adds lr times it. A gradient that is exactly zero
+    (an embedding row no token reads) is zero in both packages. Every
+    parameter, those loose ones too, is also held within 1e-5 + 1e-5·|want|
+    of the JAX `apply_updates` given the port's own gradients, so a wrong
+    update on small gradients still fails."""
+    jcfg, jm, jp, tcfg, tm, tp = _pair(arch)
+    batch = jsynthetic.lm_batch(jcfg, 0, 0, 4, 16)
+    cfg = dict(lr=3e-3, warmup_steps=5, total_steps=20)
+    probe = copy.deepcopy(tp).requires_grad_(True)
+    grads = torch.autograd.grad(
+        tm.loss(probe, {"tokens": torch.from_numpy(batch["tokens"])},
+                remat="none"), list(probe.parameters()))
+    grads = _as_tree(tcfg, tp, grads)
+    own, _, _ = jax.jit(joptim.apply_updates, static_argnums=0)(
+        joptim.OptConfig(**cfg), jp, joptim.init_opt_state(jp),
+        jax.tree.map(jnp.asarray, grads))
+    grads = jax.tree.leaves(grads)
+    jstep, _, _ = jloop.make_train_step(jm, make_mesh((1, 1),
+                                                      ("data", "model")),
+                                        joptim.OptConfig(**cfg),
+                                        remat="none")
+    jp1, _, jmet = jax.jit(jstep)(jp, joptim.init_opt_state(jp),
+                                  jax.tree.map(jnp.asarray, batch))
+    tstep = loop.make_train_step(tm, optim.OptConfig(**cfg), remat="none")
+    tp1, tstate, tmet = tstep(tp, optim.init_opt_state(tp),
+                              {"tokens": torch.from_numpy(batch["tokens"])})
+    assert int(tstate["step"]) == 1
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=TOL)
+    got = convert.params_to_numpy(tcfg, tp1)
+    lr0, eps = float(tmet["lr"]), optim.OptConfig().eps
+    clip = min(1.0, 1.0 / float(tmet["grad_norm"]))
+    loose = 0
+    for g, w, gr, wo in zip(jax.tree.leaves(got), jax.tree.leaves(jp1),
+                            grads, jax.tree.leaves(own)):
+        wo = np.asarray(wo)
+        assert bool((np.abs(g - wo) <= TOL + TOL * np.abs(wo)).all())
+        w, gr = np.asarray(w), clip * gr
+        delta = TOL * float(np.abs(gr).max())
+        cond = np.where(gr == 0, 0.0, np.minimum(2.0, delta * eps / (
+            np.maximum(np.abs(gr) - delta, 0.0) + eps) ** 2))
+        assert bool((np.abs(g - w) <= TOL + TOL * np.abs(w)
+                     + lr0 * cond).all())
+        loose += int((lr0 * cond > TOL).sum())
+    assert loose < 1e-2 * sum(x.size for x in grads)
+
+
+def test_microbatch_equivalence():
+    """Grad accumulation over 4 microbatches == one batch (same data), at
+    the JAX package's own tolerance (`tests/test_train_ckpt.py:39`)."""
+    cfg = treg.reduced_config(treg.get_config("tinyllama-1.1b"), layers=2)
+    model = api.build(cfg, device="cpu")
+    opt_cfg = optim.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10,
+                              clip_norm=1e9)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic.lm_batch(cfg, 0, 0, 8, 32).items()}
+    outs = []
+    for mb in (1, 4):
+        p = copy.deepcopy(params)
+        step = loop.make_train_step(model, opt_cfg, microbatches=mb,
+                                    remat="none")
+        p, _, m = step(p, optim.init_opt_state(p), batch)
+        outs.append((p, m))
+    (p1, m1), (p4, m4) = outs
+    np.testing.assert_allclose(float(m4["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(p1.parameters(), p4.parameters()):
+        np.testing.assert_allclose(a.detach().float().numpy(),
+                                   b.detach().float().numpy(), rtol=2e-2,
+                                   atol=2e-3)
+
+
+def test_loss_decreases():
+    cfg = treg.reduced_config(treg.get_config("tinyllama-1.1b"), layers=2)
+    model = api.build(cfg, device="cpu")
+    data = synthetic.iterator(cfg, batch=4, seq=32, prefetch=0,
+                              device="cpu")
+    opt_cfg = optim.OptConfig(lr=5e-3, warmup_steps=2, total_steps=30)
+    _, _, hist = loop.fit(model, data, steps=30, opt_cfg=opt_cfg,
+                          log_every=0, log_fn=lambda *_: None)
+    assert len(hist) == 30 and all(np.isfinite(h["loss"]) for h in hist)
+    first = np.mean([h["loss"] for h in hist[:5]])
+    last = np.mean([h["loss"] for h in hist[-5:]])
+    assert last < first, (first, last)
+
+
+def test_fit_refuses_checkpoints():
+    cfg = treg.reduced_config(treg.get_config("tinyllama-1.1b"), layers=1)
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        loop.fit(api.build(cfg, device="cpu"), iter(()), steps=1,
+                 ckpt_dir="/nonexistent")
+
+
+def test_watchdog_flags_stragglers():
+    w = loop.WatchdogStats(threshold=2.0)
+    for _ in range(10):
+        assert not w.record(0.1)
+    assert w.record(1.0)
+    assert w.slow_steps == 1
+
+
+def test_train_launcher_runs_on_the_cpu():
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "tinyllama-1.1b", "--smoke", "--device", "cpu", "--steps", "3"],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[train] done: loss" in res.stdout
+    assert "over 3 steps on cpu" in res.stdout
+
+
+def test_cpu_training_launches_nothing():
+    _, _, _, _, tm, tp = _pair("recurrentgemma-9b")
+    before = dict(_build.LAUNCHES)
+    step = loop.make_train_step(tm, optim.OptConfig(), remat="full")
+    step(tp, optim.init_opt_state(tp),
+         {"tokens": torch.zeros((2, 8), dtype=torch.long)})
+    assert _build.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cuda_train_step_matches_the_cpu(arch, cuda):
+    """One fp32 step of the reduced model on the card (flash, LRU and xent
+    kernels, remat "full") against the same step on the CPU (plain
+    versions): loss, grad norm and updated parameters within 1e-4; the
+    launches a step as planned."""
+    _, tcfg = _configs(arch)
+    batch = synthetic.lm_batch(tcfg, 0, 0, 2, 33)
+    out = []
+    for dev in ("cpu", cuda):
+        model = api.build(tcfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0)) \
+            if dev == "cpu" else out[0][2].to(dev)
+        step = loop.make_train_step(model, optim.OptConfig(lr=1e-3),
+                                    remat="full")
+        _build.reset_launches()
+        p, _, m = step(copy.deepcopy(params), optim.init_opt_state(params),
+                       {"tokens": torch.from_numpy(batch["tokens"]).to(dev)})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        out.append(({k: float(v) for k, v in m.items()},
+                    [x.detach().cpu() for x in p.parameters()],
+                    params.cpu() if dev == "cpu" else None))
+    (mc, pc, _), (mg, pg, _) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k])
+    for a, b in zip(pc, pg):
+        assert float((a - b).abs().max()) <= 1e-4
+    kinds = lm.layer_kinds(tcfg)
+    period = len(tcfg.pattern)
+    recomputed = kinds[:tcfg.n_repeats * period]
+    n_attn = sum(k != "rec" for k in kinds)
+    assert launches["xent"] == 1
+    assert launches["flash_attn"] == n_attn + sum(k != "rec"
+                                                  for k in recomputed)
+    assert launches["lru_scan"] == 2 * (len(kinds) - n_attn) + sum(
+        k == "rec" for k in recomputed)
