@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 In order: finds the card and prints its name and power limit; builds the
-CUDA kernels from `src/repro_torch/csrc/`; holds each kernel against its
-plain PyTorch version on the card at the main path's shapes (float32 and
-bfloat16), and two tilings of each against each other bit for bit (the
+CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
+bf16 flash and xent kernels issue HGMMA (wgmma); holds each kernel against
+its plain PyTorch version on the card at the main path's shapes (float32
+and bfloat16), and two tilings of each against each other bit for bit (the
 k-step kernels also against k launches of their one-step kernels); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
@@ -19,7 +20,8 @@ for bit; the measured "auto-tuned" pick beside the model's; the copy
 kernel's sustained rate beside `Tensor.copy_`); then the LM serving path:
 the flash-attention and LRU-scan kernels against their plain versions
 (both models' prefill shapes, GQA, MQA at head_dim 256, window, softcap,
-ragged T, T != S; float32 and bfloat16), `ServeEngine` over
+ragged T, T != S; float32, which runs the fp32-core flash kernel, and
+bfloat16, which runs the tensor-core one), `ServeEngine` over
 recurrentgemma-9b and tinyllama-1.1b at their full published widths and
 depths with random bf16 weights (8 requests, 4 slots, 256-1024-token
 prompts, 32 new tokens each; launch counts as planned, tokens equal to a
@@ -27,8 +29,9 @@ hand-rolled prefill + decode loop), the reduced configs on the card
 against the CPU, and the times of prefill, decode and both kernels (flash
 beside `scaled_dot_product_attention`); then the LM training path: the
 cross-entropy kernel against its plain version (ragged N, padded vocab,
-softcap, valid mask, both head layouts; float32 and bfloat16; both
-training shapes) and the flash kernel at both training shapes, the
+softcap, valid mask, both head layouts; float32 on the fp32-core kernel
+and bfloat16 on the tensor-core one; both training shapes, bf16) and the
+flash kernel at both training shapes (bf16: tensor cores), the
 gradients of the xent (float32 and bfloat16), LRU and flash autograd
 Functions against autograd of their plain versions, `train.loop.fit` over tinyllama-1.1b (full width
 and depth, 5 steps) and recurrentgemma-9b (full width, 3 layers, 3 steps)
@@ -89,8 +92,8 @@ def say(*a) -> None:
     print(*a, flush=True)
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median CUDA-event time of `fn()` over `reps` calls, after warm-up."""
+def times_ms(fn, reps: int = REPS) -> list:
+    """CUDA-event times of `fn()` over `reps` calls, after warm-up."""
     import torch
 
     for _ in range(2):
@@ -105,7 +108,12 @@ def time_ms(fn, reps: int = REPS) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median CUDA-event time of `fn()` over `reps` calls, after warm-up."""
+    return statistics.median(times_ms(fn, reps))
 
 
 def stream_ms(fn, n: int = 50) -> float:
@@ -244,8 +252,12 @@ def serve_phase(torch, dev, check, results, main_launches):
                                  causal=causal, window=window,
                                  softcap=softcap)
             rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
-            blocks = flash_k.BLOCKS if t == 1024 else (
-                flash_ops.auto_blocks(hd),)
+            # each route's tiles that fit at the prefill shapes, its
+            # auto-picked tile elsewhere
+            blocks = [bl for bl in flash_k.blocks(dtype)
+                      if flash_k.smem_bytes(hd, *bl, dtype)
+                      <= flash_k.SMEM_BUDGET] if t == 1024 else (
+                flash_ops.auto_blocks(hd, dtype=dtype),)
             worst = 0.0
             for bq, bk in blocks:
                 got = flash_k.flash_mha_cuda(q, k, v, causal=causal,
@@ -301,6 +313,12 @@ def serve_phase(torch, dev, check, results, main_launches):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True))
+        # queued back to back: the wrapper's host path hides behind the
+        # kernels, so these are the device's times
+        queued_ms = stream_ms(lambda: flash_ops.flash_mha(q, k, v,
+                                                          causal=causal))
+        library_queued_ms = stream_ms(lambda: sdpa(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
         flops = flash_k.attention_flops(b, t, k.shape[1], h, hd,
                                         causal=causal)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -309,11 +327,14 @@ def serve_phase(torch, dev, check, results, main_launches):
             err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by, shape=[list(q.shape),
                                                  list(k.shape)],
-            tflops=flops / ms * 1e-9)
+            tflops=flops / ms * 1e-9, queued_ms=queued_ms,
+            library_queued_ms=library_queued_ms)
         say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} bf16: "
             f"{ms:.4f} ms = {flops / ms * 1e-9:.2f} TFLOP/s (plain "
             f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} "
-            f"ms by {b_by})")
+            f"ms by {b_by}); queued back to back {queued_ms:.4f} ms = "
+            f"{flops / queued_ms * 1e-9:.2f} TFLOP/s, SDPA "
+            f"{library_queued_ms:.4f} ms")
         del q, k, v, qt, kt, vt
     flash_shapes.clear()
     torch.cuda.empty_cache()
@@ -593,7 +614,8 @@ def train_phase(torch, dev, check, results):
         want = flash_ref.mha(q.float(), k.float(), v.float(), window=window)
         d = (got.float() - want).abs()
         say(f"flash {label} {qs}/{ks} bf16 blocks "
-            f"{flash_ops.auto_blocks(qs[3])}: err {float(d.max()):.3g} (atol "
+            f"{flash_ops.auto_blocks(qs[3], dtype=torch.bfloat16)}: err "
+            f"{float(d.max()):.3g} (atol "
             f"2e-5 + {2.0 ** -8:.3g}|want|)")
         check(bool((d <= 2e-5 + 2.0 ** -8 * want.abs()).all()),
               f"flash {label}: disagrees with its plain version")
@@ -796,7 +818,8 @@ def train_phase(torch, dev, check, results):
         ok = all(bool(((g - wt).abs() <= 1e-4 + 1e-4 * wt.abs()).all())
                  for g, wt in ((nll, want_nll), (lse, want_lse)))
         ok &= sum_err <= 1e-4 * abs(float(want_nll.sum()))
-        say(f"xent {arch} training shape N={n} ({xent_k.splits(n, vp, sms)[0]}"
+        say(f"xent {arch} training shape N={n} "
+            f"({xent_k.splits(n, vp, sms, torch.bfloat16)[0]}"
             f" vocab splits): nll err {err:.3g}, lse err "
             f"{float((lse - want_lse).abs().max()):.3g} (per row 1e-4 + "
             f"1e-4|want|), sum err {sum_err:.3g} (rtol 1e-4)")
@@ -804,8 +827,11 @@ def train_phase(torch, dev, check, results):
               f"version")
         del nll, lse, want_nll, want_lse
         reps = 5
-        ms = time_ms(lambda: xent_ops.xent_rows(h, w, t,
-                                                vocab=cfg.vocab_size), reps)
+        # each call's time: a call is slower where the row blocks sharing a
+        # head tile drift apart and re-read it from device memory
+        each = times_ms(lambda: xent_ops.xent_rows(h, w, t,
+                                                   vocab=cfg.vocab_size), reps)
+        ms = statistics.median(each)
         plain_ms = time_ms(lambda: xent_ref.xent_rows(
             h, w, t, None, cfg.vocab_size), reps)
         library_ms = time_ms(lambda: F.cross_entropy(
@@ -814,18 +840,19 @@ def train_phase(torch, dev, check, results):
         nbytes = (n * d + d * vp) * 2 + n * (4 + 4 + 4)
         # bf16 inputs: their products are exact in fp32, so the card's
         # rate for this function is the bf16 tensor cores' (fp32
-        # accumulation); the fp32 cores' bound, the rate this kernel's
-        # fp32 product can reach, is kept beside it
+        # accumulation), the route bf16 takes; the fp32 cores' bound, the
+        # fp32 route's at this shape, is kept beside it
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         fp32_ms, _ = bound(nbytes, flops)
         results[(f"xent_{arch}", "bfloat16")] = dict(
             err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by, bound_fp32_cores_ms=fp32_ms,
             shape=[n, d, vp], tied=cfg.tie_embeddings,
-            tflops=flops / ms * 1e-9)
+            tflops=flops / ms * 1e-9, ms_each=each)
         say(f"xent {arch} training shape N={n} D={d} Vp={vp} bf16"
             f"{' (embed.T)' if cfg.tie_embeddings else ''}: {ms:.3f} ms = "
-            f"{flops / ms * 1e-9:.2f} TFLOP/s (err {err:.3g}; plain "
+            f"{flops / ms * 1e-9:.2f} TFLOP/s (calls "
+            f"{[round(x, 3) for x in each]} ms; err {err:.3g}; plain "
             f"{plain_ms:.3f} ms; library pair h @ head + F.cross_entropy, "
             f"two calls, {library_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
             f"at 989 TFLOP/s bf16; on the fp32 cores' 67 TFLOP/s "
@@ -925,6 +952,29 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {src}: {line.strip()}")
+    # the bf16 route's kernels run on the tensor cores: the HGMMA
+    # instructions (wgmma) cuobjdump finds in each one's instantiations
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    require(cuobjdump.exists(), f"{cuobjdump} not found")
+    sass = subprocess.run([str(cuobjdump), "-sass", _build.build_log["path"]],
+                          capture_output=True, text=True, timeout=300)
+    require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    hgmma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            hgmma[fn] = 0
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    for kern in ("flash_fwd_tc", "xent_partial_tc"):
+        inst = {f: c for f, c in hgmma.items() if kern in f}
+        say(f"sass: {kern}: {len(inst)} instantiations, HGMMA "
+            f"instructions {sorted(inst.values())}")
+        require(inst and min(inst.values()) > 0,
+                f"{kern}: an instantiation issues no HGMMA")
+    fp32_hgmma = sum(c for f, c in hgmma.items()
+                     if "flash_fwd" in f and "flash_fwd_tc" not in f)
+    say(f"sass: flash_fwd (fp32 route): {fp32_hgmma} HGMMA instructions")
 
     nz, ny, nx = GRID
     nf = len(fields.PROGNOSTIC)
@@ -1704,11 +1754,11 @@ def main() -> int:
                         "src/repro/kernels/hadv/hadv.py:47"),
                "copy": ("src/repro_torch/csrc/copy.cu",
                         "src/repro/kernels/copy_stencil/copy_stencil.py:17"),
-               "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
+               "flash_attn": ("src/repro_torch/csrc/flash_attn_tc.cu",
                               "src/repro/kernels/flash_attention/flash.py:77"),
                "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
                             "src/repro/kernels/lru_scan/lru_scan.py:41"),
-               "xent": ("src/repro_torch/csrc/xent.cu",
+               "xent": ("src/repro_torch/csrc/xent_tc.cu",
                         "src/repro/kernels/xent/xent.py:68")}
     # the LM paths run flash attention and xent in bf16, the rest in fp32
     keys = {"flash_attn": ("flash_attn", "bfloat16"),
@@ -1745,10 +1795,15 @@ def main() -> int:
                     shape=r["shape"], max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
-                if "bound_fp32_cores_ms" in r:
-                    paths[path]["bound_fp32_cores_ms"] = r[
-                        "bound_fp32_cores_ms"]
+                for extra in ("bound_fp32_cores_ms", "ms_each", "queued_ms",
+                              "library_queued_ms"):
+                    if extra in r:
+                        paths[path][extra] = r[extra]
             kernels[-1]["paths"] = paths
+        if name in ("flash_attn", "xent"):
+            # the times above are the bf16 tensor-core kernel's; fp32
+            # operands take the fp32-core kernel
+            kernels[-1]["fp32_source"] = source.replace("_tc.cu", ".cu")
         if name == "lru_scan":
             kernels[-1]["reverse_ms"] = results[("lru_scan_reverse",
                                                  "float32")]["ms"]

@@ -1,21 +1,22 @@
-// Flash attention forward for Hopper: GQA, causal / sliding window / tanh
-// softcap, online softmax, fp32 inside, output in the input's dtype.
+// Flash attention forward for Hopper, the fp32 route: GQA, causal /
+// sliding window / tanh softcap, online softmax, fp32 throughout. bf16
+// operands take the tensor-core route, flash_attn_tc.cu.
 //
 // Replaces the TPU kernel `flash_mha_pallas`
 // (src/repro/kernels/flash_attention/flash.py, body `_flash_kernel`).
 //
 // Bound: at the serving path's prefill shapes (T = S = 1024, hd 64 or 256)
 // operations: 4·hd flops for every (query, key) pair the mask keeps, against
-// the bytes of q, k, v and o read or written once. This first kernel runs
-// its products on the fp32 cores (no tensor cores, no wgmma or TMA), so it
-// sits far above the bf16 tensor-core bound; it is right first.
+// the bytes of q, k, v and o read or written once. fp32 operands need
+// the fp32 product (TF32 would not hold the fp32 gates), so this kernel
+// runs its products on the fp32 cores.
 //
 // Design. One block of 256 threads per (q-block, head, batch), as the TPU
 // grid's (B, H, nq) axes; the TPU's sequential kv axis becomes a loop inside
 // the block. Head h reads kv head h / (H / KH), as the TPU index map does,
 // so KV is never replicated. q, k, v and o are read and written in their
 // (B, T, H, hd) layout through strides: nothing is transposed. Per kv block
-// the K and V tiles are staged in shared memory as fp32 (K, like Q, with a
+// the K and V tiles are staged in shared memory (K, like Q, with a
 // padded row so the score loop is free of bank conflicts); each thread owns
 // a (BQ/16) x (BK/16) patch of the score tile and a (BQ/16) x (hd/16)
 // patch of the accumulator. Scores, running max, running sum and the
@@ -32,7 +33,6 @@
 // skipping changes no bit. Blocks (BQ, BK) = (64, 64) or (32, 32);
 // `kernels/flash_attention/ops.py::auto_blocks` picks the larger that fits
 // the shared memory a block opts into (227 KB).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -42,15 +42,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kMask = -1e30f;   // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Args {
   int T, S, H, KH;
@@ -72,10 +63,10 @@ struct Smem {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <typename T, int HD, int BQ, int BK>
+template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Args a) {
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Args a) {
   using SM = Smem<HD, BQ, BK>;
   constexpr int RI = BQ / 16;            // rows a thread owns
   constexpr int RJ = BK / 16;            // score columns a thread owns
@@ -96,16 +87,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * BQ;
   const long long h = blockIdx.y, b = blockIdx.z;
   const long long kh = h / (a.H / a.KH);
-  const T* qb = q + b * a.q_sb + h * a.q_sh;
-  const T* kb = k + b * a.k_sb + kh * a.k_sh;
-  const T* vb = v + b * a.v_sb + kh * a.v_sh;
-  T* ob = o + b * a.o_sb + h * a.o_sh;
+  const float* qb = q + b * a.q_sb + h * a.q_sh;
+  const float* kb = k + b * a.k_sb + kh * a.k_sh;
+  const float* vb = v + b * a.v_sb + kh * a.v_sh;
+  float* ob = o + b * a.o_sb + h * a.o_sh;
 
   for (int idx = tid; idx < BQ * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int t = q0 + r;
     Qs[r * QS + d] =
-        t < a.T ? to_f(qb[static_cast<long long>(t) * a.q_st + d]) * a.scale
+        t < a.T ? qb[static_cast<long long>(t) * a.q_st + d] * a.scale
                 : 0.0f;
   }
   if (tid < BQ) {
@@ -136,8 +127,8 @@ __global__ void __launch_bounds__(kThreads)
       const int s = k0 + r;
       float kv = 0.0f, vv = 0.0f;
       if (s < a.S) {
-        kv = to_f(kb[static_cast<long long>(s) * a.k_ss + d]);
-        vv = to_f(vb[static_cast<long long>(s) * a.v_ss + d]);
+        kv = kb[static_cast<long long>(s) * a.k_ss + d];
+        vv = vb[static_cast<long long>(s) * a.v_ss + d];
       }
       Ks[r * KS + d] = kv;
       Vs[r * HD + d] = vv;
@@ -244,16 +235,16 @@ __global__ void __launch_bounds__(kThreads)
     const int t = q0 + i;
     if (t >= a.T) continue;
     const float l = fmaxf(l_s[i], 1e-30f);
-    T* orow = ob + static_cast<long long>(t) * a.o_st;
+    float* orow = ob + static_cast<long long>(t) * a.o_st;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) put(orow + tj + 16 * c, acc[r][c] / l);
+    for (int c = 0; c < RD; ++c) orow[tj + 16 * c] = acc[r][c] / l;
   }
 }
 
-template <typename T, int HD, int BQ, int BK>
+template <int HD, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            const Args& a, cudaStream_t stream) {
-  auto kern = flash_fwd<T, HD, BQ, BK>;
+  auto kern = flash_fwd<HD, BQ, BK>;
   constexpr size_t bytes = Smem<HD, BQ, BK>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,41 +252,40 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.T + BQ - 1) / BQ, a.H, B);
   kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 int by_head_dim(int hd, const void* q, const void* k, const void* v, void* o,
                 int B, const Args& a, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16, BQ, BK>(q, k, v, o, B, a, stream);
-    case 32: return launch<T, 32, BQ, BK>(q, k, v, o, B, a, stream);
-    case 64: return launch<T, 64, BQ, BK>(q, k, v, o, B, a, stream);
-    case 128: return launch<T, 128, BQ, BK>(q, k, v, o, B, a, stream);
-    case 256: return launch<T, 256, BQ, BK>(q, k, v, o, B, a, stream);
+    case 16: return launch<16, BQ, BK>(q, k, v, o, B, a, stream);
+    case 32: return launch<32, BQ, BK>(q, k, v, o, B, a, stream);
+    case 64: return launch<64, BQ, BK>(q, k, v, o, B, a, stream);
+    case 128: return launch<128, BQ, BK>(q, k, v, o, B, a, stream);
+    case 256: return launch<256, BQ, BK>(q, k, v, o, B, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
 int by_blocks(int bq, int bk, int hd, const void* q, const void* k,
               const void* v, void* o, int B, const Args& a,
               cudaStream_t stream) {
   if (bq == 64 && bk == 64)
-    return by_head_dim<T, 64, 64>(hd, q, k, v, o, B, a, stream);
+    return by_head_dim<64, 64>(hd, q, k, v, o, B, a, stream);
   if (bq == 32 && bk == 32)
-    return by_head_dim<T, 32, 32>(hd, q, k, v, o, B, a, stream);
+    return by_head_dim<32, 32>(hd, q, k, v, o, B, a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (B, T, H, hd), k and v (B, S, KH, hd), o (B, T, H, hd) with the given
-// element strides (hd contiguous); `bf16` selects bfloat16 over float32.
+// q (B, T, H, hd), k and v (B, S, KH, hd), o (B, T, H, hd), float32, with
+// the given element strides (hd contiguous).
 extern "C" int nero_flash_attn(
-    const void* q, const void* k, const void* v, void* o, int bf16, int B,
+    const void* q, const void* k, const void* v, void* o, int B,
     int T, int S, int H, int KH, int hd, int bq, int bk, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -308,6 +298,5 @@ extern "C" int nero_flash_attn(
                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
                o_st, o_sh, causal, window, softcap, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? by_blocks<__nv_bfloat16>(bq, bk, hd, q, k, v, o, B, a, st)
-              : by_blocks<float>(bq, bk, hd, q, k, v, o, B, a, st);
+  return by_blocks(bq, bk, hd, q, k, v, o, B, a, st);
 }

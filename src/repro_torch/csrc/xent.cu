@@ -1,6 +1,8 @@
-// Fused LM-head cross-entropy for Hopper: per-row next-token NLL and
-// log-normaliser, a streaming logsumexp over vocabulary tiles, fp32 inside,
-// no logit ever written to device memory.
+// Fused LM-head cross-entropy for Hopper, the fp32 route: per-row
+// next-token NLL and log-normaliser, a streaming logsumexp over vocabulary
+// tiles, fp32 throughout, no logit ever written to device memory. bf16
+// operands take the tensor-core route, xent_tc.cu; both end in this file's
+// `nero_xent_combine`.
 //
 // Replaces the TPU kernel `xent_pallas`
 // (src/repro/kernels/xent/xent.py, body `_xent_kernel`).
@@ -8,13 +10,14 @@
 // Bound: operations. Each row needs 2·D·Vp flops for its logits against
 // the bytes of hidden (N, D), head (D, Vp) and the per-row outputs; at the
 // training path's shapes (N ~ 8k, D 2048-4096, Vp 32k-256k) that is
-// thousands of flops a byte. This first kernel runs the product on the
-// fp32 cores (no tensor cores, no wgmma or TMA): a register-tiled product,
-// 128 rows by 128 columns a block, 8 x 8 outputs a thread.
+// thousands of flops a byte. fp32 operands need the fp32 product (TF32
+// would not hold the fp32 gates), so this kernel runs on the fp32 cores: a
+// register-tiled product, 128 rows by 128 columns a block, 8 x 8 outputs a
+// thread.
 //
 // Design. A block owns a tile of BN rows and streams vocabulary tiles of
 // BV columns; for each it runs the product over D in stages of BK, with the
-// rows' hidden slice and the head tile staged in shared memory as fp32,
+// rows' hidden slice and the head tile staged in shared memory,
 // then folds the tile into each row's running max, running sum and gold
 // logit (fp32, as the TPU kernel's VMEM scratch), which live in shared
 // memory across tiles. Where the TPU walks the vocabulary axis in order on
@@ -29,7 +32,6 @@
 // along D (`embed.T`, tied), each with its own load order, so neither
 // layout is copied. Built with -fmad=true: the product is held to its
 // plain version within a tolerance, not bit for bit.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -46,11 +48,6 @@ constexpr int TN = BV / 16;          // columns a thread: tx + 16 j
 constexpr int kPad = 4;              // shared rows padded: fewer conflicts
 constexpr float kMask = -1e30f;      // the TPU kernel's NEG_INF
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 struct Args {
   int n, d, vp, vocab;        // vocab: columns >= vocab are masked
   long long h_sn;             // hidden row stride; D is contiguous
@@ -59,9 +56,9 @@ struct Args {
   int tiles_per_split;        // vocabulary tiles each grid.y covers
 };
 
-template <typename T, bool kVContig>
+template <bool kVContig>
 __global__ void __launch_bounds__(kThreads, 2)
-    xent_partial(const T* __restrict__ h, const T* __restrict__ w,
+    xent_partial(const float* __restrict__ h, const float* __restrict__ w,
                  const int* __restrict__ tgt, float* __restrict__ pm,
                  float* __restrict__ pl, float* __restrict__ pg, Args a) {
   __shared__ float hs[BK][BN + kPad];   // hidden slice, depth-major
@@ -99,7 +96,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int kk = e % BK, r = e / BK;
         const int row = row0 + r, k = k0 + kk;
         hs[kk][r] = (row < a.n && k < a.d)
-                        ? to_f(h[static_cast<long long>(row) * a.h_sn + k])
+                        ? h[static_cast<long long>(row) * a.h_sn + k]
                         : 0.0f;
       }
       // head tile: walk the contiguous axis with neighbouring threads
@@ -109,8 +106,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int c = kVContig ? e % BV : e / BK;
         const int col = col0 + c, k = k0 + kk;
         ws[kk][c] = (col < a.vp && k < a.d)
-                        ? to_f(w[static_cast<long long>(k) * a.w_sd +
-                                 static_cast<long long>(col) * a.w_sv])
+                        ? w[static_cast<long long>(k) * a.w_sd +
+                            static_cast<long long>(col) * a.w_sv]
                         : 0.0f;
       }
       __syncthreads();
@@ -203,26 +200,38 @@ __global__ void xent_combine(const float* __restrict__ pm,
   nll[row] = (z - g) * valid[row];
 }
 
-template <typename T, bool kVContig>
+template <bool kVContig>
 cudaError_t launch_partial(const void* h, const void* w, const int* tgt,
                            float* pm, float* pl, float* pg, const Args& a,
                            int splits, cudaStream_t st) {
   const dim3 grid((a.n + BN - 1) / BN, splits);
-  xent_partial<T, kVContig><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), tgt, pm, pl, pg,
-      a);
+  xent_partial<kVContig><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), tgt, pm,
+      pl, pg, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// hidden (n, d) with row stride h_sn; head (d, vp) with strides (w_sd,
-// w_sv), one of which is 1; targets int32 (n,); valid float32 (n,);
-// scratch pm, pl, pg float32 (splits, n); out nll, lse float32 (n,).
-// `bf16` selects bfloat16 over float32 for hidden and head.
+// Merge the `splits` partial (max, sum, gold) of each of n rows (float32
+// (splits, n) each) into nll and lse, float32 (n,); both routes end here.
+extern "C" int nero_xent_combine(const void* pm, const void* pl,
+                                 const void* pg, const void* valid, void* nll,
+                                 void* lse, int n, int splits, void* stream) {
+  xent_combine<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pm), static_cast<const float*>(pl),
+      static_cast<const float*>(pg), static_cast<const float*>(valid),
+      static_cast<float*>(nll), static_cast<float*>(lse), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hidden (n, d) float32 with row stride h_sn; head (d, vp) float32 with
+// strides (w_sd, w_sv), one of which is 1; targets int32 (n,); valid
+// float32 (n,); scratch pm, pl, pg float32 (splits, n); out nll, lse
+// float32 (n,).
 extern "C" int nero_xent(const void* h, const void* w, const void* tgt,
                          const void* valid, void* pm, void* pl, void* pg,
-                         void* nll, void* lse, int bf16, int n, int d, int vp,
+                         void* nll, void* lse, int n, int d, int vp,
                          int vocab, long long h_sn, long long w_sd,
                          long long w_sv, float softcap, int splits,
                          int tiles_per_split, void* stream) {
@@ -238,21 +247,9 @@ extern "C" int nero_xent(const void* h, const void* w, const void* tgt,
   float* m = static_cast<float*>(pm);
   float* l = static_cast<float*>(pl);
   float* g = static_cast<float*>(pg);
-  const bool vcontig = w_sv == 1;
-  cudaError_t err;
-  if (bf16)
-    err = vcontig ? launch_partial<__nv_bfloat16, true>(h, w, t, m, l, g, a,
-                                                        splits, st)
-                  : launch_partial<__nv_bfloat16, false>(h, w, t, m, l, g, a,
-                                                         splits, st);
-  else
-    err = vcontig ? launch_partial<float, true>(h, w, t, m, l, g, a, splits,
-                                                st)
-                  : launch_partial<float, false>(h, w, t, m, l, g, a, splits,
-                                                 st);
+  const cudaError_t err =
+      w_sv == 1 ? launch_partial<true>(h, w, t, m, l, g, a, splits, st)
+                : launch_partial<false>(h, w, t, m, l, g, a, splits, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  xent_combine<<<(n + 255) / 256, 256, 0, st>>>(
-      m, l, g, static_cast<const float*>(valid), static_cast<float*>(nll),
-      static_cast<float*>(lse), n, splits);
-  return static_cast<int>(cudaGetLastError());
+  return nero_xent_combine(pm, pl, pg, valid, nll, lse, n, splits, stream);
 }

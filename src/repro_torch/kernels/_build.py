@@ -4,9 +4,10 @@ At first use, `nvcc` compiles each `.cu` source to an object for sm_90a, all
 sources at once in parallel processes, and links the objects into one shared
 library with a plain C interface, which `ctypes` loads. Every source is
 compiled with `-fmad=false`, so that each stencil rounds bit for bit as its
-plain version, except those in `FMAD_SOURCES`: the cross-entropy kernel is
-held to its plain version within a tolerance, and fused multiply-adds double
-the rate of its product. The build goes to
+plain version, except those in `FMAD_SOURCES`: the cross-entropy kernels and
+the bf16 flash-attention kernel are held to their plain versions within a
+tolerance, and fused multiply-adds double the rate of the fp32 product and
+shorten the softmax. The build goes to
 `build/repro_torch_kernels/<hash of sources and flags>/` under the repository
 root and is reused while the sources stay the same. Nothing here runs when the
 module is imported.
@@ -33,10 +34,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
            "hdiff_kstep.cu", "hadv.cu", "copy.cu", "flash_attn.cu",
-           "lru_scan.cu", "xent.cu")
+           "flash_attn_tc.cu", "lru_scan.cu", "xent.cu", "xent_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
-FMAD_SOURCES = ("xent.cu",)    # built with -fmad=true in place of -fmad=false
+# built with -fmad=true in place of -fmad=false
+FMAD_SOURCES = ("xent.cu", "flash_attn_tc.cu", "xent_tc.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,12 +55,17 @@ _SIGNATURES = {
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
     "nero_copy": (_P, _P, _LL, _P),
-    "nero_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    "nero_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                         _LL, _LL, _I, _I, _F, _F, _P),
+    "nero_flash_attn_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                           _LL, _LL, _I, _I, _F, _F, _P),
     "nero_lru_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "nero_xent": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "nero_xent": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   _LL, _LL, _LL, _F, _I, _I, _P),
+    "nero_xent_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _LL, _LL, _LL, _F, _I, _I, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,

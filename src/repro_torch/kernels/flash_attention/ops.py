@@ -2,44 +2,30 @@
 runs, and block selection against the card's shared memory.
 
 A CPU tensor takes the plain version (`ref.mha`); a CUDA tensor launches
-the CUDA kernel (`flash.flash_mha_cuda`) or raises. There is no fallback.
+the CUDA kernel of its dtype (`flash.flash_mha_cuda`: bfloat16 on the
+tensor cores, float32 on the fp32 cores) or raises. There is no fallback.
 Where an input requires grad, the call goes through `FlashFn`: the same
 forward, and a backward that recomputes the plain version and returns its
 gradients, as XLA differentiates the JAX package's jnp attention (a
 hand-written backward kernel is later work, ROADMAP queue 2).
 
-`auto_blocks` plays the part of the JAX package's VMEM-budget rule: the
-largest (block_q, block_k) the kernel is built for whose working set (q,
-k, v and score tiles in fp32, `flash.smem_bytes`) fits the dynamic shared
-memory one block may opt into on the H100 (227 KB). T and S need not
-divide by the blocks.
+`auto_blocks` (`flash.auto_blocks`) plays the part of the JAX package's
+VMEM-budget rule: the largest (block_q, block_k) the route is built for
+whose working set (`flash.smem_bytes`: fp32 q, k, v and score tiles, or
+the bf16 q tile and two stages of k and v) fits the dynamic shared memory
+one block may opt into on the H100 (227 KB). T and S need not divide by
+the blocks.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from repro_torch.kernels.flash_attention import ref
-from repro_torch.kernels.flash_attention.flash import (BLOCKS,
+from repro_torch.kernels.flash_attention.flash import (SMEM_BUDGET,  # noqa: F401
+                                                       auto_blocks,
                                                        check_operands,
-                                                       flash_mha_cuda,
-                                                       smem_bytes)
-
-SMEM_BUDGET = 232448       # bytes of shared memory a block may opt into
-
-
-def auto_blocks(hd: int, budget: int = SMEM_BUDGET) -> Tuple[int, int]:
-    """The largest (block_q, block_k) of `flash.BLOCKS` whose shared-memory
-    working set fits `budget`. The tiles are fp32 whatever the I/O dtype,
-    and any T, S tile (the last block may be ragged), so only `hd` and the
-    budget decide."""
-    for bq, bk in BLOCKS:
-        if smem_bytes(hd, bq, bk) <= budget:
-            return bq, bk
-    raise ValueError(f"flash_attn: no block of {BLOCKS} fits {budget} bytes "
-                     f"of shared memory at head_dim {hd}")
+                                                       flash_mha_cuda)
 
 
 def _forward(q, k, v, causal, window, softcap):
@@ -47,7 +33,7 @@ def _forward(q, k, v, causal, window, softcap):
         check_operands(q, k, v, window)
         return ref.mha(q, k, v, causal=causal, window=window,
                        softcap=softcap)
-    bq, bk = auto_blocks(q.shape[3])
+    bq, bk = auto_blocks(q.shape[3], dtype=q.dtype)
     return flash_mha_cuda(q, k, v, causal=causal, window=window,
                           softcap=softcap, block_q=bq, block_k=bk)
 

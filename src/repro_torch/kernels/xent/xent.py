@@ -1,14 +1,22 @@
-"""The CUDA cross-entropy kernel (`csrc/xent.cu`) and its launcher.
+"""The CUDA cross-entropy kernels and their launcher, two routes by dtype.
 
-Replaces the TPU kernel `repro.kernels.xent.xent.xent_pallas`. The kernel
-computes what it computes — per row, logits against vocab tiles of the
-head with an fp32 product, `softcap`, padding columns at -1e30, and a
+Replaces the TPU kernel `repro.kernels.xent.xent.xent_pallas`. Both
+kernels compute what it computes — per row, logits against vocab tiles of
+the head with fp32 accumulation, `softcap`, padding columns at -1e30, and a
 streaming max / sum / gold logit, so that no logit reaches device memory —
-and also takes N and Vp that its tiles do not divide and a head in either
-layout (`(D, Vp)` contiguous along V, or `embed.T`), where the TPU kernel
-needs both to tile. It returns each row's NLL and log-normaliser (`lse`,
-which the backward reuses). Its plain version is `ref.xent_rows`. The
-launcher is the forward kernel alone: gradients go through `ops.XentFn`.
+and also take N, D and Vp that their tiles do not divide and a head in
+either layout (`(D, Vp)` contiguous along V, or `embed.T`), where the TPU
+kernel needs both to tile. The dtype picks the route, with no fallback:
+
+- bfloat16: the tensor-core route, `csrc/xent_tc.cu`: the product as bf16
+  `wgmma` with fp32 accumulation (a product of two bf16 values is exact in
+  fp32), 128 rows by 256 columns a block, the depth in stages of 64
+  through a four-stage ring, the max / sum / gold fold in registers.
+- float32: the fp32-core route, `csrc/xent.cu`, 128 by 128 a block.
+
+Each returns each row's NLL and log-normaliser (`lse`, which the backward
+reuses). Their plain version is `ref.xent_rows`. The launcher is the
+forward kernel alone: gradients go through `ops.XentFn`.
 """
 
 from __future__ import annotations
@@ -19,8 +27,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-BN, BV = 128, 128          # the kernel's row and vocabulary tiles
+BN, BV = 128, 128          # the fp32 kernel's row and vocabulary tiles
 BLOCKS_PER_SM = 2          # its `__launch_bounds__`
+TC_BN, TC_BV = 128, 256    # the bf16 tensor-core kernel's (`xent_tc.cu`)
+TC_BLOCKS_PER_SM = 1       # its `__launch_bounds__`: 193 KB of shared memory
+TC_DEPTH, TC_STAGES = 64, 4   # its depth stage and ring
+TC_SMEM = TC_STAGES * (TC_BN + TC_BV) * TC_DEPTH * 2 + 1024   # + alignment
+
+
+def tiles(dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """(rows, vocabulary columns, blocks a SM) of the route of `dtype`."""
+    if dtype == torch.bfloat16:
+        return TC_BN, TC_BV, TC_BLOCKS_PER_SM
+    return BN, BV, BLOCKS_PER_SM
 
 
 def check_operands(hidden, head, targets, valid, vocab: int) -> None:
@@ -44,14 +63,16 @@ def check_operands(hidden, head, targets, valid, vocab: int) -> None:
                          f"{head.shape[1]}]")
 
 
-def splits(n: int, vp: int, sms: int) -> Tuple[int, int]:
+def splits(n: int, vp: int, sms: int,
+           dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(splits, vocab tiles a split) for N rows and Vp columns on `sms`
-    SMs: each row tile's vocabulary is cut into `splits` blocks so that
-    the blocks fill the card; picks the least waves × (tiles a block + 1)
-    (when the last block ends, with a tile's worth of set-up a block),
-    fewer splits on a tie."""
-    row_tiles, nvt = -(-n // BN), -(-vp // BV)
-    slots = BLOCKS_PER_SM * sms
+    SMs, in the tiles of the route of `dtype`: each row tile's vocabulary
+    is cut into `splits` blocks so that the blocks fill the card; picks the
+    least waves × (tiles a block + 1) (when the last block ends, with a
+    tile's worth of set-up a block), fewer splits on a tie."""
+    bn, bv, per_sm = tiles(dtype)
+    row_tiles, nvt = -(-n // bn), -(-vp // bv)
+    slots = per_sm * sms
     best = None
     for want in range(1, nvt + 1):
         tps = -(-nvt // want)
@@ -66,10 +87,11 @@ def xent_cuda(hidden: torch.Tensor, head: torch.Tensor,
               targets: torch.Tensor, valid: Optional[torch.Tensor] = None, *,
               vocab: int = 0, softcap: float = 0.0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors: hidden (N, D) with contiguous
-    rows, head (D, Vp) contiguous along either axis, float32 or bfloat16;
-    targets (N,) integer; valid (N,) (None: every row). Returns the
-    per-row NLL (times `valid`) and log-normaliser, float32 (N,)."""
+    """Launch the kernel of the dtype (bfloat16: tensor cores; float32:
+    fp32 cores) on CUDA tensors: hidden (N, D) with contiguous rows, head
+    (D, Vp) contiguous along either axis; targets (N,) integer; valid (N,)
+    (None: every row). Returns the per-row NLL (times `valid`) and
+    log-normaliser, float32 (N,)."""
     check_operands(hidden, head, targets, valid, vocab)
     for name, x in (("hidden", hidden), ("head", head), ("targets", targets),
                     ("valid", valid)):
@@ -101,7 +123,8 @@ def xent_cuda(hidden: torch.Tensor, head: torch.Tensor,
     valid = (torch.ones(n, dtype=torch.float32, device=dev) if valid is None
              else valid.to(torch.float32).contiguous())
     s, tps = splits(n, vp,
-                    torch.cuda.get_device_properties(dev).multi_processor_count)
+                    torch.cuda.get_device_properties(dev).multi_processor_count,
+                    hidden.dtype)
     part = torch.empty((3, s, n), dtype=torch.float32, device=dev)
     nll = torch.empty(n, dtype=torch.float32, device=dev)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
@@ -112,12 +135,14 @@ def xent_cuda(hidden: torch.Tensor, head: torch.Tensor,
     elif d == 1:
         w_sd = 1
     lib = _build.load()
+    launch = (lib.nero_xent_tc if hidden.dtype == torch.bfloat16
+              else lib.nero_xent)
     with torch.cuda.device(dev):
-        err = lib.nero_xent(
+        err = launch(
             hidden.data_ptr(), head.data_ptr(), tgt.data_ptr(),
             valid.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            part[2].data_ptr(), nll.data_ptr(), lse.data_ptr(),
-            int(hidden.dtype == torch.bfloat16), n, d, vp, vocab or vp,
+            part[2].data_ptr(), nll.data_ptr(), lse.data_ptr(), n, d, vp,
+            vocab or vp,
             hidden.stride(0), w_sd, w_sv, float(softcap), s, tps,
             _build.stream_of(hidden))
     _build.check(err, "xent")

@@ -7,7 +7,9 @@ on a CPU tensor; bf16 crosses as `uint16` bits. The
 tolerances are the JAX kernel test's (`tests/test_kernels_flash.py`): fp32
 2e-5, bf16 2e-2. Shapes the Pallas kernel refuses (T or S not a multiple
 of the blocks) are held against the JAX package's `ref.mha`. The `cuda`
-cases hold the CUDA kernel against its plain version on the card.
+cases hold the CUDA kernel of each route (float32: fp32 cores; bfloat16:
+tensor cores) against its plain version on the card, and a plain-PyTorch
+model of the bf16 route's rounding records why its p·v splits p in two.
 """
 
 import numpy as np
@@ -113,6 +115,64 @@ def test_auto_blocks_fit_the_shared_memory():
         ops.auto_blocks(256, budget=65536)
 
 
+def test_tc_blocks_fit_the_shared_memory():
+    """The bf16 route's tiles: (128, 128) up to hd 128 and (128, 64) at hd
+    256 (whose (128, 128) would need 328,704 bytes), each within the
+    232,448 bytes a block may opt into; `Tiles` in flash_attn_tc.cu."""
+    bf16 = torch.bfloat16
+    for hd in flash.HEAD_DIMS:
+        bq, bk = ops.auto_blocks(hd, dtype=bf16)
+        assert (bq, bk) == ((128, 128) if hd <= 128 else (128, 64))
+        assert flash.smem_bytes(hd, bq, bk, bf16) <= ops.SMEM_BUDGET
+        assert (bq, bk) in flash.blocks(bf16) == flash.TC_BLOCKS
+    assert flash.smem_bytes(256, 128, 64, bf16) == 197632
+    assert flash.smem_bytes(256, 128, 128, bf16) == 328704
+    assert flash.smem_bytes(128, 128, 128, bf16) == 164864
+    with pytest.raises(ValueError, match="no block"):
+        ops.auto_blocks(256, budget=150_000, dtype=bf16)
+    # the fp32 route keeps its own tiles
+    assert flash.blocks(torch.float32) == flash.BLOCKS
+
+
+def _tc_model(q, k, v, *, causal, split_p):
+    """A plain-PyTorch model of the bf16 route's rounding on bf16 q, k, v
+    (B, T, H, hd), MHA: the products of bf16 values with fp32 sums, the
+    scale on the fp32 scores, p = exp(s - max) in fp32 for the sum, and p·v
+    with p as bf16(p) + bf16(p - bf16(p)) (`split_p`) or as one bf16;
+    the output rounded to bf16 once."""
+    hd = q.shape[-1]
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        t = q.shape[1]
+        keep = torch.ones(t, t, dtype=torch.bool).tril()
+        s = torch.where(keep, s, ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float() if split_p else torch.zeros_like(p)
+    o = torch.einsum("bhts,bshd->bthd", hi, v.float()) + torch.einsum(
+        "bhts,bshd->bthd", lo, v.float())
+    return (o / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_rounding_model_needs_p_split_in_two(causal):
+    """With p as hi + lo the route's rounding meets the bf16 gate
+    (2e-5 + 2^-8|want|) against `ref.mha` in fp32 on the same bf16 inputs;
+    with p as one bf16 it does not: 2^-9·|p_j v_j| a term exceeds the
+    gate where the output is near 0."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(2, 256, 4, 64, generator=gen).bfloat16()
+               for _ in range(3))
+    want = ref.mha(q.float(), k.float(), v.float(), causal=causal)
+
+    def excess(got):
+        return float(((got.float() - want).abs()
+                      - (2e-5 + 2.0 ** -8 * want.abs())).max())
+
+    assert excess(_tc_model(q, k, v, causal=causal, split_p=True)) <= 0.0
+    assert excess(_tc_model(q, k, v, causal=causal, split_p=False)) > 0.0
+
+
 def test_attention_flops_count_the_kept_pairs():
     assert flash.attention_flops(1, 4, 4, 1, 8, causal=True) == 4 * 8 * 10
     assert flash.attention_flops(2, 3, 5, 2, 8, causal=False) == \
@@ -162,28 +222,101 @@ CUDA_CASES = [
 ]
 
 
+def _cuda_inputs(case, dtype, dev, seed=0):
+    b, t, s, h, kh, hd = case[:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, t, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+def _within_gate(got, q, k, v, causal, window, softcap):
+    """The kernel against its plain version in fp32 from the same inputs:
+    |got - want| <= 2e-5 + rtol·|want| (fp32: the JAX kernel test's 2e-5;
+    bf16: the output's one rounding, 2^-8)."""
+    want = ref.mha(q.float(), k.float(), v.float(), causal=causal,
+                   window=window, softcap=softcap)
+    rtol = 2e-5 if q.dtype == torch.float32 else 2.0 ** -8
+    return bool(((got.float() - want).abs()
+                 <= 2e-5 + rtol * want.abs()).all())
+
+
+# each route's tiles: float32 takes the fp32-core kernel, bfloat16 the
+# tensor-core kernel
+ROUTE_BLOCKS = ([(torch.float32, b) for b in flash.BLOCKS]
+                + [(torch.bfloat16, b) for b in flash.TC_BLOCKS])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CUDA_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("blocks", flash.BLOCKS)
+@pytest.mark.parametrize("dtype,blocks", ROUTE_BLOCKS)
 def test_cuda_kernel_matches_plain(case, dtype, blocks, cuda):
     b, t, s, h, kh, hd, causal, window, softcap = case
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
-               for shape in ((b, t, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    q, k, v = _cuda_inputs(case, dtype, cuda)
     _build.reset_launches()
+    if flash.smem_bytes(hd, *blocks, dtype) > ops.SMEM_BUDGET:
+        # hd 256 at the bf16 route's (128, 128): refused before launch
+        with pytest.raises(ValueError, match="shared memory"):
+            flash.flash_mha_cuda(q, k, v, block_q=blocks[0],
+                                 block_k=blocks[1])
+        assert _build.LAUNCHES["flash_attn"] == 0
+        return
     got = flash.flash_mha_cuda(q, k, v, causal=causal, window=window,
                                softcap=softcap, block_q=blocks[0],
                                block_k=blocks[1])
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attn"] == 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = ref.mha(q.float(), k.float(), v.float(), causal=causal,
-                   window=window, softcap=softcap)
-    # fp32: the JAX kernel test's 2e-5; bf16: the output's one rounding
-    rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
-    assert bool(((got.float() - want).abs()
-                 <= 2e-5 + rtol * want.abs()).all())
+    assert _within_gate(got, q, k, v, causal, window, softcap)
+
+
+TC_CASES = [
+    # b, t, s, h, kh, hd, causal, window, softcap
+    *[(2, 200, 200, 4, 2, hd, True, 0, 0.0) for hd in flash.HEAD_DIMS],
+    *[(2, 256, 256, 8, 8 // g, 64, True, 0, 0.0) for g in (1, 2, 4, 8)],
+    (1, 700, 700, 4, 1, 256, True, 128, 0.0),     # window, skipped blocks
+    (1, 700, 700, 4, 2, 64, True, 200, 0.0),
+    (2, 256, 256, 8, 1, 64, True, 0, 30.0),       # softcap
+    (2, 333, 257, 8, 2, 128, True, 64, 0.0),      # ragged T and S
+    (2, 100, 300, 4, 2, 32, False, 0, 0.0),       # T != S non-causal
+    (1, 300, 200, 8, 1, 16, True, 50, 0.0),       # rows with no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+@pytest.mark.parametrize("blocks", flash.TC_BLOCKS)
+def test_cuda_tc_route_matches_plain(case, blocks, cuda):
+    """The bf16 tensor-core kernel over its own tiles: every head dim,
+    GQA g 1-8, window with skipped kv blocks, softcap, ragged T and S,
+    T != S non-causal, rows with no key, at the bf16 gate."""
+    b, t, s, h, kh, hd, causal, window, softcap = case
+    if flash.smem_bytes(hd, *blocks, torch.bfloat16) > ops.SMEM_BUDGET:
+        blocks = ops.auto_blocks(hd, dtype=torch.bfloat16)
+    q, k, v = _cuda_inputs(case, torch.bfloat16, cuda, seed=3)
+    got = flash.flash_mha_cuda(q, k, v, causal=causal, window=window,
+                               softcap=softcap, block_q=blocks[0],
+                               block_k=blocks[1])
+    torch.cuda.synchronize()
+    assert _within_gate(got, q, k, v, causal, window, softcap)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_runs_the_tensor_core_kernel(cuda):
+    """`ops.flash_mha` on bf16 CUDA tensors launches `flash_fwd_tc` once
+    and no other kernel of the port; float32 launches `flash_fwd`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, want in ((torch.bfloat16, "flash_fwd_tc"),
+                        (torch.float32, "flash_fwd")):
+        q, k, v = _cuda_inputs((1, 128, 128, 4, 1, 64), dtype, cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.flash_mha(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [n for n in names if "flash_fwd" in n]
+        assert len(ours) == 1 and f"{want}<" in ours[0], names
 
 
 @pytest.mark.cuda
@@ -196,6 +329,21 @@ def test_cuda_kernel_reads_strided_operands(cuda):
     want = ref.mha(q, k, v)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_tc_route_reads_strided_operands(offset, cuda):
+    """bf16 views into a fused projection: rows 16-byte aligned (cp.async)
+    and, one element further on, rows that are not (the scalar copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    flat = torch.randn(2 * 96 * 12 * 64 + offset, generator=gen,
+                       device=cuda).bfloat16()
+    qkv = flat[offset:].view(2, 96, 12, 64)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = ops.flash_mha(q, k, v, window=40)
+    torch.cuda.synchronize()
+    assert _within_gate(got, q, k, v, True, 40, 0.0)
 
 
 @pytest.mark.cuda

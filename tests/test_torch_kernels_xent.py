@@ -9,7 +9,8 @@ tensor) and `ops.fused_xent_mean`, at the JAX kernel test's tolerances
 crossing as `uint16` bits. `XentFn`'s backward is held against `jax.grad`
 of the JAX model's `lm.chunked_xent` within 1e-5 of max |grad| in fp32, for
 a head contiguous along V (untied) and one that is `embed.T` (tied). The
-`cuda` cases hold the CUDA kernel against its plain version on the card.
+`cuda` cases hold the CUDA kernel of each route (float32: fp32 cores;
+bfloat16: tensor cores) against its plain version on the card.
 """
 
 import numpy as np
@@ -210,6 +211,26 @@ def test_splits_cover_the_vocabulary_and_fill_the_card():
     assert (1024 // xent.BN) * s >= 132
 
 
+def test_tc_splits_cover_the_vocabulary_and_fill_the_card():
+    """The bf16 route's splits in its own tiles (128 rows x 256 columns,
+    one 193 KB block a SM): they cover the vocabulary, and fill the card
+    at the training shapes and with few rows."""
+    bf16 = torch.bfloat16
+    bn, bv, per_sm = xent.tiles(bf16)
+    assert (bn, bv, per_sm) == (xent.TC_BN, xent.TC_BV, 1) == (128, 256, 1)
+    assert xent.TC_SMEM == 197632 <= 232448
+    assert xent.tiles(torch.float32) == (xent.BN, xent.BV,
+                                         xent.BLOCKS_PER_SM)
+    for n, vp in ((8188, 256000), (8188, 32000), (1000, 49280), (5, 100),
+                  (1, 1)):
+        s, tps = xent.splits(n, vp, 132, bf16)
+        nvt = -(-vp // bv)
+        assert s * tps >= nvt and (s - 1) * tps < nvt
+    for n, vp in ((8188, 256000), (8188, 32000), (1024, 32000)):
+        s, _ = xent.splits(n, vp, 132, bf16)
+        assert 0.9 * 132 <= -(-n // bn) * s <= 132
+
+
 def test_cpu_call_launches_nothing():
     (_, (h, w, t, _)) = _inputs(16, 8, 64, 64)
     before = dict(_build.LAUNCHES)
@@ -251,31 +272,81 @@ CUDA_CASES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CUDA_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(case, dtype, cuda):
+def _check_cuda_case(case, dtype, dev, seed=0):
+    """ops.xent_rows on the card against the plain version in fp32 from the
+    same inputs: per row 1e-4 + 1e-4|want|, the sum at the JAX fp32 test's
+    rtol 1e-4, masked rows exactly 0; one launch."""
     n, d, vp, vocab, softcap, valid_frac, tied = case
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    h = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
-    w = (torch.randn(vp, d, generator=gen, device=cuda) * 0.1).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(vp, d, generator=gen, device=dev) * 0.1).to(dtype)
     w = w.T if tied else w.T.contiguous()
-    t = torch.randint(0, vocab, (n,), generator=gen, device=cuda)
+    t = torch.randint(0, vocab, (n,), generator=gen, device=dev)
     v = (None if valid_frac is None else
-         (torch.rand(n, generator=gen, device=cuda) < valid_frac).float())
+         (torch.rand(n, generator=gen, device=dev) < valid_frac).float())
     _build.reset_launches()
     nll, lse = ops.xent_rows(h, w, t, v, vocab=vocab, softcap=softcap)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["xent"] == 1
     want_nll, want_lse = ref.xent_rows(h.float(), w.float(), t, v, vocab,
                                        softcap)
-    # per row 1e-4 + 1e-4|want|; the sum at the JAX fp32 test's rtol 1e-4
     for got, want in ((nll, want_nll), (lse, want_lse)):
         assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
     np.testing.assert_allclose(float(nll.sum()), float(want_nll.sum()),
                                rtol=1e-4)
     if v is not None:
         assert float(nll[v == 0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain(case, dtype, cuda):
+    """float32 runs the fp32-core kernel, bfloat16 the tensor-core one."""
+    _check_cuda_case(case, dtype, cuda)
+
+
+TC_CASES = [
+    # n, d, vp, vocab, softcap, valid_frac, tied
+    (1000, 72, 1000, 990, 0.0, None, False),       # ragged D and N
+    (1000, 72, 1000, 990, 0.0, None, True),
+    (300, 100, 515, 500, 30.0, 0.5, False),        # rows not 16-byte
+    (300, 100, 515, 500, 30.0, 0.5, True),         # aligned: scalar copy
+    (129, 64, 257, 257, 0.0, None, False),         # one row, one column over
+    (2048, 1024, 32000, 32000, 0.0, None, True),   # many splits, embed.T
+    (1000, 1536, 49280, 49155, 30.0, 0.5, True),   # granite's padding, tied
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_tc_route_matches_plain(case, cuda):
+    """The bf16 tensor-core kernel: both head layouts, ragged N, Vp and D
+    (D not a multiple of the depth stage, rows not 16-byte aligned), the
+    padded vocabulary with softcap and a valid mask."""
+    _check_cuda_case(case, torch.bfloat16, cuda, seed=4)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_runs_the_tensor_core_kernel(cuda):
+    """`ops.xent_rows` on bf16 CUDA tensors launches `xent_partial_tc`
+    (and the merge of its splits); float32 launches `xent_partial`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, want in ((torch.bfloat16, "xent_partial_tc"),
+                        (torch.float32, "xent_partial")):
+        h = torch.randn(256, 64, device=cuda).to(dtype)
+        w = torch.randn(64, 1000, device=cuda).to(dtype)
+        t = torch.randint(0, 1000, (256,), device=cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.xent_rows(h, w, t)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [n for n in names if "xent_partial" in n]
+        assert len(ours) == 1 and f"{want}<" in ours[0], names
+        assert sum("xent_combine" in n for n in names) == 1, names
 
 
 @pytest.mark.cuda
