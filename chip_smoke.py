@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --copy-times ROOT
 
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
-bf16 flash and xent kernels issue HGMMA (wgmma); holds each kernel against
-its plain PyTorch version on the card at the main path's shapes (float32
+bf16 flash and xent kernels issue HGMMA (wgmma), and prints the k-step
+kernel's ptxas registers and spills and its cluster tiles' shared memory;
+holds each kernel against its plain PyTorch version on the card at the
+main path's shapes (float32
 and bfloat16), and two tilings of each against each other bit for bit (the
 k-step kernels also against k launches of their one-step kernels); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
@@ -40,8 +43,14 @@ losses, moved parameters), a reduced fp32 step on the card against the
 CPU, each step's time, tokens/s, mfu, peak memory and a profiler split,
 and the xent kernel's time at each training shape; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
-events; prints one JSON `kernels` line, then the result line. Any failure
-exits nonzero. Imports nothing of JAX.
+events (each stencil kernel and copy also queued back to back; the k-step
+round beside k whole-state launches; copy and `Tensor.copy_` also under
+`torch.profiler`); prints one JSON `kernels` line, then the result line.
+Any failure exits nonzero. Imports nothing of JAX.
+
+With `--copy-times ROOT` it only times the copy kernel of the checkout at
+ROOT as phase 5 times this one's (`copy_times_of`), to hold two commits'
+kernels against each other on one card, and prints no result line.
 """
 
 from __future__ import annotations
@@ -65,6 +74,10 @@ LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
 BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
 KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
+# the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
+# L2-resident) and the main path's field-stacked state (268 MB)
+COPY_SIZES = (("paper domain", GRID[0] * GRID[1]),
+              ("field-stacked state", ENSEMBLE * 4 * GRID[0] * GRID[1]))
 SERVE_ARCHS = ("recurrentgemma-9b", "tinyllama-1.1b")   # full width, bf16
 # the flash kernel's timed case at each of SERVE_ARCHS' prefill shapes, in
 # that order: (case label, results key)
@@ -133,6 +146,72 @@ def stream_ms(fn, n: int = 50) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n: int = 20):
+    """Mean device time of one `fn()` under `torch.profiler`, after
+    warm-up: the summed durations of the device kernels and copies of `n`
+    calls, over `n`. None when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / n / 1e3 if total else None
+
+
+def copy_times(copy_fn, src) -> dict:
+    """A copy kernel's `copy_fn(src)` and `Tensor.copy_` into a preallocated
+    tensor, each timed three ways: events around one call (the wrapper's
+    host path included), calls queued back to back, and the device's own
+    time under the profiler."""
+    import torch
+
+    dst = torch.empty_like(src)
+    kernel = lambda: copy_fn(src)
+    library = lambda: dst.copy_(src)
+    return dict(ms=time_ms(kernel), queued_ms=stream_ms(kernel),
+                profiler_ms=device_ms(kernel), library_ms=time_ms(library),
+                library_queued_ms=stream_ms(library),
+                library_profiler_ms=device_ms(library))
+
+
+def copy_times_of(root: Path) -> int:
+    """`python3 chip_smoke.py --copy-times ROOT`: the copy kernel of the
+    checkout at ROOT (another commit, unpacked with `git archive`) checked
+    bit for bit and timed as phase 5 times this checkout's, at both of its
+    sizes; one JSON line. Holds one commit's kernel against another's on
+    one card: run parent, change, change, parent in one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    root = root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.copy_stencil.copy_stencil import copy_cuda
+    require(Path(_build.__file__).resolve().is_relative_to(root),
+            f"imported {_build.__file__}, not the package under {root}")
+    _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, rows in COPY_SIZES:
+        src = torch.randn(rows, GRID[2], generator=gen, device="cuda")
+        require(torch.equal(copy_cuda(src).view(torch.int32),
+                            src.view(torch.int32)),
+                f"{root}: the copy differs at {label}")
+        out[label] = copy_times(copy_cuda, src)
+        del src
+    say(json.dumps({"copy_times": str(root), "sizes": out}))
+    return 0
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
@@ -975,6 +1054,20 @@ def main() -> int:
     fp32_hgmma = sum(c for f, c in hgmma.items()
                      if "flash_fwd" in f and "flash_fwd_tc" not in f)
     say(f"sass: flash_fwd (fp32 route): {fp32_hgmma} HGMMA instructions")
+    # the k-step kernel's register arrays must stay in registers
+    rep = _build.build_log["ptxas"].get("dycore_kstep.cu", "")
+    entry = None
+    for line in rep.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("registers" in line or "spill" in line):
+            say(f"kstep ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+    for k in KSTEPS:
+        t = tiling.dycore_kstep_tile(GRID[1], GRID[2], k, nz=GRID[0])
+        say(f"kstep tile k={k}: {t.ty}x{t.tx} outputs, cluster of "
+            f"{t.cluster} blocks of {t.rows}x{t.tx + 4 * k} columns "
+            f"({t.threads} threads), {t.smem_bytes} bytes of shared memory "
+            f"a block")
 
     nz, ny, nx = GRID
     nf = len(fields.PROGNOSTIC)
@@ -1115,15 +1208,19 @@ def main() -> int:
                 f"fused dycore: tiles {tile_a.ty}x{tile_a.tx} and "
                 f"{tile_b.ty}x{tile_b.tx} differ")
         ms = time_ms(lambda: fused_dycore_cuda(fs, w, ts, ss, tile=tile_a))
+        queued_ms = stream_ms(lambda: fused_dycore_cuda(fs, w, ts, ss,
+                                                        tile=tile_a))
         wb = w.unsqueeze(1)
         plain_ms = time_ms(lambda: fused_ref.fused_step_ref_summed(
             fs, wb, ts, ss))
         nbytes = (3 * ENSEMBLE * nf + ENSEMBLE + 2 * ENSEMBLE * nf) * vol * isz
         b_ms, b_by = bound(nbytes, 61.0 * ENSEMBLE * nf * vol)
         results[("dycore_fused", dn)] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        say(f"fused {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+            err=err, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by)
+        say(f"fused {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
+            f"bitwise equal")
         # The per-field variant: the same kernel at nf = 1, one field.
         one = [a[:, :1].contiguous() for a in (fs, ts, ss)]
         ms = time_ms(lambda: fused_dycore_cuda(one[0], w, one[1], one[2],
@@ -1153,14 +1250,17 @@ def main() -> int:
         require(torch.equal(hdiff_cuda(src, tile=tile_b), got),
                 "hdiff: two tilings differ")
         ms = time_ms(lambda: hdiff_cuda(src, tile=tile_a))
+        queued_ms = stream_ms(lambda: hdiff_cuda(src, tile=tile_a))
         plain_ms = time_ms(lambda: hdiff_ref.hdiff(src))
         planes = src.shape[0]
         b_ms, b_by = bound(2 * src.numel() * isz,
                            21.0 * planes * (ny * nx))
-        results[("hdiff", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by)
-        say(f"hdiff {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+        results[("hdiff", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+        say(f"hdiff {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
+            f"bitwise equal")
         del src, got, want, d
 
         # vadvc on the field-stacked state, each member's wcon shared by
@@ -1181,16 +1281,20 @@ def main() -> int:
         require(torch.equal(vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_b),
                             got), "vadvc: two tilings differ")
         ms = time_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a))
+        queued_ms = stream_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss,
+                                                 tile=tile_a))
         wpb = wconp.unsqueeze(1)
         plain_ms = time_ms(lambda: vadvc_ref.vadvc(fs, wpb, fs, ts, ss))
         # three fields read (u_pos is u_stage), one written, and each
         # member's staggered wcon read once
         nbytes = (4 * fs.numel() + wconp.numel()) * isz
         b_ms, b_by = bound(nbytes, 38.0 * fs.numel())
-        results[("vadvc", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by)
-        say(f"vadvc {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+        results[("vadvc", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+        say(f"vadvc {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
+            f"bitwise equal")
         del wconp, wpb, got, want, d
 
         # dycore k-step rounds. float32: k chained whole-state launches,
@@ -1208,8 +1312,10 @@ def main() -> int:
         wb = w.unsqueeze(1)
         for k in KSTEPS:
             name = "dycore_kstep" + ("" if k == KSTEPS[0] else f"_k{k}")
+            # the default tile and the other k's default, both timed
             tile_a = tiling.dycore_kstep_tile(ny, nx, k)
-            tile_b = tiling.dycore_kstep_tile(ny, nx, k, ty=4, tx=64)
+            tile_b = tiling.dycore_kstep_tile(
+                ny, nx, k, *tiling.dycore_kstep_default(3 if k <= 2 else 2))
             got_f, got_s = fused_dycore_kstep_cuda(fs, w, ts, ss, k_steps=k,
                                                    tile=tile_a)
             torch.cuda.synchronize()
@@ -1243,6 +1349,17 @@ def main() -> int:
             del got_f, got_s, alt_f, alt_s
             ms = time_ms(lambda: fused_dycore_kstep_cuda(
                 fs, w, ts, ss, k_steps=k, tile=tile_a))
+            queued_ms = stream_ms(lambda: fused_dycore_kstep_cuda(
+                fs, w, ts, ss, k_steps=k, tile=tile_a), n=20)
+            ms_b = time_ms(lambda: fused_dycore_kstep_cuda(
+                fs, w, ts, ss, k_steps=k, tile=tile_b))
+
+            def chain():
+                cf, cs = fs, ss
+                for _ in range(k):
+                    cf, cs = fused_dycore_cuda(cf, w, ts, cs)
+            chain_ms = time_ms(chain)
+            chain_queued_ms = stream_ms(chain, n=20)
             plain_ms = time_ms(lambda: fused_ref.fused_kstep_ref(
                 fs, wb, ts, ss, k))
             # The round moves the bytes of one whole-state step and does the
@@ -1250,11 +1367,19 @@ def main() -> int:
             nbytes = (3 * ENSEMBLE * nf + ENSEMBLE + 2 * ENSEMBLE * nf) * vol \
                 * isz
             b_ms, b_by = bound(nbytes, 61.0 * k * ENSEMBLE * nf * vol)
-            results[(name, dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=b_ms, bound_by=b_by)
-            say(f"dycore k-step {dn} k={k}: {ms:.4f} ms, {ms / k:.4f} ms a "
-                f"step (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-                f"{b_by}); tiles bitwise equal")
+            results[(name, dn)] = dict(
+                err=err, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, k=k, per_step_ms=ms / k,
+                whole_state_launches_ms=chain_ms,
+                whole_state_launches_queued_ms=chain_queued_ms,
+                tile=tile_a.describe(), other_tile=tile_b.describe(),
+                other_tile_ms=ms_b)
+            say(f"dycore k-step {dn} k={k}: {ms:.4f} ms a round, queued "
+                f"{queued_ms:.4f} ms, {ms / k:.4f} ms a step; {k} whole-state "
+                f"launches {chain_ms:.4f} ms, queued {chain_queued_ms:.4f} ms "
+                f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); "
+                f"tiles {tile_a.ty}x{tile_a.tx} and {tile_b.ty}x{tile_b.tx} "
+                f"bitwise equal, the second {ms_b:.4f} ms")
             torch.cuda.empty_cache()
         del wb
 
@@ -1289,13 +1414,17 @@ def main() -> int:
             del got, chain, want, d
             ms = time_ms(lambda: hdiff_kstep_cuda(src, k_steps=k,
                                                   tile=tile_a))
+            queued_ms = stream_ms(lambda: hdiff_kstep_cuda(src, k_steps=k,
+                                                           tile=tile_a))
             plain_ms = time_ms(lambda: hdiff_ref.hdiff_kstep(src, k=k))
             b_ms, b_by = bound(2 * src.numel() * isz,
                                21.0 * k * planes * (Y - 4) * (X - 4))
-            results[(name, dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=b_ms, bound_by=b_by)
-            say(f"hdiff k-step {dn} k={k}: {ms:.4f} ms (plain {plain_ms:.3f} "
-                f"ms, bound {b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+            results[(name, dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+            say(f"hdiff k-step {dn} k={k}: {ms:.4f} ms, queued "
+                f"{queued_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
             del src
 
         # hadv on the stack the hadv_upwind plan gives it: wrap-padded by 1
@@ -1319,6 +1448,7 @@ def main() -> int:
               f"hadv {dn}: two tilings differ")
         del got, want, d
         ms = time_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a))
+        queued_ms = stream_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a))
         plain_ms = time_ms(lambda: hadv_ref.hadv_upwind(src, cfl=cfl))
         # One convolution computes the same interior (not the passed-through
         # row 0 and column 0): the yardstick, never called by the port.
@@ -1329,10 +1459,11 @@ def main() -> int:
                                                                 weight))
         b_ms, b_by = bound(2 * src.numel() * isz,
                            5.0 * planes * (Y - 1) * (X - 1))
-        results[("hadv", dn)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=library_ms)
-        say(f"hadv {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, conv2d "
+        results[("hadv", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=library_ms)
+        say(f"hadv {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, conv2d "
             f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
             f"bitwise equal")
         del src, planes4, fs, ts, ss, wcon, w
@@ -1674,8 +1805,7 @@ def main() -> int:
     # copy: the engine's run at the paper's domain as a 2-D (rows, cols)
     # view, then the rates at both sizes.
     tuned = eng.plan("copy", GRID, torch.float32)
-    for label, rows in (("paper domain", nz * ny),
-                        ("field-stacked state", ENSEMBLE * nf * nz * ny)):
+    for label, rows in COPY_SIZES:
         src = torch.randn(rows, nx, generator=gen, device=dev)
         src[0, :4] = torch.tensor([-0.0, float("nan"), float("inf"), -1.0],
                                   device=dev)
@@ -1698,30 +1828,46 @@ def main() -> int:
         err = float((torch.nan_to_num(got) - torch.nan_to_num(plain))
                     .abs().max())
         nbytes = 2 * src.numel() * src.element_size()
-        dst = torch.empty_like(src)
-        ms = time_ms(lambda: copy_cuda(src))
+        t = copy_times(copy_cuda, src)
+        ms, queued_ms, prof_ms = t["ms"], t["queued_ms"], t["profiler_ms"]
+        library_ms, library_queued_ms, library_prof_ms = (
+            t["library_ms"], t["library_queued_ms"],
+            t["library_profiler_ms"])
         plain_ms = time_ms(lambda: copy_ref.copy_stencil(src))
-        library_ms = time_ms(lambda: dst.copy_(src))
         b_ms, b_by = bound(nbytes, 0.0)
         results[("copy_" + label.replace(" ", "_"), "float32")] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 2 / 1e6,
-            tb_per_s=nbytes / ms * 1e-9, library_tb_per_s=nbytes / library_ms
-            * 1e-9, model_ms=tuned.est.time_s * 1e3)
+            err=err, ms=ms, queued_ms=queued_ms, profiler_ms=prof_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_queued_ms=library_queued_ms,
+            library_profiler_ms=library_prof_ms, bound_ms=b_ms,
+            bound_by=b_by, mbytes=nbytes / 2 / 1e6,
+            tb_per_s=nbytes / ms * 1e-9,
+            queued_tb_per_s=nbytes / queued_ms * 1e-9,
+            library_tb_per_s=nbytes / library_ms * 1e-9,
+            library_queued_tb_per_s=nbytes / library_queued_ms * 1e-9,
+            model_ms=tuned.est.time_s * 1e3)
+        fmt = lambda v: "not seen" if v is None else f"{v:.4f} ms"
         say(f"engine copy ({label}, {tuple(src.shape)}, {nbytes / 2 / 1e6:.1f} "
             f"MB): window {tuned.plan.tile} (unused by the kernel); bitwise "
-            f"equal to its input and the direct call; kernel {ms:.4f} ms = "
-            f"{nbytes / ms * 1e-9:.3f} TB/s, Tensor.copy_ {library_ms:.4f} ms "
-            f"= {nbytes / library_ms * 1e-9:.3f} TB/s, plain {plain_ms:.4f} "
-            f"ms, bound {b_ms:.4f} ms" + (" (L2-resident: not a device-memory "
-                                         "rate)" if rows == nz * ny else ""))
-        del src, got, plain, dst
+            f"equal to its input and the direct call; kernel: call "
+            f"{ms:.4f} ms = {nbytes / ms * 1e-9:.3f} TB/s, queued "
+            f"{queued_ms:.4f} ms = {nbytes / queued_ms * 1e-9:.3f} TB/s, "
+            f"profiler {fmt(prof_ms)}; Tensor.copy_: call {library_ms:.4f} "
+            f"ms, queued {library_queued_ms:.4f} ms = "
+            f"{nbytes / library_queued_ms * 1e-9:.3f} TB/s, profiler "
+            f"{fmt(library_prof_ms)}; plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms" + (" (L2-resident: not a device-memory rate)"
+                                if rows == nz * ny else ""))
+        del src, got, plain
     big = results[("copy_field-stacked_state", "float32")]
     results[("copy", "float32")] = big
-    say(f"copy bandwidth: {big['tb_per_s']:.3f} TB/s sustained by the copy "
-        f"kernel ({big['tb_per_s'] / (HBM_BYTES_PER_S * 1e-12):.3f} of the "
-        f"data sheet's 3.35), Tensor.copy_ {big['library_tb_per_s']:.3f} "
-        f"TB/s, 268 MB read and written, on {card}")
+    say(f"copy bandwidth: {big['queued_tb_per_s']:.3f} TB/s sustained by "
+        f"the copy kernel queued back to back "
+        f"({big['queued_tb_per_s'] / (HBM_BYTES_PER_S * 1e-12):.3f} of the "
+        f"data sheet's 3.35; {big['tb_per_s']:.3f} a single call), "
+        f"Tensor.copy_ {big['library_queued_tb_per_s']:.3f} TB/s queued "
+        f"({big['library_tb_per_s']:.3f} a single call), 268 MB read and "
+        f"written, on {card}")
     torch.cuda.empty_cache()
 
     phase_done("phase 5 (NeroEngine)")
@@ -1807,6 +1953,17 @@ def main() -> int:
         if name == "lru_scan":
             kernels[-1]["reverse_ms"] = results[("lru_scan_reverse",
                                                  "float32")]["ms"]
+        for extra in ("queued_ms", "profiler_ms", "library_queued_ms",
+                      "library_profiler_ms", "per_step_ms",
+                      "whole_state_launches_ms"):
+            if extra in r and name not in ("flash_attn", "xent"):
+                kernels[-1][extra] = r[extra]
+        if name == "dycore_kstep":
+            r3 = results[(f"dycore_kstep_k{KSTEPS[1]}", "float32")]
+            kernels[-1][f"k{KSTEPS[1]}"] = {
+                key: r3[key] for key in ("ms", "queued_ms", "per_step_ms",
+                                         "whole_state_launches_ms",
+                                         "plain_ms", "bound_ms")}
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
@@ -1830,6 +1987,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--copy-times"] and len(sys.argv) == 3:
+            sys.exit(copy_times_of(Path(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)

@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core import hierarchy as hw
 from repro_torch.weather.fields import dtype_name
 
 MAX_THREADS_PER_BLOCK = 1024
 SMEM_BYTES_PER_BLOCK = 232_448
+MAX_CLUSTER = 8          # blocks of a thread block cluster, portable
 HALO = 2
 
 
@@ -43,13 +44,17 @@ def snap_to_divisor(t: int, n: int, lo: int = 2) -> int:
 @dataclasses.dataclass(frozen=True)
 class CudaTile:
     """A kernel's block shape: `ty` x `tx` output points (vadvc: columns)
-    per block, the block's threads and its shared memory."""
+    per block, the block's threads and its shared memory; a tile run by a
+    cluster of blocks (the dycore k-step) also names the cluster's size and
+    the rows each block runs."""
 
     op: str
     ty: int
     tx: int
     threads: int
     smem_bytes: int
+    cluster: int = 1     # blocks of a thread block cluster
+    rows: int = 0        # rows of the tile a block of the cluster runs
 
     def __post_init__(self):
         if not 1 <= self.threads <= MAX_THREADS_PER_BLOCK:
@@ -60,6 +65,10 @@ class CudaTile:
             raise ValueError(f"{self.op} tile {self.ty}x{self.tx} needs "
                              f"{self.smem_bytes} bytes of shared memory; at "
                              f"most {SMEM_BYTES_PER_BLOCK}")
+        if not 1 <= self.cluster <= MAX_CLUSTER:
+            raise ValueError(f"{self.op} tile {self.ty}x{self.tx}: a cluster "
+                             f"of {self.cluster} blocks; at most "
+                             f"{MAX_CLUSTER}")
 
     def describe(self) -> dict:
         return dataclasses.asdict(self)
@@ -107,22 +116,88 @@ def dycore_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
     return CudaTile("dycore_fused", ty, tx, cols, 2 * 4 * cols)
 
 
-# Threads per block of the k-step kernels, which loop over their tile's
-# columns or points (`csrc/dycore_kstep.cu` is built for at most 512).
+# Threads per block of the hdiff k-step kernel, which loops over its tile's
+# points (`csrc/hdiff_kstep.cu` is built for at most 512).
 KSTEP_THREADS = 512
 
+# The dycore k-step kernel (`csrc/dycore_kstep.cu`): one thread a column,
+# holding the column's field and stage in 2·64 fp32 registers. Built
+# with `__launch_bounds__(256, 1)`, so ptxas keeps a thread within 255
+# registers and one block of at most 256 threads fits an SM's register file;
+# the register arrays hold 64 levels, so the kernel takes 2 <= nz <= 64.
+DYCORE_KSTEP_THREADS = 256
+DYCORE_KSTEP_MAX_NZ = 64
+_KSTEP_CHUNK, _KSTEP_BUFS = 8, 3                   # as in the kernel
 
-def dycore_kstep_tile(ny: int, nx: int, k: int, ty: int = 8,
-                      tx: int = 32) -> CudaTile:
-    """A `ty` x `tx` tile of output columns with a `2k`-deep halo,
-    `(ty+4k)·(tx+4k)` columns that the threads loop over; two fp32 levels of
-    them and each column's running Thomas value in shared memory. `ty`
-    snaps as the JAX package's k-step window does (`snap_ty_kstep`), which
-    refuses `ny < 2k`."""
-    ty, tx = snap_ty_kstep(ty, ny, k), min(tx, nx)
-    cols = (ty + 2 * k * HALO) * (tx + 2 * k * HALO)
-    return CudaTile("dycore_kstep", ty, tx, min(cols, KSTEP_THREADS),
-                    3 * 4 * cols)
+
+def check_kstep_nz(nz: int) -> None:
+    """Raises unless the k-step kernel takes `nz` levels: 2 (the staggered
+    sweep's least) to 64 (its register arrays' size)."""
+    if not 2 <= nz <= DYCORE_KSTEP_MAX_NZ:
+        raise ValueError(f"dycore k-step: nz={nz} outside [2, "
+                         f"{DYCORE_KSTEP_MAX_NZ}]: the kernel's register "
+                         f"arrays hold {DYCORE_KSTEP_MAX_NZ} levels")
+
+
+def dycore_kstep_smem(nz: int, rows: int, tw: int) -> int:
+    """Shared memory of one k-step block of `rows` x `tw` columns: a record
+    per column of w's Thomas coefficients (as, divided) and the field's
+    utens, 3 floats a level and an odd stride, and three plane buffers of 8
+    levels with 2 ghost rows on each side."""
+    return 4 * ((3 * nz | 1) * rows * tw + _KSTEP_BUFS * _KSTEP_CHUNK *
+                (rows + 4) * tw)
+
+
+def dycore_kstep_default(k: int) -> Tuple[int, int]:
+    """The default (ty, tx) of a k-step round: 16 x 32 up to k = 2, 32 x 24
+    from k = 3, where the deeper halo makes a taller tile pay (chip_smoke.py
+    times both tilings of each round on the H100; PERF.md)."""
+    return (16, 32) if k <= 2 else (32, 24)
+
+
+def dycore_kstep_tile(ny: int, nx: int, k: int, ty: Optional[int] = None,
+                      tx: Optional[int] = None, nz: int = 64) -> CudaTile:
+    """A `ty` x `tx` tile of output columns with a `2k`-deep halo, run by a
+    cluster of blocks that split its `ty+4k` rows, `rows` a block, one
+    thread a column of `tx+4k`. `ty` (default `dycore_kstep_default`) snaps
+    as the JAX package's k-step window does (`snap_ty_kstep`), which
+    refuses `ny < 2k`. `tx=None` takes the widest tile up to the default
+    whose cluster has at most 8 blocks; an explicit `tx` is kept or
+    refused. Raises when the tile does not fit: a
+    block of at most 256 threads and 227 KB of shared memory (at `nz`
+    levels) with 2 rows or more, a cluster of at most 8 blocks."""
+    check_kstep_nz(nz)
+    ty = snap_ty_kstep(dycore_kstep_default(k)[0] if ty is None else ty, ny,
+                       k)
+    halo = 2 * k * HALO
+    need = ty + halo                      # haloed rows the cluster covers
+
+    def most_rows(tw):                    # rows of tw columns a block holds
+        rows = DYCORE_KSTEP_THREADS // tw
+        while rows and dycore_kstep_smem(nz, rows, tw) > SMEM_BYTES_PER_BLOCK:
+            rows -= 1
+        return rows
+
+    if tx is None:                        # narrow until a cluster covers it
+        tx = min(dycore_kstep_default(k)[1], nx)
+        while tx > 1 and most_rows(tx + halo) * MAX_CLUSTER < need:
+            tx -= 1
+    tx = min(tx, nx)
+    tw = tx + halo
+    rows = most_rows(tw)
+    if rows < 2:
+        raise ValueError(f"dycore_kstep tile {ty}x{tx} at k={k}: a row of "
+                         f"{tw} columns leaves room for {rows} rows in a "
+                         f"block; at least 2")
+    cluster = -(-need // rows)
+    if cluster > MAX_CLUSTER:
+        raise ValueError(f"dycore_kstep tile {ty}x{tx} at k={k} needs a "
+                         f"cluster of {cluster} blocks of {rows} rows; at "
+                         f"most {MAX_CLUSTER}")
+    rows = -(-need // cluster)            # the fewest rows a block
+    return CudaTile("dycore_kstep", ty, tx, rows * tw,
+                    dycore_kstep_smem(nz, rows, tw), cluster=cluster,
+                    rows=rows)
 
 
 def hdiff_kstep_tile(ny: int, nx: int, k: int, ty: int = 8,

@@ -11,9 +11,12 @@
 // Hopper SM needs no staging for a copy, only enough loads in flight and
 // long runs of neighbouring addresses. One block of 256 threads per
 // contiguous 16 KB tile: each thread loads four 16-byte vectors 4 KB apart
-// before it stores them, with streaming cache hints (`__ldcs`, `__stcs`:
-// each byte is touched once, so the lines are the first to leave L2). The
-// bytes past the last whole vector go one byte per thread; when either
+// before it stores them. The loads and stores take the default cache policy:
+// with streaming hints (evict first) the copy of an L2-resident buffer ran
+// a third slower and a 268 MB one 1% slower. A persistent grid and a ring
+// of bulk asynchronous copies (`cp.async.bulk` through shared memory) were
+// tried too and moved 268 MB no faster than these short blocks (PERF.md).
+// The bytes past the last whole vector go one byte per thread; when either
 // address is not 16-byte aligned all of them do (right, not fast). It
 // copies bytes, so it serves every dtype and keeps every bit (-0.0, NaN
 // payloads).
@@ -38,10 +41,10 @@ __global__ void copy_kernel(const uint4* __restrict__ src,
   uint4 v[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u)
-    if (base + u * kThreads < n16) v[u] = __ldcs(src + base + u * kThreads);
+    if (base + u * kThreads < n16) v[u] = src[base + u * kThreads];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u)
-    if (base + u * kThreads < n16) __stcs(dst + base + u * kThreads, v[u]);
+    if (base + u * kThreads < n16) dst[base + u * kThreads] = v[u];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j =
            head + static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;

@@ -1,8 +1,8 @@
-// The per-column pieces of one fused dycore step, shared by the whole-state
-// kernel (dycore_fused.cu) and the k-step kernel (dycore_kstep.cu), so the
-// two run the same arithmetic in the same order and agree bit for bit in
-// fp32. Operation order follows `_window_step` in the JAX package's
-// src/repro/kernels/dycore_fused/fused.py.
+// The per-column pieces of one fused dycore step of the whole-state kernel
+// (dycore_fused.cu). The k-step kernel (dycore_kstep.cu) runs the same
+// operations in the same order on its register-resident columns, so the two
+// agree bit for bit in fp32. Operation order follows `_window_step` in the
+// JAX package's src/repro/kernels/dycore_fused/fused.py.
 #pragma once
 
 #include "common.cuh"

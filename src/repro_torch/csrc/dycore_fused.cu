@@ -17,7 +17,8 @@
 // (ty+4) x (tx+4). The TPU kernel keeps x whole and rolls it; here x is tiled
 // too, and both halos come from periodic indexing ((j+ny)%ny, (i+nx)%nx).
 // Each thread runs the forward sweep of its column (`nero::thomas_forward`,
-// dycore_column.cuh, shared with the k-step kernel); halo columns are solved
+// dycore_column.cuh; the k-step kernel repeats its operations in their
+// order, so the two agree bit for bit); halo columns are solved
 // redundantly, as the TPU kernel solves its halo rows. The sweep's (ccol,
 // dcol) are nz deep per column and live in an fp32 global scratch the
 // wrapper allocates, laid out (block, k, column) so every level coalesces.

@@ -50,8 +50,8 @@ _SIGNATURES = {
                    _I, _I, _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                           _F, _F, _I, _I, _I, _P),
-    "nero_dycore_kstep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                          _I, _I, _F, _F, _I, _I, _I, _I, _I, _P),
+    "nero_dycore_kstep": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
+                          _F, _I, _I, _I, _I, _I, _I, _P),
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
     "nero_copy": (_P, _P, _LL, _P),
@@ -185,8 +185,9 @@ def check_operand(kernel: str, name: str, t, shape, dtype) -> None:
 
 
 def stream_of(t) -> int:
-    """The handle of PyTorch's current stream on `t`'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on `t`'s device (read without
+    building a `torch.cuda.Stream`, which costs microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, name: str) -> None:

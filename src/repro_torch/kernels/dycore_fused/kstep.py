@@ -2,8 +2,8 @@
 
 Replaces the TPU kernel `fused_dycore_kstep_pallas`
 (`repro.kernels.dycore_fused.fused`): k fused dycore steps of every field of
-a field-stacked state in one launch, the state held in fp32 between the
-steps. The plain version beside it is `ref.fused_kstep_ref`.
+a field-stacked state in one launch, the state held in fp32 on chip between
+the steps. The plain version beside it is `ref.fused_kstep_ref`.
 """
 
 from __future__ import annotations
@@ -27,8 +27,11 @@ def fused_dycore_kstep_cuda(fs: torch.Tensor, w: torch.Tensor,
     `(..., nf, nz, ny, nx)`, doubly periodic in (y, x), in one launch; `w`
     is the pre-combined staggered velocity `wcon_i + wcon_{i+1}`, `(..., nz,
     ny, nx)`, shared by every field. All contiguous CUDA tensors of one
-    dtype (float32 or bfloat16). Returns `(f_new, stage)` shaped like `fs`:
-    the state after `k_steps` steps and the last step's stage."""
+    dtype (float32 or bfloat16), 2 <= nz <= 64. Returns `(f_new, stage)`
+    shaped like `fs`: the state after `k_steps` steps and the last step's
+    stage. Nothing else is allocated: the round's working state stays on
+    chip, apart from the few bytes a thread that ptxas spills to local
+    memory (the build prints them)."""
     if fs.dim() < 4:
         raise ValueError(f"dycore k-step: fs must be (..., nf, nz, ny, nx), "
                          f"got {tuple(fs.shape)}")
@@ -39,29 +42,34 @@ def fused_dycore_kstep_cuda(fs: torch.Tensor, w: torch.Tensor,
     if nz < 2:
         raise ValueError(f"dycore k-step: nz={nz} must be >= 2 (staggered "
                          f"vertical sweep)")
+    tiling.check_kstep_nz(nz)               # refuses nz > 64
+    tile = tile or tiling.dycore_kstep_tile(ny, nx, k_steps, nz=nz)
+    tw = tile.tx + 4 * k_steps
+    if (tile.op != "dycore_kstep" or tile.threads != tile.rows * tw
+            or tile.cluster * tile.rows < tile.ty + 4 * k_steps):
+        raise ValueError(f"dycore k-step: tile {tile} was not planned for "
+                         f"k_steps={k_steps} (tiling.dycore_kstep_tile)")
+    if tiling.dycore_kstep_smem(nz, tile.rows, tw) > \
+            tiling.SMEM_BYTES_PER_BLOCK:
+        raise ValueError(f"dycore k-step: tile {tile} needs more than "
+                         f"{tiling.SMEM_BYTES_PER_BLOCK} bytes of shared "
+                         f"memory at nz={nz}")
     batch = math.prod(fs.shape[:-4])
     for name, t in (("fs", fs), ("utens", utens),
                     ("utens_stage", utens_stage)):
         _build.check_operand("dycore k-step", name, t, fs.shape, fs.dtype)
     _build.check_operand("dycore k-step", "w", w,
                          tuple(fs.shape[:-4]) + (nz, ny, nx), fs.dtype)
-    tile = tile or tiling.dycore_kstep_tile(ny, nx, k_steps)
-    cols = ((tile.ty + 4 * k_steps) * (tile.tx + 4 * k_steps))
-    blocks = batch * nf * -(-ny // tile.ty) * -(-nx // tile.tx)
     f_new = torch.empty_like(fs)
     stage = torch.empty_like(fs)
-    # The field, the stage and the Thomas coefficients of every column of
-    # every block's haloed tile, fp32, laid out (block, level, column).
-    work = torch.empty((4, blocks, nz, cols), dtype=torch.float32,
-                       device=fs.device)
     lib = _build.load()
     with torch.cuda.device(fs.device):
         err = lib.nero_dycore_kstep(
             fs.data_ptr(), w.data_ptr(), utens.data_ptr(),
             utens_stage.data_ptr(), f_new.data_ptr(), stage.data_ptr(),
-            *(work[i].data_ptr() for i in range(4)), batch, nf, nz, ny, nx,
-            dt, coeff, tile.ty, tile.tx, k_steps, tile.threads,
-            int(fs.dtype == torch.bfloat16), _build.stream_of(fs))
+            batch, nf, nz, ny, nx, dt, coeff, tile.ty, tile.tx, tile.rows,
+            tile.cluster, k_steps, int(fs.dtype == torch.bfloat16),
+            _build.stream_of(fs))
     _build.check(err, "dycore k-step")
     _build.LAUNCHES["dycore_kstep"] += 1
     return f_new, stage

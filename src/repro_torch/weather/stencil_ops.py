@@ -157,7 +157,8 @@ def _dycore_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
     if variant == "unfused":
         return None
     if variant == "kstep":
-        return tiling.dycore_kstep_tile(compute_grid[1], compute_grid[2], k)
+        return tiling.dycore_kstep_tile(compute_grid[1], compute_grid[2], k,
+                                        nz=compute_grid[0])
     return tiling.dycore_tile(compute_grid[1], compute_grid[2])
 
 

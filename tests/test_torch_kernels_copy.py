@@ -133,3 +133,63 @@ def test_cuda_kernel_on_unaligned_addresses(cuda):
     got = copy_cuda(src)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(src))
+
+
+# The kernel moves one 16 KB tile a block (256 threads, four 16-byte
+# vectors each) and the bytes past the last whole vector one a thread:
+# sizes at one tile, four tiles and a thousand, each +-1 and +-16 bytes,
+# and sizes under one tile and under one vector.
+TILE = 16 * 1024
+BOUNDARY_SIZES = sorted({n + d for n in (TILE, 4 * TILE, 1000 * TILE)
+                         for d in (-16, -1, 0, 1, 16)} | {1, 15, 16, 17, 100,
+                                                          TILE // 2})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes", BOUNDARY_SIZES)
+def test_cuda_kernel_at_chunk_and_stage_boundaries(nbytes, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(nbytes)
+    src = torch.randint(0, 256, (1, nbytes), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    got = copy_cuda(src, tr=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64, torch.int8,
+                                   torch.int32, torch.int64, torch.uint8,
+                                   torch.bool])
+def test_cuda_kernel_copies_every_dtype(dtype, cuda):
+    n = 3 * TILE + 7                           # ragged in every element size
+    raw = torch.randint(0, 256, (n * 8,), device=cuda, dtype=torch.uint8)
+    if dtype == torch.bool:
+        raw = raw % 2
+    src = raw.view(dtype)[:n].reshape(1, n)
+    got = copy_cuda(src, tr=1)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8), src.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_off,dst_off", [(1, 0), (0, 1), (3, 3), (8, 4),
+                                             (16, 16)])
+@pytest.mark.parametrize("nbytes", [15, 4 * TILE + 1])
+def test_cuda_kernel_on_unaligned_source_and_destination(src_off, dst_off,
+                                                         nbytes, cuda):
+    # The launcher takes any addresses; the wrapper always allocates an
+    # aligned output, so the destination's offset is given here directly.
+    gen = torch.Generator(device=cuda).manual_seed(src_off * 31 + dst_off)
+    src = torch.randint(0, 256, (nbytes + 32,), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    dst = torch.zeros(nbytes + 32, device=cuda, dtype=torch.uint8)
+    lib = _build.load()
+    err = lib.nero_copy(src.data_ptr() + src_off, dst.data_ptr() + dst_off,
+                        nbytes, _build.stream_of(src))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(dst[dst_off:dst_off + nbytes],
+                       src[src_off:src_off + nbytes])
+    assert not dst[:dst_off].any() and not dst[dst_off + nbytes:].any()

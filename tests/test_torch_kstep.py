@@ -139,15 +139,103 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
         fused_dycore_kstep_cuda(f, ops.staggered_w(wcon), t, s, k_steps=2)
 
 
+def _assert_tile_fits(t, ny, k, nz=64, ty=None):
+    """The budget of one k-step cluster tile: one thread a column of
+    `rows` x `tx+4k`, at most 256 threads a block, each within 255
+    registers of the SM's 65,536 (one block an SM); the cluster's rows
+    cover the haloed rows with at most 8 blocks; the shared memory of one
+    block at `nz` levels within Hopper's 227 KB; `ty` snapped as the JAX
+    package snaps its k-step window."""
+    tw = t.tx + 4 * k
+    assert t.op == "dycore_kstep" and t.rows >= 2
+    assert t.threads == t.rows * tw <= tiling.DYCORE_KSTEP_THREADS
+    assert t.threads * 255 <= 65_536           # registers: a thread's, an SM's
+    assert 1 <= t.cluster <= tiling.MAX_CLUSTER
+    assert t.cluster * t.rows >= t.ty + 4 * k > (t.cluster - 1) * t.rows
+    assert t.smem_bytes == tiling.dycore_kstep_smem(nz, t.rows, tw) \
+        == 4 * ((3 * nz | 1) * t.threads + 3 * 8 * (t.rows + 4) * tw)
+    assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
+    want_ty = tiling.dycore_kstep_default(k)[0] if ty is None else ty
+    assert t.ty == jops.snap_ty_kstep(want_ty, ny, k)
+
+
 def test_default_tile_fits_a_hopper_block():
+    # The paper's domain: a 16 x 32 tile (32 x 24 from k = 3), its 2k-deep
+    # halo split over a cluster of blocks; no shared-memory scratch grows
+    # with the tile count.
+    want = {1: (16, 32, 4, 5), 2: (16, 32, 4, 6), 3: (32, 24, 8, 6)}
     for k in (1, 2, 3):
         t = tiling.dycore_kstep_tile(256, 256, k)
-        assert (t.ty, t.tx) == (8, 32)
-        assert t.threads <= tiling.KSTEP_THREADS <= tiling.MAX_THREADS_PER_BLOCK
-        assert t.smem_bytes == 3 * 4 * (8 + 4 * k) * (32 + 4 * k)
-        assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        tiling.dycore_kstep_tile(256, 256, 2, ty=128, tx=256)
+        assert (t.ty, t.tx, t.cluster, t.rows) == want[k]
+        _assert_tile_fits(t, 256, k)
+    with pytest.raises(ValueError, match="cluster of 15 blocks"):
+        tiling.dycore_kstep_tile(256, 256, 2, ty=64, tx=40)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("ny,nx,nz", [(256, 256, 64), (37, 70, 4),
+                                      (37, 70, 64), (12, 16, 4),
+                                      (16, 16, 4), (8, 8, 7)])
+def test_kstep_tile_budget_on_the_paths_grids(k, ny, nx, nz):
+    t = tiling.dycore_kstep_tile(ny, nx, k, nz=nz)
+    _assert_tile_fits(t, ny, k, nz)
+    if t.tx < min(tiling.dycore_kstep_default(k)[1], nx):   # narrowed:
+        with pytest.raises(ValueError):        # one more column would
+            tiling.dycore_kstep_tile(ny, nx, k, tx=t.tx + 1, nz=nz)  # not fit
+
+
+def test_kstep_tile_narrows_to_fit_a_cluster():
+    # ny = 37 is prime, so the window is all of y: 49 haloed rows at k=3
+    # need 7 rows a block in 8 blocks or fewer, so the tile narrows.
+    t = tiling.dycore_kstep_tile(37, 70, 3)
+    assert (t.ty, t.tx, t.cluster, t.rows) == (37, 23, 7, 7)
+    _assert_tile_fits(t, 37, 3)
+    t = tiling.dycore_kstep_tile(37, 70, 2, ty=4, tx=16)
+    assert (t.ty, t.tx) == (37, 16)            # an explicit tx is kept
+    _assert_tile_fits(t, 37, 2, ty=4)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(ty=128, tx=32), "cluster of"),       # 136 haloed rows
+    (dict(tx=200), "at least 2"),              # one row a block
+    (dict(nz=65), "nz=65"),                    # past the register arrays
+    (dict(nz=1), "nz=1"),
+])
+def test_kstep_tile_that_does_not_fit_is_refused(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tiling.dycore_kstep_tile(256, 256, 2, **kw)
+
+
+@pytest.mark.parametrize("nz", [2, 3, 7, 9, 37, 64])
+def test_kstep_takes_every_nz_up_to_its_register_arrays(nz):
+    # One build, 64-level register arrays: every nz in [2, 64] runs it, and
+    # the tile's shared memory is planned at the column's own nz.
+    tiling.check_kstep_nz(nz)
+    t = tiling.dycore_kstep_tile(256, 256, 2, nz=nz)
+    _assert_tile_fits(t, 256, 2, nz)
+    assert nz <= tiling.DYCORE_KSTEP_MAX_NZ == 64
+
+
+def test_kstep_plan_tile_is_planned_at_the_grids_nz():
+    from repro_torch.weather.program import StencilProgram, compile
+    plan = compile(StencilProgram(grid_shape=(4, 16, 16), ensemble=2,
+                                  variant="kstep", k_steps=2), device="cpu")
+    assert plan.tile == tiling.dycore_kstep_tile(16, 16, 2, nz=4)
+    assert plan.tile.smem_bytes == tiling.dycore_kstep_smem(
+        4, plan.tile.rows, plan.tile.tx + 8)
+
+
+def test_kernel_wrapper_refuses_what_no_build_takes(rng):
+    shape = (2, 65, 8, 8)                      # nz = 65
+    f = torch.zeros(shape)
+    w = torch.zeros(shape[1:])
+    with pytest.raises(ValueError, match="nz=65"):
+        fused_dycore_kstep_cuda(f, w, f, f, k_steps=2)
+    _, (f, wcon, t, s) = _inputs(rng, SHAPE)
+    k3 = tiling.dycore_kstep_tile(12, 16, 3)
+    with pytest.raises(ValueError, match="not planned for k_steps=2"):
+        fused_dycore_kstep_cuda(f, ops.staggered_w(wcon), t, s, k_steps=2,
+                                tile=k3)
 
 
 @pytest.mark.cuda
@@ -179,6 +267,42 @@ def test_cuda_bf16_kernel_rounds_once(cuda, rng):
     got_f, got_s = fused_dycore_kstep_cuda(f, w, t, s, k_steps=2)
     up_f, up_s = fused_dycore_kstep_cuda(f.float(), w.float(), t.float(),
                                          s.float(), k_steps=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got_f, up_f.bfloat16())
+    assert torch.equal(got_s, up_s.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("nz", [2, 3, 7, 9, 37, 64])
+def test_cuda_kernel_is_k_whole_state_launches_at_odd_nz(k, nz, cuda, rng):
+    shape = (2, 3, nz, 37, 70)                 # batch 2, ragged tiles
+    _, tx = _inputs(rng, shape)
+    f, wcon, t, s = (a.to(cuda) for a in tx)
+    w = ops.staggered_w(wcon)
+    _build.reset_launches()
+    got_f, got_s = fused_dycore_kstep_cuda(f, w, t, s, k_steps=k)
+    assert _build.LAUNCHES["dycore_kstep"] == 1
+    for _ in range(k):
+        f, s = fused_dycore_cuda(f, w, t, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got_f, f) and torch.equal(got_s, s)
+    tile = tiling.dycore_kstep_tile(37, 70, k, ty=4, tx=16, nz=nz)
+    alt_f, alt_s = fused_dycore_kstep_cuda(tx[0].to(cuda), w, t,
+                                           tx[3].to(cuda), k_steps=k,
+                                           tile=tile)
+    assert torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [3, 37, 64])
+def test_cuda_bf16_kernel_rounds_once_at_any_nz(nz, cuda, rng):
+    _, tx = _inputs(rng, (2, 2, nz, 20, 36), "bfloat16")
+    f, wcon, t, s = (a.to(cuda) for a in tx)
+    w = ops.staggered_w(wcon)
+    got_f, got_s = fused_dycore_kstep_cuda(f, w, t, s, k_steps=3)
+    up_f, up_s = fused_dycore_kstep_cuda(f.float(), w.float(), t.float(),
+                                         s.float(), k_steps=3)
     torch.cuda.synchronize()
     assert torch.equal(got_f, up_f.bfloat16())
     assert torch.equal(got_s, up_s.bfloat16())
