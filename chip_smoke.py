@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --copy-times ROOT
+    python3 chip_smoke.py --kernel-times ROOT
 
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
-bf16 flash and xent kernels issue HGMMA (wgmma), and prints the k-step
-kernel's ptxas registers and spills and its cluster tiles' shared memory;
-holds each kernel against its plain PyTorch version on the card at the
-main path's shapes (float32
-and bfloat16), and two tilings of each against each other bit for bit (the
-k-step kernels also against k launches of their one-step kernels); drives
+bf16 flash and xent kernels issue HGMMA (wgmma), and prints the
+whole-state dycore, k-step and LRU kernels' ptxas registers and spills and
+the dycore kernels' tiles; holds each kernel against its plain PyTorch
+version on the card at the main path's shapes (float32 and bfloat16), and
+two tilings of each against each other bit for bit (the whole-state kernel
+also in clusters of one, at one field against its slice of the whole
+state, at nz 2 to 1500, and its candidate tiles timed; the k-step kernels
+also against k launches of their one-step kernels); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
 plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
@@ -51,6 +54,12 @@ Any failure exits nonzero. Imports nothing of JAX.
 With `--copy-times ROOT` it only times the copy kernel of the checkout at
 ROOT as phase 5 times this one's (`copy_times_of`), to hold two commits'
 kernels against each other on one card, and prints no result line.
+`--kernel-times ROOT` (`kernel_times_of`) does the same for copy, the
+whole-state dycore kernel (also at one field), the dycore k-step rounds
+(k = 1, 2, 3), one main-path step with its `run(state, 10)` peak memory,
+and the LRU sweep (forward and reverse, fp32 and bf16), each output hashed
+so two checkouts' bits can be compared: run parent, change, change, parent
+in one call.
 """
 
 from __future__ import annotations
@@ -73,6 +82,11 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
 BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
 KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
+DEPTHS = (2, 9, 37, 96, 1500)  # nz of the whole-state kernel's depth checks
+# the whole-state kernel's candidate tiles (ty, tx), timed beside the
+# planner's pick at the main path's shapes (unsnapped: 12, 20 and 24 rows
+# leave a ragged last tile on 256 rows)
+FUSED_TILES = ((8, 32), (12, 32), (16, 32), (20, 32), (24, 32), (8, 64))
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
@@ -184,23 +198,27 @@ def copy_times(copy_fn, src) -> dict:
                 library_profiler_ms=device_ms(library))
 
 
-def copy_times_of(root: Path) -> int:
-    """`python3 chip_smoke.py --copy-times ROOT`: the copy kernel of the
-    checkout at ROOT (another commit, unpacked with `git archive`) checked
-    bit for bit and timed as phase 5 times this checkout's, at both of its
-    sizes; one JSON line. Holds one commit's kernel against another's on
-    one card: run parent, change, change, parent in one call."""
+def _import_root(root: Path):
+    """Import the `repro_torch` package of the checkout at ROOT (another
+    commit, unpacked with `git archive`, or this one) and build its
+    kernels."""
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
-    root = root.resolve()
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.copy_stencil.copy_stencil import copy_cuda
     require(Path(_build.__file__).resolve().is_relative_to(root),
             f"imported {_build.__file__}, not the package under {root}")
     _build.load()
+
+
+def _copy_times_at(root: Path) -> dict:
+    """ROOT's copy kernel checked bit for bit and timed as phase 5 times
+    this checkout's, at both of its sizes."""
+    import torch
+
+    from repro_torch.kernels.copy_stencil.copy_stencil import copy_cuda
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for label, rows in COPY_SIZES:
@@ -210,7 +228,131 @@ def copy_times_of(root: Path) -> int:
                 f"{root}: the copy differs at {label}")
         out[label] = copy_times(copy_cuda, src)
         del src
-    say(json.dumps({"copy_times": str(root), "sizes": out}))
+    return out
+
+
+def copy_times_of(root: Path) -> int:
+    """`python3 chip_smoke.py --copy-times ROOT`: the copy kernel of the
+    checkout at ROOT checked bit for bit and timed as phase 5 times this
+    checkout's, at both of its sizes; one JSON line. Holds one commit's
+    kernel against another's on one card: run parent, change, change,
+    parent in one call."""
+    root = root.resolve()
+    _import_root(root)
+    say(json.dumps({"copy_times": str(root), "sizes": _copy_times_at(root)}))
+    return 0
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bits: equal hashes from two checkouts'
+    kernels on the same inputs mean equal outputs, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                                   else torch.int32)
+        h.update(bits.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_times_of(root: Path) -> int:
+    """`python3 chip_smoke.py --kernel-times ROOT`: the copy, dycore and
+    LRU kernels of the checkout at ROOT, built from ROOT's sources and
+    timed at the main path's shapes, each beside a hash of its output on
+    inputs made from fixed seeds (equal hashes between two checkouts: the
+    same bits): copy as `--copy-times` times it; the whole-state dycore
+    kernel at (4, 4, 64, 256, 256) and at one field, fp32 and bf16, per
+    call and queued, on ROOT's default tiles; the dycore k-step rounds at
+    k = 1, 2, 3; one main-path step (`ExecutionPlan.step`) and the peak
+    device memory of a main-path `run(state, 10)`; the LRU sweep forward at
+    (4, 1024, 4096) and reverse at (4, 2048, 4096), fp32 and bf16, per call
+    and queued. One JSON line. Run parent, change, change, parent in one
+    call."""
+    import torch
+
+    root = root.resolve()
+    _import_root(root)
+    from repro_torch.core import tiling
+    from repro_torch.kernels.dycore_fused import ops as fused_ops
+    from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
+    from repro_torch.kernels.dycore_fused.kstep import (
+        fused_dycore_kstep_cuda)
+    from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+    from repro_torch.weather import fields
+    from repro_torch.weather.program import StencilProgram, compile
+
+    dev = torch.device("cuda")
+    out = {"copy": _copy_times_at(root)}
+    ny, nx = GRID[1:]
+    nf = len(fields.PROGNOSTIC)
+
+    def timed(fn, reps=REPS, queued=50):
+        return dict(ms=time_ms(fn, reps), queued_ms=stream_ms(fn, queued))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        noise = lambda scale, *shape: (scale * torch.randn(
+            shape, generator=gen, device=dev)).to(dtype)
+        fs = noise(1.0, ENSEMBLE, nf, *GRID)
+        ts = noise(0.01, ENSEMBLE, nf, *GRID)
+        ss = noise(0.01, ENSEMBLE, nf, *GRID)
+        w = fused_ops.staggered_w(noise(0.05, ENSEMBLE, *GRID))
+        # each wrapper's default tile for these fields
+        r = out[f"dycore_fused {dn}"] = timed(
+            lambda: fused_dycore_cuda(fs, w, ts, ss))
+        r["hash"] = digest(*fused_dycore_cuda(fs, w, ts, ss))
+        one = [a[:, :1].contiguous() for a in (fs, ts, ss)]
+        r = out[f"dycore_fused one field {dn}"] = timed(
+            lambda: fused_dycore_cuda(one[0], w, one[1], one[2]))
+        r["hash"] = digest(*fused_dycore_cuda(one[0], w, one[1], one[2]))
+        del one
+        for k in (1,) + KSTEPS:
+            tile = tiling.dycore_kstep_tile(ny, nx, k, nz=GRID[0])
+            run = lambda: fused_dycore_kstep_cuda(fs, w, ts, ss, k_steps=k,
+                                                  tile=tile)
+            r = out[f"dycore_kstep k={k} {dn}"] = timed(run, queued=20)
+            r["hash"] = digest(*run())
+            r["tile"] = [tile.ty, tile.tx, tile.cluster, tile.rows]
+        del fs, ts, ss, w
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev).manual_seed(2)
+        st = fields.initial_state(gen, GRID, ENSEMBLE, dtype=dtype,
+                                  device=dev)
+        plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                      dtype=dn))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        end = plan.run(st, STEPS)
+        torch.cuda.synchronize()
+        out[f"main path {dn}"] = dict(
+            step_ms=time_ms(lambda: plan.step(st)),
+            run_peak_bytes=torch.cuda.max_memory_allocated(),
+            run_peak_above_state_bytes=torch.cuda.max_memory_allocated()
+            - base,
+            hash=digest(*(end.fields[n] for n in end.fields)))
+        del st, end, plan
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for label, shape, reverse in (("forward", (4, 1024, 4096), False),
+                                      ("reverse", (4, 2048, 4096), True)):
+            a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=dev)
+                 ).to(dtype)
+            b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            run = lambda: lru_scan_cuda(a, b, reverse=reverse)
+            r = out[f"lru_scan {label} {dn} {shape}"] = timed(run)
+            r["hash"] = digest(run())
+            del a, b
+        torch.cuda.empty_cache()
+    for key, r in out.items():
+        say(f"kernel times {root.name}: {key}: {json.dumps(r)}")
+    say(json.dumps({"kernel_times": str(root), "results": out}))
     return 0
 
 
@@ -368,15 +510,18 @@ def serve_phase(torch, dev, check, results, main_launches):
               f"version")
         if dtype == torch.float32:
             lru_ms = time_ms(lambda: lru_scan_cuda(a, bb))
+            lru_queued_ms = stream_ms(lambda: lru_scan_cuda(a, bb))
             lru_plain_ms = time_ms(lambda: lru_ref.lru_scan_ref(a, bb))
             b_ms, b_by = bound(3 * a.numel() * a.element_size(),
                                2.0 * a.numel())
             results[("lru_scan", "float32")] = dict(
-                err=err, ms=lru_ms, plain_ms=lru_plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, shape=list(shape))
-            say(f"lru_scan {shape} float32: {lru_ms:.4f} ms (plain "
-                f"{lru_plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}; no "
-                f"single PyTorch call computes it)")
+                err=err, ms=lru_ms, queued_ms=lru_queued_ms,
+                plain_ms=lru_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=list(shape))
+            say(f"lru_scan {shape} float32: {lru_ms:.4f} ms, queued "
+                f"{lru_queued_ms:.4f} ms (plain {lru_plain_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}; no single PyTorch call computes "
+                f"it)")
         del a, bb, want
     torch.cuda.empty_cache()
 
@@ -762,12 +907,14 @@ def train_phase(torch, dev, check, results):
               f"version")
         if dtype == torch.float32:
             rev_ms = time_ms(lambda: lru_scan_cuda(a, b, reverse=True))
+            rev_queued_ms = stream_ms(lambda: lru_scan_cuda(a, b,
+                                                            reverse=True))
             b_ms, _ = bound(3 * a.numel() * 4, 2.0 * a.numel())
             results[("lru_scan_reverse", "float32")] = dict(
-                err=float(d.max()), ms=rev_ms, bound_ms=b_ms,
-                shape=list(shape))
-            say(f"lru_scan reverse {shape} float32: {rev_ms:.4f} ms (bound "
-                f"{b_ms:.4f} ms by bytes)")
+                err=float(d.max()), ms=rev_ms, queued_ms=rev_queued_ms,
+                bound_ms=b_ms, shape=list(shape))
+            say(f"lru_scan reverse {shape} float32: {rev_ms:.4f} ms, queued "
+                f"{rev_queued_ms:.4f} ms (bound {b_ms:.4f} ms by bytes)")
         del a, b, got, want, d
     for label, shp in (("recurrentgemma MQA hd 256", ((2, 256, 16, 256),
                                                         (2, 256, 1, 256))),
@@ -1054,14 +1201,27 @@ def main() -> int:
     fp32_hgmma = sum(c for f, c in hgmma.items()
                      if "flash_fwd" in f and "flash_fwd_tc" not in f)
     say(f"sass: flash_fwd (fp32 route): {fp32_hgmma} HGMMA instructions")
-    # the k-step kernel's register arrays must stay in registers
-    rep = _build.build_log["ptxas"].get("dycore_kstep.cu", "")
-    entry = None
-    for line in rep.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif entry and ("registers" in line or "spill" in line):
-            say(f"kstep ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+    # the dycore kernels' registers and spill bytes: the k-step kernel's
+    # register arrays must stay in registers, the whole-state kernel must
+    # stay within the 32 registers its launch bounds give it
+    for src, label in (("dycore_fused.cu", "fused"),
+                       ("dycore_kstep.cu", "kstep"),
+                       ("lru_scan.cu", "lru_scan")):
+        rep = _build.build_log["ptxas"].get(src, "")
+        entry, seen = None, 0
+        for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif entry and ("registers" in line or "spill" in line):
+                seen += 1
+                say(f"{label} ptxas {entry}: "
+                    f"{line.split(':', 1)[-1].strip()}")
+        require(seen > 0, f"no ptxas report for {src}")
+    for nf_ in (len(fields.PROGNOSTIC), 1):
+        t = tiling.dycore_tile(GRID[1], GRID[2], nz=GRID[0], nf=nf_)
+        say(f"fused tile nf={nf_}: {t.ty}x{t.tx} outputs, a block of "
+            f"{t.threads} threads a tile and field, clusters of {t.cluster} "
+            f"field blocks, {t.smem_bytes} bytes of shared memory a block")
     for k in KSTEPS:
         t = tiling.dycore_kstep_tile(GRID[1], GRID[2], k, nz=GRID[0])
         say(f"kstep tile k={k}: {t.ty}x{t.tx} outputs, cluster of "
@@ -1083,6 +1243,13 @@ def main() -> int:
         return st
 
     results = {}
+
+    def fused_tile(ty, tx, nf_):
+        """The whole-state kernel's ty x tx tile for nf_ fields, as
+        `tiling.dycore_tile` builds it but without snapping ty."""
+        cols = (ty + 4) * (tx + 4)
+        return tiling.CudaTile("dycore_fused", ty, tx, cols, 8 * cols,
+                               cluster=tiling.dycore_cluster(nf_))
 
     def check_fused(label, fs, w, ts, ss, got_f, got_s, rtol):
         """Hold one fused step (got_f, got_s) against its plain version,
@@ -1197,16 +1364,22 @@ def main() -> int:
         wcon = noise(0.15, ENSEMBLE, *GRID).to(dtype)
         w = fused_ops.staggered_w(wcon)
 
-        # fused dycore, whole state
-        tile_a = tiling.dycore_tile(ny, nx)
-        tile_b = tiling.dycore_tile(ny, nx, ty=4, tx=64)
+        # fused dycore, whole state, on the tile the planner picks for nf
+        # fields (a cluster of the tile's field blocks shares w's sweep
+        # coefficients); another tiling, and clusters of one (every block
+        # its own coefficients), bit for bit
+        tile_a = tiling.dycore_tile(ny, nx, nz=nz, nf=nf)
+        tile_b = tiling.dycore_tile(ny, nx, ty=4, tx=64, nz=nz, nf=nf)
+        tile_1 = tiling.dycore_tile(ny, nx, nz=nz)
         got_f, got_s = fused_dycore_cuda(fs, w, ts, ss, tile=tile_a)
         torch.cuda.synchronize()
         err = check_fused(f"fused {dn}", fs, w, ts, ss, got_f, got_s, rtol)
-        alt_f, alt_s = fused_dycore_cuda(fs, w, ts, ss, tile=tile_b)
-        require(torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s),
-                f"fused dycore: tiles {tile_a.ty}x{tile_a.tx} and "
-                f"{tile_b.ty}x{tile_b.tx} differ")
+        for tile in (tile_b, tile_1):
+            alt_f, alt_s = fused_dycore_cuda(fs, w, ts, ss, tile=tile)
+            require(torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s),
+                    f"fused dycore: tile {tile_a.ty}x{tile_a.tx} in clusters "
+                    f"of {tile_a.cluster} and {tile.ty}x{tile.tx} in "
+                    f"clusters of {tile.cluster} differ")
         ms = time_ms(lambda: fused_dycore_cuda(fs, w, ts, ss, tile=tile_a))
         queued_ms = stream_ms(lambda: fused_dycore_cuda(fs, w, ts, ss,
                                                         tile=tile_a))
@@ -1215,23 +1388,74 @@ def main() -> int:
             fs, wb, ts, ss))
         nbytes = (3 * ENSEMBLE * nf + ENSEMBLE + 2 * ENSEMBLE * nf) * vol * isz
         b_ms, b_by = bound(nbytes, 61.0 * ENSEMBLE * nf * vol)
+        # the planner's tile beside the other candidates, queued, in
+        # clusters of nf field blocks and of one
+        cand = {}
+        for cty, ctx in FUSED_TILES:
+            for cnf in (nf, 1):
+                t = fused_tile(cty, ctx, cnf)
+                cand[f"{t.ty}x{t.tx} cluster {t.cluster}"] = stream_ms(
+                    lambda: fused_dycore_cuda(fs, w, ts, ss, tile=t))
         results[("dycore_fused", dn)] = dict(
             err=err, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, tile=tile_a.describe(),
+            tiles_queued_ms=cand)
         say(f"fused {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
-            f"bitwise equal")
-        # The per-field variant: the same kernel at nf = 1, one field.
-        one = [a[:, :1].contiguous() for a in (fs, ts, ss)]
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles and "
+            f"cluster sizes bitwise equal; queued ms by tile: "
+            + json.dumps(cand))
+        # The per-field variant: the same kernel at nf = 1, one field, on
+        # the planner's tile for one field; the field's slice of the
+        # whole-state launch bit for bit.
+        one = [a[:, 1:2].contiguous() for a in (fs, ts, ss)]
+        tile_1 = tiling.dycore_tile(ny, nx, nz=nz, nf=1)
+        one_f, one_s = fused_dycore_cuda(one[0], w, one[1], one[2],
+                                         tile=tile_1)
+        require(torch.equal(one_f, got_f[:, 1:2])
+                and torch.equal(one_s, got_s[:, 1:2]),
+                f"fused dycore {dn}: one field differs from its slice of the "
+                f"whole-state launch")
         ms = time_ms(lambda: fused_dycore_cuda(one[0], w, one[1], one[2],
-                                               tile=tile_a))
+                                               tile=tile_1))
+        queued_ms = stream_ms(lambda: fused_dycore_cuda(
+            one[0], w, one[1], one[2], tile=tile_1))
         plain_ms = time_ms(lambda: fused_ref.fused_step_ref_summed(
             one[0], wb, one[1], one[2]))
         b_ms, b_by = bound(6 * ENSEMBLE * vol * isz, 61.0 * ENSEMBLE * vol)
+        cand = {}
+        for cty, ctx in FUSED_TILES:
+            t = fused_tile(cty, ctx, 1)
+            cand[f"{t.ty}x{t.tx}"] = stream_ms(
+                lambda: fused_dycore_cuda(one[0], w, one[1], one[2], tile=t))
         results[("dycore_fused_per_field", dn)] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        say(f"fused per field {dn}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by})")
+            ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, tile=tile_1.describe(), tiles_queued_ms=cand)
+        say(f"fused per field {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); "
+            f"equal to its slice of the whole state; queued ms by tile: "
+            + json.dumps(cand))
+        del one_f, one_s
+
+        # Every depth runs the one build: nz from 2 to 1500 against the
+        # plain version on ragged tiles of a smaller grid, in clusters of
+        # the fields' blocks and in clusters of one, bit for bit.
+        for dnz in DEPTHS:
+            dgrid = (dnz, 37, 70)
+            d_f, d_t, d_s = (noise(sc, 2, nf, *dgrid).to(dtype)
+                             for sc in (1.0, 0.01, 0.01))
+            d_w = fused_ops.staggered_w(noise(0.15, 2, *dgrid).to(dtype))
+            tile = tiling.dycore_tile(37, 70, nz=dnz, nf=nf)
+            d_gf, d_gs = fused_dycore_cuda(d_f, d_w, d_t, d_s, tile=tile)
+            torch.cuda.synchronize()
+            check_fused(f"fused {dn} nz={dnz} ({tile.ty}x{tile.tx} tile, "
+                        f"clusters of {tile.cluster})", d_f, d_w, d_t, d_s,
+                        d_gf, d_gs, rtol)
+            alt_f, alt_s = fused_dycore_cuda(
+                d_f, d_w, d_t, d_s, tile=tiling.dycore_tile(37, 70, nz=dnz))
+            require(torch.equal(alt_f, d_gf) and torch.equal(alt_s, d_gs),
+                    f"fused dycore {dn} nz={dnz}: clusters of {tile.cluster} "
+                    f"and of one differ")
+            del d_f, d_t, d_s, d_w, d_gf, d_gs
         del got_f, got_s, alt_f, alt_s, one, wb
 
         # hdiff on the wrap-padded stack
@@ -1492,10 +1716,14 @@ def main() -> int:
         plan = compile(prog)
         require(plan.variant == "whole_state" and plan.k_steps == 1,
                 f"main path resolved to {plan.variant}/k={plan.k_steps}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         _build.reset_launches()
         out = plan.run(st, STEPS)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
+        run_peak = torch.cuda.max_memory_allocated() - resident
         expect = STEPS * plan.pallas_calls_per_round
         say(f"main path {dtype}: launches {counts} (expect dycore_fused = "
             f"{expect})")
@@ -1547,8 +1775,13 @@ def main() -> int:
         require(err <= tol and err_s <= tol,
                 "the main path disagrees with the unfused plan")
         step_ms = time_ms(lambda: plan.step(st))
-        results[("main_step", dtype)] = dict(ms=step_ms)
-        say(f"main path {dtype}: one step {step_ms:.4f} ms")
+        results[("main_step", dtype)] = dict(ms=step_ms,
+                                             run_peak_bytes=run_peak)
+        say(f"main path {dtype}: one step {step_ms:.4f} ms; run({STEPS}) "
+            f"peaked {run_peak / 1e6:.1f} MB of device memory above the "
+            f"{resident / 1e6:.1f} MB resident before it (tile "
+            f"{plan.tile.ty}x{plan.tile.tx}, clusters of {plan.tile.cluster} "
+            f"field blocks)")
         del st, out, oracle, cur, nxt
         torch.cuda.empty_cache()
 
@@ -1951,8 +2184,14 @@ def main() -> int:
             # operands take the fp32-core kernel
             kernels[-1]["fp32_source"] = source.replace("_tc.cu", ".cu")
         if name == "lru_scan":
-            kernels[-1]["reverse_ms"] = results[("lru_scan_reverse",
-                                                 "float32")]["ms"]
+            rev = results[("lru_scan_reverse", "float32")]
+            kernels[-1]["reverse_ms"] = rev["ms"]
+            kernels[-1]["reverse_queued_ms"] = rev["queued_ms"]
+        if name == "dycore_fused":
+            # the main path's peak device memory over run(state, 10), above
+            # the state resident before it
+            kernels[-1]["run_peak_bytes"] = results[
+                ("main_step", "float32")]["run_peak_bytes"]
         for extra in ("queued_ms", "profiler_ms", "library_queued_ms",
                       "library_profiler_ms", "per_step_ms",
                       "whole_state_launches_ms"):
@@ -1989,6 +2228,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--copy-times"] and len(sys.argv) == 3:
             sys.exit(copy_times_of(Path(sys.argv[2])))
+        if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
+            sys.exit(kernel_times_of(Path(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)

@@ -32,21 +32,13 @@ MAX_CLUSTER = 8          # blocks of a thread block cluster, portable
 HALO = 2
 
 
-def snap_to_divisor(t: int, n: int, lo: int = 2) -> int:
-    """Largest divisor of `n` that is `<= t` and `>= lo`; falls back to `n`
-    itself when no divisor lands in `[lo, t]` (the JAX package's rule)."""
-    t = max(lo, min(int(t), n))
-    while n % t and t > lo:
-        t -= 1
-    return t if n % t == 0 else n
-
-
 @dataclasses.dataclass(frozen=True)
 class CudaTile:
     """A kernel's block shape: `ty` x `tx` output points (vadvc: columns)
-    per block, the block's threads and its shared memory; a tile run by a
-    cluster of blocks (the dycore k-step) also names the cluster's size and
-    the rows each block runs."""
+    per block, the block's threads and its shared memory; a kernel that runs
+    thread block clusters also names the cluster's size (the whole-state
+    dycore: the field blocks of a tile; the dycore k-step: the blocks that
+    split a tile's rows, `rows` each)."""
 
     op: str
     ty: int
@@ -105,15 +97,45 @@ def snap_ty_kstep(ty: int, ny: int, k_steps: int) -> int:
     return at_most[-1] if at_most else divisors[0]
 
 
-def dycore_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
-    """One thread per column of the haloed tile; two fp32 levels of it in
-    shared memory. `ty` snaps to a divisor of ny when one lies within a
-    factor of two, so y-tiles carry no idle rows."""
-    ty, tx = min(ty, ny), min(tx, nx)
-    snapped = snap_to_divisor(ty, ny, lo=max(1, ty // 2))
-    ty = snapped if snapped <= ty else ty
+def dycore_cluster(nf: int) -> int:
+    """Field blocks of one tile that the whole-state kernel runs as a thread
+    block cluster, sharing one copy of w's sweep coefficients: the largest
+    divisor of `nf` up to `MAX_CLUSTER` (1 for one field)."""
+    return max(d for d in range(1, min(nf, MAX_CLUSTER) + 1) if nf % d == 0)
+
+
+def dycore_default(nf: int) -> Tuple[int, int]:
+    """The whole-state kernel's default (ty, tx): 24 x 32 for several
+    fields, the tallest tile of 32 columns a block of 1024 threads holds
+    (1.31x the columns in halo, against 1.69x at 8 x 32); 16 x 32 for one
+    field, where the 24-row tile's blocks would fill the card's block slots
+    only 1.3 times on the paper's ensemble, a third of the card idle through
+    the second wave. chip_smoke.py times the candidates on the H100
+    (PERF.md)."""
+    return (24, 32) if nf > 1 else (16, 32)
+
+
+def dycore_tile(ny: int, nx: int, ty: Optional[int] = None,
+                tx: Optional[int] = None, *, nz: int = 64,
+                nf: int = 1) -> CudaTile:
+    """The whole-state kernel's tile for `nf` fields of `nz` levels: one
+    thread per column of the haloed tile, two fp32 levels of it in shared
+    memory, the sweep's scratch in device memory (so any nz >= 2 runs the
+    one build), and the tile's field blocks in clusters of
+    `dycore_cluster(nf)`. `ty`, `tx` default to `dycore_default(nf)`; `ty`
+    then shrinks, by at most half, to the rows that compute the fewest
+    haloed rows over the grid, tiles_y * (ty + 4) (a divisor of ny where
+    one costs no more)."""
+    if nz < 2:
+        raise ValueError(f"dycore_fused: nz={nz} must be >= 2 (staggered "
+                         f"vertical sweep)")
+    dty, dtx = dycore_default(nf)
+    ty, tx = min(ty or dty, ny), min(tx or dtx, nx)
+    ty = min(range(max(1, ty // 2), ty + 1),
+             key=lambda t: (-(-ny // t) * (t + 2 * HALO), -t))
     cols = (ty + 2 * HALO) * (tx + 2 * HALO)
-    return CudaTile("dycore_fused", ty, tx, cols, 2 * 4 * cols)
+    return CudaTile("dycore_fused", ty, tx, cols, 2 * 4 * cols,
+                    cluster=dycore_cluster(nf))
 
 
 # Threads per block of the hdiff k-step kernel, which loops over its tile's

@@ -38,12 +38,12 @@
 //   memory, in a per-column record beside w's coefficients where every
 //   level sits at a constant offset, and global addresses walk down the
 //   column (`next_level`).
-// * The Thomas coefficients that depend on w alone, as_k (= acol_k) and
-//   divided_k, are computed once per column at the start, in the whole-state
-//   kernel's operation order (`thomas_forward`, dycore_column.cuh), and kept
-//   in that record for every field and step; cs_k = ck_k = -as_{k+1} and cprev_k =
-//   ck_k * divided_k follow exactly (kBetM == kBetP, and a product's
-//   rounding is symmetric in sign). So in fp32 every step is bit-equal to a
+// * The Thomas arithmetic is the column routine of dycore_column.cuh, which
+//   the whole-state kernel (dycore_fused.cu) calls too: w's coefficients
+//   as_k (= acol_k) and divided_k are computed once per column at the start
+//   (`nero::w_record`) and kept in that record for every field and step,
+//   and each step runs `nero::forward_chunk` and `nero::backward_chunk` on
+//   the column's registers. So in fp32 every step is bit-equal to a
 //   whole-state launch, and k steps to k launches.
 // * The backward sweep runs in chunks of kChunk levels. Each thread writes
 //   the updated field f + dt * stage of its column at each level of a chunk
@@ -61,9 +61,14 @@
 //   and the halo columns after, so these skips fall on whole warps. After k
 //   steps the ty x tx centre is exact and is written out; bf16 is rounded
 //   once, there.
+//
+// Measured (`chip_smoke.py --kernel-times`, one NVIDIA H100 80GB HBM3 at a
+// 700 W power limit; PERF.md): the main path's (4, 4, 64, 256, 256) fp32
+// state, a k=2 round 4.612-4.669 ms queued and k=3 8.639-8.643 ms, against
+// a 0.421 ms bound; still slower than k whole-state launches.
 #include <climits>
 
-#include "common.cuh"
+#include "dycore_column.cuh"
 
 namespace {
 
@@ -73,23 +78,17 @@ constexpr int kChunk = 8;       // levels of the hdiff planes per exchange
 constexpr int kBufs = 3;        // plane buffers in rotation
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
-// Floats of one column's record of w's coefficients and utens: 3 a level,
-// made odd.
+constexpr int kRec = 3;         // record floats a level: as, divided, utens
+
+// Floats of one column's record of w's coefficients and utens: kRec a
+// level, made odd.
 __host__ __device__ __forceinline__ int record_stride(int nz) {
-  return (3 * nz) | 1;
+  return (kRec * nz) | 1;
 }
 
-static_assert(nero::kBetM == nero::kBetP,
-              "as == acol and cs == ck only when BETA_V == 0");
+using nero::cluster_arrive;
+using nero::cluster_wait;
 
-// Cluster barrier halves, per thread (not .aligned: a warp may arrive from
-// divergent code).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -145,8 +144,6 @@ __global__ void __launch_bounds__(kThreads, 1) dycore_kstep_kernel(
     T* __restrict__ fout, T* __restrict__ sout, int nf, int nz, int ny,
     int nx, int ty, int tx, int rows, int k_steps, int tiles_y, int tiles_x,
     float dt, float coeff) {
-  using nero::kBetM;
-  using nero::kBetP;
   using nero::kDtrStage;
   constexpr int NC = NZ / kChunk;
   static_assert(NZ % kChunk == 0, "NZ must be a multiple of kChunk");
@@ -197,45 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1) dycore_kstep_kernel(
   const int kl = nz - 1;
 
   // ---- w's Thomas coefficients, once for every field and step ----
-  {
-    float wv[NZ];
-    const T* pw_ = w + member * vol + col;
-#pragma unroll
-    for (int k = 1; k < NZ; ++k) {
-      if (k < nz) {
-        next_level(pw_, plane);
-        wv[k] = nero::ld(pw_, 0);
-      }
-    }
-    float cprev;
-    {
-      const float gcv = 0.25f * wv[1];
-      const float ck = gcv * kBetP;
-      const float divided = 1.0f / (kDtrStage - ck);
-      cprev = ck * divided;
-      rec[0] = 0.0f;
-      rec[1] = divided;
-    }
-#pragma unroll
-    for (int k = 1; k < NZ; ++k) {
-      const int kn = k + 1 < NZ ? k + 1 : k;  // in bounds where unused
-      const float gav = -0.25f * wv[k];
-      const float as = gav * kBetM;
-      const float acol = gav * kBetP;
-      if (k < kl) {
-        const float gcv = 0.25f * wv[kn];
-        const float ck = gcv * kBetP;
-        const float bcol = (kDtrStage - acol) - ck;
-        const float divided = 1.0f / (bcol - cprev * acol);
-        cprev = ck * divided;
-        rec[3 * k] = as;
-        rec[3 * k + 1] = divided;
-      } else if (k == kl) {
-        rec[3 * k] = as;
-        rec[3 * k + 1] = 1.0f / ((kDtrStage - acol) - cprev * acol);
-      }
-    }
-  }
+  nero::w_record<NZ, kRec>(rec, w + member * vol + col, plane, nz);
 
   // Where this thread's plane value goes: its own buffer, and the ghost rows
   // of the block above or below when it sits within 2 rows of it.
@@ -288,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1) dycore_kstep_kernel(
         }
 #pragma unroll
         for (int li = 0; li < kChunk; ++li)
-          if (k0 + li < nz) rec[3 * (k0 + li) + 2] = u[li];
+          if (k0 + li < nz) rec[kRec * (k0 + li) + 2] = u[li];
       }
     }
     for (int s = 0; s < k_steps; ++s) {
@@ -300,37 +259,16 @@ __global__ void __launch_bounds__(kThreads, 1) dycore_kstep_kernel(
       float x = 0.0f, dprev = 0.0f;
 #pragma unroll 1
       for (int t = 0; t < NC; ++t) {
-        const float* rc = rec + 3 * kChunk * t;  // the record at level 8t
-        if (solve) {
-#pragma unroll
-          for (int li = 0; li < kChunk; ++li) {
-            const int k = kChunk * t + li;
-            const float f0 = F[li];
-            const float f1 = F[li + 1 < NZ ? li + 1 : li];   // level k+1
-            const float fm = F[li > 0 ? li - 1 : NZ - 1];   // level k-1
-            if (k == 0) {
-              const float cs = -rc[3];
-              const float corr = -cs * (f1 - f0);
-              const float rhs = (kDtrStage * f0 + rc[2]) + SD[0];
-              dprev = (rhs + corr) * rc[1];
-              SD[0] = dprev;
-            } else if (k < kl) {
-              const float as = rc[3 * li];
-              const float cs = -rc[3 * li + 3];
-              const float acol = as;
-              const float corr = -as * (fm - f0) - cs * (f1 - f0);
-              const float rhs = (kDtrStage * f0 + rc[3 * li + 2]) + SD[li];
-              dprev = ((rhs + corr) - dprev * acol) * rc[3 * li + 1];
-              SD[li] = dprev;
-            } else if (k == kl) {
-              const float as = rc[3 * li];
-              const float acol = as;
-              const float corr = -as * (fm - f0);
-              const float rhs = (kDtrStage * f0 + rc[3 * li + 2]) + SD[li];
-              x = ((rhs + corr) - dprev * acol) * rc[3 * li + 1];
-            }
-          }
-        }
+        const float* rc = rec + kRec * kChunk * t;  // the record at level 8t
+        if (solve)
+          nero::forward_chunk<kChunk, kRec>(
+              kChunk * t, kl, rc,
+              [&](int r) -> float& { return F[(r + NZ) % NZ]; },
+              [&](int r) -> float& { return SD[r]; },
+              [&](int r, float f0) {
+                return (kDtrStage * f0 + rc[kRec * r + 2]) + SD[r];
+              },
+              dprev, x);
         rotate<NZ, kChunk>(F);
         rotate<NZ, kChunk>(SD);
       }
@@ -348,24 +286,19 @@ __global__ void __launch_bounds__(kThreads, 1) dycore_kstep_kernel(
           const int bi = (buf + t) % kBufs;
           float* pb = P + bi * kChunk * pw + own;
           const uint32_t off = 4u * (bi * kChunk * pw);
-          const float* rc = rec + 3 * (NZ - 1 - kChunk * t);
-#pragma unroll
-          for (int li = 0; li < kChunk; ++li) {
-            const int k = NZ - 1 - kChunk * t - li;
-            const int at = NZ - 1 - li;
-            if (solve && k <= kl) {
-              if (k < kl) {
-                const float cc = -rc[3 - 3 * li] * rc[1 - 3 * li];
-                x = SD[at] - cc * x;
-              }
-              const float stage = kDtrStage * (x - F[at]);
-              const float v = F[at] + dt * stage;
-              SD[at] = stage;
-              pb[li * pw] = v;
-              if (to_up) st_cluster(up + off + 4u * (li * pw), v);
-              if (to_down) st_cluster(down + off + 4u * (li * pw), v);
-            }
-          }
+          const float* rc = rec + kRec * (NZ - 1 - kChunk * t);
+          if (solve)
+            nero::backward_chunk<kChunk>(
+                NZ - 1 - kChunk * t, kl,
+                [&](int r) { return nero::c_coef<kRec>(rc - kRec * r); },
+                [&](int r) -> float& { return F[NZ - 1 - r]; },
+                [&](int r) -> float& { return SD[NZ - 1 - r]; }, dt, x,
+                [&](int r, int, float v, float stage) {
+                  SD[NZ - 1 - r] = stage;
+                  pb[r * pw] = v;
+                  if (to_up) st_cluster(up + off + 4u * (r * pw), v);
+                  if (to_down) st_cluster(down + off + 4u * (r * pw), v);
+                });
         }
         if (t > 0) {
           cluster_wait();

@@ -9,8 +9,9 @@ the bf16 flash-attention kernel are held to their plain versions within a
 tolerance, and fused multiply-adds double the rate of the fp32 product and
 shorten the softmax. The build goes to
 `build/repro_torch_kernels/<hash of sources and flags>/` under the repository
-root and is reused while the sources stay the same. Nothing here runs when the
-module is imported.
+root and is reused while the sources stay the same, with each source's
+ptxas report (registers, spills) beside it in `ptxas.json`. Nothing here
+runs when the module is imported.
 
 Every kernel wrapper counts its launches in `LAUNCHES` (one per launch, and
 nowhere else), so a run can show which kernels its path went through.
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -49,7 +51,7 @@ _SIGNATURES = {
     "nero_vadvc": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                    _I, _I, _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                          _F, _F, _I, _I, _I, _P),
+                          _I, _F, _F, _I, _I, _I, _P),
     "nero_dycore_kstep": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _I, _I, _I, _P),
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
@@ -135,6 +137,8 @@ def _compile(out_dir: Path) -> Dict[str, str]:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    (tmp / "ptxas.json").write_text(json.dumps(reports))
+    os.replace(tmp / "ptxas.json", out_dir / "ptxas.json")
     os.replace(lib, out_dir / "libnero_kernels.so")
     shutil.rmtree(tmp, ignore_errors=True)
     return reports
@@ -148,13 +152,15 @@ def load() -> ctypes.CDLL:
     out_dir = BUILD_ROOT / _digest()
     so = out_dir / "libnero_kernels.so"
     t0 = time.perf_counter()
-    reports: Dict[str, str] = {}
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)   # one build at a time per directory
         try:
-            if not so.exists():
-                reports = _compile(out_dir)
+            built = not so.exists()
+            saved = out_dir / "ptxas.json"
+            reports = (_compile(out_dir) if built else
+                       json.loads(saved.read_text()) if saved.exists()
+                       else {})
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     lib = ctypes.CDLL(str(so))
@@ -163,7 +169,7 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     build_log.update(seconds=time.perf_counter() - t0, path=str(so),
-                     built=bool(reports), ptxas=reports)
+                     built=built, ptxas=reports)
     _lib = lib
     return lib
 

@@ -9,13 +9,24 @@ kernel at nf = 1. The plain version beside it is `ref.fused_step_ref`.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import tiling
 from repro_torch.kernels import _build
 from repro_torch.kernels.dycore_fused.ref import DEFAULT_COEFF, DEFAULT_DT
+
+
+def scratch_shapes(batch: int, nf: int, nz: int, ny: int, nx: int,
+                   tile: tiling.CudaTile) -> Tuple[tuple, tuple]:
+    """The kernel's two fp32 scratch buffers, `(ccol, dcol)`: the backward
+    sweep's coefficient once a cluster of `tile.cluster` field blocks (it
+    depends on w alone) and D once a block, `nz - 1` levels of the tile's
+    haloed columns each."""
+    tiles = batch * -(-ny // tile.ty) * -(-nx // tile.tx)
+    return ((tiles * nf // tile.cluster, nz - 1, tile.threads),
+            (tiles * nf, nz - 1, tile.threads))
 
 
 def fused_dycore_cuda(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
@@ -26,7 +37,9 @@ def fused_dycore_cuda(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
     `(..., nf, nz, ny, nx)`, doubly periodic in (y, x); `w` is the
     pre-combined staggered velocity `wcon_i + wcon_{i+1}`, `(..., nz, ny,
     nx)`, shared by every field. All contiguous CUDA tensors of one dtype
-    (float32 or bfloat16). Returns `(f_new, stage)` shaped like `fs`."""
+    (float32 or bfloat16). `tile` defaults to `tiling.dycore_tile` for these
+    fields; its cluster must divide nf. Returns `(f_new, stage)` shaped like
+    `fs`."""
     if fs.dim() < 4:
         raise ValueError(f"fused dycore: fs must be (..., nf, nz, ny, nx), "
                          f"got {tuple(fs.shape)}")
@@ -40,21 +53,22 @@ def fused_dycore_cuda(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
         _build.check_operand("fused dycore", name, t, fs.shape, fs.dtype)
     _build.check_operand("fused dycore", "w", w,
                          tuple(fs.shape[:-4]) + (nz, ny, nx), fs.dtype)
-    tile = tile or tiling.dycore_tile(ny, nx)
-    blocks = (batch * nf * -(-ny // tile.ty) * -(-nx // tile.tx))
+    tile = tile or tiling.dycore_tile(ny, nx, nz=nz, nf=nf)
+    if nf % tile.cluster:
+        raise ValueError(f"fused dycore: a cluster of {tile.cluster} field "
+                         f"blocks does not divide nf={nf}")
     f_new = torch.empty_like(fs)
     stage = torch.empty_like(fs)
-    ccol = torch.empty((blocks, nz, tile.threads), dtype=torch.float32,
-                       device=fs.device)
-    dcol = torch.empty_like(ccol)
+    ccol, dcol = (torch.empty(shape, dtype=torch.float32, device=fs.device)
+                  for shape in scratch_shapes(batch, nf, nz, ny, nx, tile))
     lib = _build.load()
     with torch.cuda.device(fs.device):
         err = lib.nero_dycore_fused(
             fs.data_ptr(), w.data_ptr(), utens.data_ptr(),
             utens_stage.data_ptr(), f_new.data_ptr(), stage.data_ptr(),
-            ccol.data_ptr(), dcol.data_ptr(), batch, nf, nz, ny, nx, dt, coeff,
-            tile.ty, tile.tx, int(fs.dtype == torch.bfloat16),
-            _build.stream_of(fs))
+            ccol.data_ptr(), dcol.data_ptr(), batch, nf, tile.cluster, nz,
+            ny, nx, dt, coeff, tile.ty, tile.tx,
+            int(fs.dtype == torch.bfloat16), _build.stream_of(fs))
     _build.check(err, "fused dycore")
     _build.LAUNCHES["dycore_fused"] += 1
     return f_new, stage

@@ -27,8 +27,12 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, *,
                   reverse: bool = False) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along axis -2 of contiguous CUDA tensors
     (T, C) or (B, T, C), float32 or bfloat16, with an fp32 carry; with
-    `reverse`, h_t = a_t h_{t+1} + b_t from the last step down. Returns a
-    new tensor in a's dtype."""
+    `reverse`, h_t = a_t h_{t+1} + b_t from the last step down. One launch:
+    the kernel streams a and b through a shared-memory ring, filled by bulk
+    copies when every row is 16-byte aligned (C times the item size a
+    multiple of 16, both base addresses on 16 bytes) and by each lane's
+    plain loads otherwise; both give the same bits. Returns a new tensor in
+    a's dtype."""
     check_operands(a, b)
     for name, x in (("a", a), ("b", b)):
         _build.check_operand("lru_scan", name, x, a.shape, a.dtype)

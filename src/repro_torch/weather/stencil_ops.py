@@ -159,7 +159,11 @@ def _dycore_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
     if variant == "kstep":
         return tiling.dycore_kstep_tile(compute_grid[1], compute_grid[2], k,
                                         nz=compute_grid[0])
-    return tiling.dycore_tile(compute_grid[1], compute_grid[2])
+    # per_field launches one field at a time: no fields to share w's
+    # sweep coefficients, a cluster of one
+    return tiling.dycore_tile(
+        compute_grid[1], compute_grid[2], nz=compute_grid[0],
+        nf=1 if variant == "per_field" else n_fields)
 
 
 def _dycore_local_step(plan):

@@ -153,12 +153,126 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 def test_default_tile_fits_a_hopper_block():
+    # several fields: 24 x 32, the tallest 32-column tile a 1024-thread
+    # block holds, its field blocks in clusters of 4
+    t = tiling.dycore_tile(256, 256, nf=4)
+    assert (t.ty, t.tx, t.cluster) == (24, 32, 4)
+    assert t.threads == 28 * 36 <= tiling.MAX_THREADS_PER_BLOCK
+    assert t.smem_bytes == 2 * 4 * t.threads <= tiling.SMEM_BYTES_PER_BLOCK
+    # two blocks of it within an SM's 2048 threads: the kernel's launch
+    # bounds (1024 threads, 2 blocks) hold a thread to 32 registers
+    assert 2 * t.threads <= 2048 and 2 * 1024 * 32 <= 65_536
+    # one field: 16 x 32, clusters of one
     t = tiling.dycore_tile(256, 256)
-    assert (t.ty, t.tx) == (8, 32)
-    assert t.threads == 12 * 36 <= tiling.MAX_THREADS_PER_BLOCK
-    assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
-    assert tiling.dycore_tile(14, 16).ty == 7     # snaps to a divisor of ny
-    assert tiling.dycore_tile(13, 16).ty == 8     # none near: ragged tile
+    assert (t.ty, t.tx, t.cluster, t.threads) == (16, 32, 1, 20 * 36)
+    # ty shrinks, by at most half, to the fewest computed haloed rows
+    assert tiling.dycore_tile(14, 16, ty=8).ty == 7   # 2 tiles of 7 rows
+    assert tiling.dycore_tile(13, 16, ty=8).ty == 7   # 14 rows, 1 idle
+    assert tiling.dycore_tile(256, 256, ty=8).ty == 8
+    assert tiling.dycore_tile(37, 70, nf=4).ty == 19
+    assert tiling.dycore_tile(16, 16, nf=4).ty == 16
+
+
+@pytest.mark.parametrize("ny", [13, 37, 64, 100, 256, 1000])
+@pytest.mark.parametrize("ty", [8, 16, 24])
+def test_tile_rows_compute_the_fewest_haloed_rows(ny, ty):
+    got = tiling.dycore_tile(ny, 256, ty=ty).ty
+    want = min(ty, ny)
+    rows = lambda t: -(-ny // t) * (t + 4)
+    assert want // 2 <= got <= want
+    assert all(rows(got) <= rows(t) for t in range(max(1, want // 2),
+                                                    want + 1))
+
+
+@pytest.mark.parametrize("nz", [2, 64, 96, 1500])
+@pytest.mark.parametrize("nf", [1, 4])
+def test_one_build_plans_every_nz(nz, nf):
+    """One build takes every nz >= 2: the sweep's scratch is in device
+    memory, so the tile and its threads do not depend on the depth."""
+    t = tiling.dycore_tile(256, 256, nz=nz, nf=nf)
+    assert t == tiling.dycore_tile(256, 256, nf=nf)
+    assert (t.op, t.tx) == ("dycore_fused", 32)
+    assert (t.ty, t.threads) == ((24, 28 * 36) if nf > 1 else (16, 20 * 36))
+    assert t.cluster == nf
+    assert tiling.dycore_tile(37, 70, nz=nz, nf=nf).tx == 32
+
+
+def test_one_level_is_refused():
+    with pytest.raises(ValueError, match="nz=1"):
+        tiling.dycore_tile(256, 256, nz=1)
+
+
+@pytest.mark.parametrize("nf,cluster", [
+    (1, 1), (2, 2), (3, 3), (4, 4), (7, 7), (8, 8), (9, 3), (10, 5),
+    (11, 1), (12, 6), (16, 8)])
+def test_field_blocks_cluster_by_the_largest_divisor(nf, cluster):
+    """A tile's field blocks share w's coefficients in clusters of the
+    largest divisor of nf up to the portable 8; more fields split into
+    several clusters, each with its own copy."""
+    assert tiling.dycore_cluster(nf) == cluster
+    assert nf % cluster == 0 and cluster <= tiling.MAX_CLUSTER
+
+
+def test_wrapper_allocates_one_coefficient_scratch_a_cluster():
+    """The backward sweep's coefficient is kept once a cluster of field
+    blocks, D once a block and field, nz - 1 levels of fp32 each; the C
+    entry point takes both buffers and the cluster size."""
+    import inspect
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.dycore_fused import fused
+
+    tile = tiling.dycore_tile(256, 256, nz=64, nf=4)
+    tiles = 11 * 8                                # 24 x 32 on 256 x 256
+    ccol, dcol = fused.scratch_shapes(4, 4, 64, 256, 256, tile)
+    assert ccol == (4 * tiles, 63, 1008)          # one a (member, tile)
+    assert dcol == (4 * tiles * 4, 63, 1008)      # one a block
+    one = tiling.dycore_tile(256, 256, 24, 32, nz=64)
+    assert fused.scratch_shapes(4, 4, 64, 256, 256, one) == (dcol, dcol)
+    # a state of 12 fields: two clusters of 6 a tile, a copy each
+    six = tiling.dycore_tile(37, 70, 8, 32, nz=9, nf=12)
+    ccol, dcol = fused.scratch_shapes(2, 12, 9, 37, 70, six)
+    assert six.ty == 8 and six.cluster == 6
+    assert ccol[0] * 6 == dcol[0] == 2 * 12 * 5 * 3 and ccol[1:] == (8, 432)
+    src = inspect.getsource(fused.fused_dycore_cuda)
+    assert "scratch_shapes(" in src and src.count("torch.empty(") == 1
+    # six tensor pointers, ccol and dcol, then batch, nf and the cluster
+    sig = _build._SIGNATURES["nero_dycore_fused"]
+    assert sig[:11] == (_build._P,) * 8 + (_build._LL, _build._I, _build._I)
+    cu = (Path(_build.CSRC) / "dycore_fused.cu").read_text()
+    entry = cu[cu.index('extern "C" int nero_dycore_fused('):]
+    entry = entry[entry.index("(") + 1:entry.index(")")]
+    names = [re.split(r"[\s*]+", a.strip())[-1] for a in entry.split(",")]
+    assert names[6:11] == ["ccol", "dcol", "batch", "nf", "cl"]
+    assert len(names) == len(sig)
+
+
+def test_whole_state_kernel_is_one_build():
+    """One kernel and one launch path for every depth, dtype and number of
+    fields: no second build and no route between builds."""
+    import re
+    from pathlib import Path
+
+    cu = re.sub(r"//[^\n]*", "", (Path(_build.CSRC) / "dycore_fused.cu")
+                .read_text())
+    assert cu.count("__global__") == 1
+    assert cu.count("cudaLaunchKernelEx(") == 1 and "<<<" not in cu
+    assert "__launch_bounds__(1024, 2)" in cu
+    assert not hasattr(tiling, "dycore_route")
+
+
+def test_stencil_plan_tile_is_planned_at_the_grids_nz_and_fields():
+    from repro_torch.weather.program import StencilProgram, compile
+    for nz in (4, 96):
+        plan = compile(StencilProgram(grid_shape=(nz, 16, 16), ensemble=2),
+                       device="cpu")
+        assert plan.tile == tiling.dycore_tile(16, 16, nz=nz, nf=4)
+        assert plan.tile.cluster == 4
+    # the per-field variant launches one field at a time: clusters of one
+    plan = compile(StencilProgram(grid_shape=(64, 16, 16), ensemble=2,
+                                  variant="per_field"), device="cpu")
+    assert plan.tile.cluster == 1
 
 
 @pytest.mark.cuda
@@ -187,3 +301,51 @@ def test_cuda_kernel_matches_plain(dtype, cuda, rng):
     one_f, one_s = ops.fused_step(f[:, 1].contiguous(), wcon,
                                   t[:, 1].contiguous(), s[:, 1].contiguous())
     assert torch.equal(one_f, got_f[:, 1]) and torch.equal(one_s, got_s[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [2, 9, 37, 64, 96, 1500])
+@pytest.mark.parametrize("nf", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_at_any_nz(nz, nf, dtype, cuda, rng):
+    """The one build on a ragged grid in clusters of nf field blocks against
+    the plain version; another tiling, clusters of one and each field's
+    own launch (nf = 1) bit for bit."""
+    grid = (nz, 37, 70)
+    shape = (2, nf) + grid
+    f, wcon, t, s = (torch.from_numpy((sc * rng.normal(size=sh)).astype(
+        np.float32)).to(getattr(torch, dtype)).to(cuda)
+        for sc, sh in ((1.0, shape), (0.15, (2,) + grid), (0.01, shape),
+                       (0.01, shape)))
+    w = ops.staggered_w(wcon)
+    _build.reset_launches()
+    got_f, got_s = fused_dycore_cuda(f, w, t, s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dycore_fused"] == 1
+    want_f, want_s = ref.fused_step_ref_summed(
+        f.float(), w.float().unsqueeze(1), t.float(), s.float())
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    assert ((got_s.float() - want_s).abs()
+            <= 1e-5 + rtol * want_s.abs()).all()
+    fragile = ref.limiter_fragile_mask(f.float() + ref.DEFAULT_DT * want_s)
+    excess = (got_f.float() - want_f).abs() - rtol * want_f.abs()
+    assert excess[~fragile].max() <= 1e-5 and excess.max() <= LOOSE
+    for tile in (tiling.dycore_tile(37, 70, ty=16, tx=16, nz=nz, nf=nf),
+                 tiling.dycore_tile(37, 70, nz=nz)):
+        alt_f, alt_s = fused_dycore_cuda(f, w, t, s, tile=tile)
+        assert torch.equal(alt_f, got_f) and torch.equal(alt_s, got_s)
+    for i in range(nf):
+        one_f, one_s = ops.fused_step(f[:, i].contiguous(), wcon,
+                                      t[:, i].contiguous(),
+                                      s[:, i].contiguous())
+        assert torch.equal(one_f, got_f[:, i])
+        assert torch.equal(one_s, got_s[:, i])
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_must_divide_the_fields(cuda, rng):
+    _, tx = _inputs(rng, (E, 3))
+    f, wcon, t, s = (a.to(cuda) for a in tx)
+    with pytest.raises(ValueError, match="does not divide nf=3"):
+        fused_dycore_cuda(f, ops.staggered_w(wcon), t, s,
+                          tile=tiling.dycore_tile(GRID[1], GRID[2], nf=4))

@@ -7,7 +7,10 @@ The same seeded numpy inputs go through the JAX package's Pallas kernel
 test's 2e-5 (`tests/test_kernels_copy_scan.py`). The model's batched
 (B, T, W) layout with a carried state goes through `models.rglru.lru_scan`
 in both packages. The `cuda` cases hold the CUDA kernel (one thread per
-channel, sequential in time) against the plain version on the card.
+channel, sequential in time, a and b staged through a shared-memory ring
+filled by bulk copies or, for rows off 16 bytes, by each lane's plain loads)
+against the plain version and against the recurrence taken one step at a
+time, bit for bit, on the card.
 """
 
 import numpy as np
@@ -230,3 +233,80 @@ def test_cuda_raw_launcher_refuses_operands_that_need_grad(cuda):
     a = torch.zeros(4, 8, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="forward only"):
         lru_scan_cuda(a, a.detach())
+
+
+def test_one_kernel_and_one_launch_path():
+    """`csrc/lru_scan.cu` holds one kernel, forward and reverse, for aligned
+    and misaligned rows alike, launched from one place."""
+    import re
+    from pathlib import Path
+
+    cu = re.sub(r"//[^\n]*", "", (Path(_build.CSRC) / "lru_scan.cu")
+                .read_text())
+    assert cu.count("__global__") == 1 and cu.count("<<<") == 1
+    assert "cp.async.bulk" in cu and "mbarrier" in cu
+
+
+def _misaligned(x):
+    """`x`'s values in a tensor whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    off = (4 - buf.data_ptr() % 16) % 16 // x.element_size()
+    view = buf[off:off + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_misaligned_copy_starts_off_16_bytes():
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(30, dtype=dtype).reshape(5, 6)
+        m = _misaligned(x)
+        assert m.data_ptr() % 16 == 4 and torch.equal(m, x)
+        assert m.is_contiguous()
+
+
+def _sequential(a, b, reverse=False):
+    """The recurrence one step at a time in fp32 (a product, then a sum,
+    each rounded), the result in a's dtype."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(bf[..., 0, :])
+    out = torch.empty_like(bf)
+    steps = range(a.shape[-2] - 1, -1, -1) if reverse else range(a.shape[-2])
+    for t in steps:
+        h = af[..., t, :] * h + bf[..., t, :]
+        out[..., t, :] = h
+    return out.to(a.dtype)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sequential_loop_matches_the_plain_version(reverse, rng):
+    a, b = (torch.from_numpy(x) for x in _ab(rng, (2, 37, 24)))
+    want = ref.lru_scan_ref(a.flip(1), b.flip(1)).flip(1) if reverse \
+        else ref.lru_scan_ref(a, b)
+    torch.testing.assert_close(_sequential(a, b, reverse), want, atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 77, 100), (1, 300, 4100), (3, 1, 4096),
+                                   (2, 64, 96), (4, 129, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_kernel_is_the_sequential_recurrence(shape, dtype, reverse,
+                                                  cuda):
+    """The kernel, at T not a multiple of the ring's stage, C not a
+    multiple of a block's 32 channels and T = 1, is the recurrence taken
+    one step at a time, bit for bit; a misaligned copy of the operands
+    fills the ring with plain loads and gives the same bits, in one launch
+    too."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = (0.3 + 0.69 * torch.rand(shape, generator=gen, device=cuda)).to(dtype)
+    b = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    _build.reset_launches()
+    got = lru_scan_cuda(a, b, reverse=reverse)
+    assert _build.LAUNCHES["lru_scan"] == 1
+    assert torch.equal(got, _sequential(a, b, reverse))
+    ma, mb = _misaligned(a), _misaligned(b)
+    assert ma.data_ptr() % 16 and mb.data_ptr() % 16
+    assert torch.equal(lru_scan_cuda(ma, mb, reverse=reverse), got)
+    assert _build.LAUNCHES["lru_scan"] == 2

@@ -238,6 +238,30 @@ def test_kernel_wrapper_refuses_what_no_build_takes(rng):
                                 tile=k3)
 
 
+def test_both_dycore_kernels_share_one_column_routine():
+    """The Thomas arithmetic exists once, in `csrc/dycore_column.cuh`: the
+    whole-state and k-step kernels call its coefficient and chunk routines
+    and hold no divisions or coefficient products of their own."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(_build.CSRC)
+    column = (csrc / "dycore_column.cuh").read_text()
+    assert "thomas_forward" not in column and "thomas_back_level" not in column
+    for fn in ("w_level", "w_record", "forward_chunk", "backward_chunk",
+               "c_coef"):
+        assert f" {fn}(" in column
+    for name in ("dycore_fused.cu", "dycore_kstep.cu"):
+        src = (csrc / name).read_text()
+        code = re.sub(r"//[^\n]*", "", src)          # comments out
+        assert '#include "dycore_column.cuh"' in code
+        for fn in ("forward_chunk", "backward_chunk"):
+            assert f"nero::{fn}<" in code, (name, fn)
+        assert "nero::w_record<" in code or "nero::w_level(" in code, name
+        assert "1.0f /" not in code and "kBet" not in code, name
+        assert "thomas_" not in code
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [2, 3])
 def test_cuda_kernel_is_k_whole_state_launches(k, cuda, rng):
