@@ -8,13 +8,14 @@
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
 bf16 flash and xent kernels issue HGMMA (wgmma), and prints the
-whole-state dycore, k-step and LRU kernels' ptxas registers and spills and
-the dycore kernels' tiles; holds each kernel against its plain PyTorch
+whole-state dycore, k-step, LRU and hdiff stream kernels' ptxas registers
+and spills and the dycore and hdiff kernels' tiles; holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (float32 and bfloat16), and
 two tilings of each against each other bit for bit (the whole-state kernel
 also in clusters of one, at one field against its slice of the whole
 state, at nz 2 to 1500, and its candidate tiles timed; the k-step kernels
-also against k launches of their one-step kernels); drives
+also against k launches of their one-step kernels, hdiff's also at k = 4
+and 9; the hdiff stream's candidate tiles timed); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
 plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
@@ -56,10 +57,11 @@ ROOT as phase 5 times this one's (`copy_times_of`), to hold two commits'
 kernels against each other on one card, and prints no result line.
 `--kernel-times ROOT` (`kernel_times_of`) does the same for copy, the
 whole-state dycore kernel (also at one field), the dycore k-step rounds
-(k = 1, 2, 3), one main-path step with its `run(state, 10)` peak memory,
-and the LRU sweep (forward and reverse, fp32 and bf16), each output hashed
-so two checkouts' bits can be compared: run parent, change, change, parent
-in one call.
+(k = 1, 2, 3), hdiff and its k-step rounds (k = 2, 3, 4, 9), one main-path step
+with its `run(state, 10)` peak memory, one `op="hdiff"` step and the k=2
+hdiff plan's `run(state, 5)`, and the LRU sweep (forward and reverse),
+fp32 and bf16, each output hashed so two checkouts' bits can be compared:
+run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
@@ -82,11 +84,20 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 LOOSE = 0.05                   # |coeff·flux| bound at a flipped limiter branch
 BF16_RTOL = 2.0 ** -7          # twice bf16's unit roundoff: one rounding
 KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
+# hdiff k-step rounds longer than a launch runs, checked and timed: 4, two
+# launches of 2 stages, and 9, three of 3
+LONG_KSTEPS = (4, 9)
 DEPTHS = (2, 9, 37, 96, 1500)  # nz of the whole-state kernel's depth checks
 # the whole-state kernel's candidate tiles (ty, tx), timed beside the
 # planner's pick at the main path's shapes (unsnapped: 12, 20 and 24 rows
 # leave a ragged last tile on 256 rows)
 FUSED_TILES = ((8, 32), (12, 32), (16, 32), (20, 32), (24, 32), (8, 64))
+# the hdiff stream's candidate tiles, timed queued beside each wrapper's
+# default at the main path's shapes (260 to 268 square): segments of at
+# most 67, 134 or 268 rows (4, 2 or 1 a plane) by strips of at most 268,
+# 134, 90 or 54 columns (1, 2, 3 or 5 a plane)
+HDIFF_TILES = tuple((ty, tx) for ty in (67, 134, 268)
+                    for tx in (268, 134, 90, 54))
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
@@ -259,15 +270,18 @@ def digest(*tensors) -> str:
 
 
 def kernel_times_of(root: Path) -> int:
-    """`python3 chip_smoke.py --kernel-times ROOT`: the copy, dycore and
-    LRU kernels of the checkout at ROOT, built from ROOT's sources and
+    """`python3 chip_smoke.py --kernel-times ROOT`: the copy, dycore, hdiff
+    and LRU kernels of the checkout at ROOT, built from ROOT's sources and
     timed at the main path's shapes, each beside a hash of its output on
     inputs made from fixed seeds (equal hashes between two checkouts: the
     same bits): copy as `--copy-times` times it; the whole-state dycore
     kernel at (4, 4, 64, 256, 256) and at one field, fp32 and bf16, per
     call and queued, on ROOT's default tiles; the dycore k-step rounds at
-    k = 1, 2, 3; one main-path step (`ExecutionPlan.step`) and the peak
-    device memory of a main-path `run(state, 10)`; the LRU sweep forward at
+    k = 1, 2, 3; hdiff at (1024, 260, 260) and its k-step rounds at k = 2,
+    3, 4, 9 on their padded stacks, per call and queued, on the wrappers' default
+    tiles; one main-path step (`ExecutionPlan.step`) and the peak device
+    memory of a main-path `run(state, 10)`; one `op="hdiff"` whole-state
+    step and the k=2 hdiff plan's `run(state, 5)`; the LRU sweep forward at
     (4, 1024, 4096) and reverse at (4, 2048, 4096), fp32 and bf16, per call
     and queued. One JSON line. Run parent, change, change, parent in one
     call."""
@@ -280,6 +294,8 @@ def kernel_times_of(root: Path) -> int:
     from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
     from repro_torch.kernels.dycore_fused.kstep import (
         fused_dycore_kstep_cuda)
+    from repro_torch.kernels.dycore_fused.ref import pad_periodic
+    from repro_torch.kernels.hdiff.hdiff import hdiff_cuda, hdiff_kstep_cuda
     from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
     from repro_torch.weather import fields
     from repro_torch.weather.program import StencilProgram, compile
@@ -317,6 +333,16 @@ def kernel_times_of(root: Path) -> int:
             r = out[f"dycore_kstep k={k} {dn}"] = timed(run, queued=20)
             r["hash"] = digest(*run())
             r["tile"] = [tile.ty, tile.tx, tile.cluster, tile.rows]
+        # hdiff on the field-stacked state wrap-padded by 2 (one step) and
+        # by 2k (the k-step rounds), on the wrappers' default tiles
+        for k in (1,) + KSTEPS + LONG_KSTEPS:
+            src = pad_periodic(fs, 2 * k).reshape(-1, ny + 4 * k, nx + 4 * k)
+            run = ((lambda: hdiff_cuda(src)) if k == 1 else
+                   (lambda: hdiff_kstep_cuda(src, k_steps=k)))
+            key = "hdiff" if k == 1 else f"hdiff_kstep k={k}"
+            r = out[f"{key} {dn} {tuple(src.shape)}"] = timed(run)
+            r["hash"] = digest(run())
+            del src
         del fs, ts, ss, w
         torch.cuda.empty_cache()
 
@@ -336,7 +362,22 @@ def kernel_times_of(root: Path) -> int:
             run_peak_above_state_bytes=torch.cuda.max_memory_allocated()
             - base,
             hash=digest(*(end.fields[n] for n in end.fields)))
-        del st, end, plan
+        # the hdiff op: one whole-state step, and the k=2 plan's
+        # run(state, 5) (two k-step rounds and a one-step tail)
+        plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                      op="hdiff", dtype=dn))
+        nxt = plan.step(st)
+        out[f"op=hdiff step {dn}"] = dict(
+            step_ms=time_ms(lambda: plan.step(st)),
+            hash=digest(*(nxt.fields[n] for n in nxt.fields)))
+        plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                      op="hdiff", dtype=dn, variant="kstep",
+                                      k_steps=2))
+        end = plan.run(st, PATH_STEPS)
+        out[f"op=hdiff k=2 run({PATH_STEPS}) {dn}"] = dict(
+            ms=time_ms(lambda: plan.run(st, PATH_STEPS)),
+            hash=digest(*(end.fields[n] for n in end.fields)))
+        del st, end, nxt, plan
         torch.cuda.empty_cache()
 
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -1206,7 +1247,8 @@ def main() -> int:
     # stay within the 32 registers its launch bounds give it
     for src, label in (("dycore_fused.cu", "fused"),
                        ("dycore_kstep.cu", "kstep"),
-                       ("lru_scan.cu", "lru_scan")):
+                       ("lru_scan.cu", "lru_scan"),
+                       ("hdiff.cu", "hdiff")):
         rep = _build.build_log["ptxas"].get(src, "")
         entry, seen = None, 0
         for line in rep.splitlines():
@@ -1228,6 +1270,13 @@ def main() -> int:
             f"{t.cluster} blocks of {t.rows}x{t.tx + 4 * k} columns "
             f"({t.threads} threads), {t.smem_bytes} bytes of shared memory "
             f"a block")
+    for k in (1,) + KSTEPS:
+        n = GRID[1] + 4 * k
+        t = tiling.hdiff_kstep_tile(n, n, k)
+        say(f"hdiff tile k={k} at {n}x{n}: segments of {t.ty} rows, strips "
+            f"of {t.tx} columns, {t.threads} threads a block, a ring of "
+            f"{tiling.HDIFF_RING} rows, {t.smem_bytes} bytes of shared "
+            f"memory a block")
 
     nz, ny, nx = GRID
     nf = len(fields.PROGNOSTIC)
@@ -1250,6 +1299,23 @@ def main() -> int:
         cols = (ty + 4) * (tx + 4)
         return tiling.CudaTile("dycore_fused", ty, tx, cols, 8 * cols,
                                cluster=tiling.dycore_cluster(nf_))
+
+    def hdiff_candidates(src, k):
+        """The hdiff stream at k stages on each of HDIFF_TILES, queued,
+        each bit for bit equal to the default tile's output."""
+        _, Y, X = src.shape
+        run = ((lambda t: hdiff_cuda(src, tile=t)) if k == 1 else
+               (lambda t: hdiff_kstep_cuda(src, k_steps=k, tile=t)))
+        want = run(None)
+        cand = {}
+        for cty, ctx in HDIFF_TILES:
+            t = tiling.hdiff_kstep_tile(Y, X, k, ty=cty, tx=ctx)
+            key = f"{t.ty}x{t.tx}"
+            if key not in cand:
+                check(torch.equal(run(t), want),
+                      f"hdiff k={k} {src.dtype}: tile {key} differs")
+                cand[key] = stream_ms(lambda: run(t))
+        return cand
 
     def check_fused(label, fs, w, ts, ss, got_f, got_s, rtol):
         """Hold one fused step (got_f, got_s) against its plain version,
@@ -1461,7 +1527,9 @@ def main() -> int:
         # hdiff on the wrap-padded stack
         src = fused_ref.pad_periodic(fs).reshape(-1, ny + 4, nx + 4)
         tile_a = tiling.hdiff_tile(ny + 4, nx + 4)
-        tile_b = tiling.hdiff_tile(ny + 4, nx + 4, ty=16, tx=64)
+        tile_b = tiling.hdiff_tile(ny + 4, nx + 4, ty=16, tx=90)
+        require(tile_b.tx != tile_a.tx, "hdiff: the second tiling's strips "
+                "are the default's")
         got = hdiff_cuda(src, tile=tile_a)
         torch.cuda.synchronize()
         want = hdiff_ref.hdiff(src.float())
@@ -1479,12 +1547,15 @@ def main() -> int:
         planes = src.shape[0]
         b_ms, b_by = bound(2 * src.numel() * isz,
                            21.0 * planes * (ny * nx))
+        cand = hdiff_candidates(src, 1)
         results[("hdiff", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by)
+                                      bound_by=b_by, tile=tile_a.describe(),
+                                      tiles_queued_ms=cand)
         say(f"hdiff {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
-            f"bitwise equal")
+            f"bitwise equal; queued ms by tile (segment x strip): "
+            + json.dumps(cand))
         del src, got, want, d
 
         # vadvc on the field-stacked state, each member's wcon shared by
@@ -1617,7 +1688,9 @@ def main() -> int:
                 -1, ny + 4 * k, nx + 4 * k)
             planes, Y, X = src.shape
             tile_a = tiling.hdiff_kstep_tile(Y, X, k)
-            tile_b = tiling.hdiff_kstep_tile(Y, X, k, ty=16, tx=64)
+            tile_b = tiling.hdiff_kstep_tile(Y, X, k, ty=16, tx=90)
+            check(tile_b.tx != tile_a.tx, f"hdiff k-step k={k}: the second "
+                  f"tiling's strips are the default's")
             got = hdiff_kstep_cuda(src, k_steps=k, tile=tile_a)
             chain = src
             for _ in range(k):
@@ -1640,15 +1713,62 @@ def main() -> int:
                                                   tile=tile_a))
             queued_ms = stream_ms(lambda: hdiff_kstep_cuda(src, k_steps=k,
                                                            tile=tile_a))
+
+            def chain():
+                c = src
+                for _ in range(k):
+                    c = hdiff_cuda(c)
+            chain_ms = time_ms(chain)
+            chain_queued_ms = stream_ms(chain)
             plain_ms = time_ms(lambda: hdiff_ref.hdiff_kstep(src, k=k))
             b_ms, b_by = bound(2 * src.numel() * isz,
                                21.0 * k * planes * (Y - 4) * (X - 4))
-            results[(name, dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
-                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                       bound_by=b_by)
+            cand = hdiff_candidates(src, k)
+            results[(name, dn)] = dict(
+                err=err, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, hdiff_launches_ms=chain_ms,
+                hdiff_launches_queued_ms=chain_queued_ms,
+                tile=tile_a.describe(), tiles_queued_ms=cand)
             say(f"hdiff k-step {dn} k={k}: {ms:.4f} ms, queued "
-                f"{queued_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                f"{b_ms:.4f} ms by {b_by}); tiles bitwise equal")
+                f"{queued_ms:.4f} ms; {k} hdiff launches {chain_ms:.4f} ms, "
+                f"queued {chain_queued_ms:.4f} ms (plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms by {b_by}); tiles bitwise equal; "
+                f"queued ms by tile (segment x strip): "
+                + json.dumps(cand))
+            del src
+
+        # longer hdiff rounds: k launches of the one-step kernel, bit for
+        # bit, and the plain version
+        for k in LONG_KSTEPS:
+            src = fused_ref.pad_periodic(fs, 2 * k).reshape(
+                -1, ny + 4 * k, nx + 4 * k)
+            before = _build.LAUNCHES["hdiff_kstep"]
+            got = hdiff_kstep_cuda(src, k_steps=k)
+            launches = _build.LAUNCHES["hdiff_kstep"] - before
+            check(launches == len(tiling.hdiff_launches(k)),
+                  f"hdiff k-step {dn} k={k}: {launches} launches")
+
+            def chain():
+                c = src
+                for _ in range(k):
+                    c = hdiff_cuda(c)
+                return c
+            check(torch.equal(got, chain()), f"hdiff k-step {dn} k={k}: "
+                  f"differs from {k} hdiff launches")
+            want = hdiff_ref.hdiff_kstep(src, k=k).float()
+            d = (got.float() - want).abs()
+            err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+            check(excess <= 1e-5, f"hdiff k-step {dn} k={k}: disagrees with "
+                  f"its plain version")
+            del got, want, d
+            ms = time_ms(lambda: hdiff_kstep_cuda(src, k_steps=k))
+            queued_ms = stream_ms(lambda: hdiff_kstep_cuda(src, k_steps=k))
+            chain_ms, chain_queued_ms = time_ms(chain), stream_ms(chain)
+            say(f"hdiff k-step {dn} k={k} {tuple(src.shape)}: {launches} "
+                f"launch(es), err {err:.3g}, excess {excess:.3g}; {ms:.4f} "
+                f"ms, queued {queued_ms:.4f} ms; {k} hdiff launches "
+                f"{chain_ms:.4f} ms, queued {chain_queued_ms:.4f} ms; equal "
+                f"to them bit for bit")
             del src
 
         # hadv on the stack the hadv_upwind plan gives it: wrap-padded by 1
@@ -2127,7 +2247,7 @@ def main() -> int:
                          "src/repro/kernels/vadvc/vadvc.py:111"),
                "dycore_kstep": ("src/repro_torch/csrc/dycore_kstep.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:434"),
-               "hdiff_kstep": ("src/repro_torch/csrc/hdiff_kstep.cu",
+               "hdiff_kstep": ("src/repro_torch/csrc/hdiff.cu",
                                "src/repro/kernels/hdiff/hdiff.py:128"),
                "hadv": ("src/repro_torch/csrc/hadv.cu",
                         "src/repro/kernels/hadv/hadv.py:47"),
@@ -2194,7 +2314,7 @@ def main() -> int:
                 ("main_step", "float32")]["run_peak_bytes"]
         for extra in ("queued_ms", "profiler_ms", "library_queued_ms",
                       "library_profiler_ms", "per_step_ms",
-                      "whole_state_launches_ms"):
+                      "whole_state_launches_ms", "hdiff_launches_ms"):
             if extra in r and name not in ("flash_attn", "xent"):
                 kernels[-1][extra] = r[extra]
         if name == "dycore_kstep":
@@ -2203,6 +2323,12 @@ def main() -> int:
                 key: r3[key] for key in ("ms", "queued_ms", "per_step_ms",
                                          "whole_state_launches_ms",
                                          "plain_ms", "bound_ms")}
+        if name == "hdiff_kstep":
+            r3 = results[(f"hdiff_kstep_k{KSTEPS[1]}", "float32")]
+            kernels[-1][f"k{KSTEPS[1]}"] = {
+                key: r3[key] for key in ("ms", "queued_ms",
+                                         "hdiff_launches_ms", "plain_ms",
+                                         "bound_ms")}
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "

@@ -34,11 +34,12 @@ HALO = 2
 
 @dataclasses.dataclass(frozen=True)
 class CudaTile:
-    """A kernel's block shape: `ty` x `tx` output points (vadvc: columns)
-    per block, the block's threads and its shared memory; a kernel that runs
-    thread block clusters also names the cluster's size (the whole-state
-    dycore: the field blocks of a tile; the dycore k-step: the blocks that
-    split a tile's rows, `rows` each)."""
+    """A kernel's block shape: `ty` x `tx` output points (vadvc: columns;
+    the hdiff stream: a y-segment of `ty` rows of an x-strip of `tx`
+    columns) per block, the block's threads and its shared memory; a kernel
+    that runs thread block clusters also names the cluster's size (the
+    whole-state dycore: the field blocks of a tile; the dycore k-step: the
+    blocks that split a tile's rows, `rows` each)."""
 
     op: str
     ty: int
@@ -66,12 +67,86 @@ class CudaTile:
         return dataclasses.asdict(self)
 
 
-def hdiff_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
-    """One thread per output point; the tile plus its 2-deep halo staged in
-    shared memory as fp32."""
-    ty, tx = min(ty, ny), min(tx, nx)
-    return CudaTile("hdiff", ty, tx, ty * tx,
-                    4 * (ty + 2 * HALO) * (tx + 2 * HALO))
+# The hdiff stream (`csrc/hdiff.cu`, one kernel for one step and for k
+# steps): a block walks the rows of one y-segment of one x-strip of a plane,
+# a thread for each HDIFF_COLS columns of the strip and its 2k-column halo
+# either side, through a ring of HDIFF_RING input rows in shared memory. A
+# launch runs 1 <= k <= HDIFF_MAX_K stages (`kMaxSteps`: more spill); the
+# wrapper runs a longer round as `hdiff_launches(k)`.
+HDIFF_MAX_K = 3
+HDIFF_COLS = 2          # window columns a thread owns (`kCols`)
+HDIFF_SEGMENT = 66      # default tallest segment, a stage (k = 1: 4 x 65)
+HDIFF_RING = 8          # ring rows (`kRing`): 5 rows in flight
+
+
+def balanced(n: int, most: int) -> int:
+    """The width of the widest of the fewest parts, differing by at most
+    one, that split `n` into parts of at most `most` (260 by 96: 87)."""
+    parts = -(-n // max(1, min(most, n)))
+    return -(-n // parts)
+
+
+def _stream_threads(width: int, k: int) -> int:
+    """Threads of a stream block for a strip `width` columns wide at k
+    stages: HDIFF_COLS columns of the strip and its 2k-column halo either
+    side a thread, and HDIFF_COLS - 1 more (a row's copy starts up to that
+    many columns early, at its first aligned chunk), in whole warps."""
+    return 32 * -(-(width + 2 * HALO * k + HDIFF_COLS - 1)
+                  // (32 * HDIFF_COLS))
+
+
+def hdiff_strip(nx: int, k: int) -> int:
+    """The default strip width: of the balanced splits of `nx` into strips
+    at least 8 columns wide, the one whose blocks need the fewest threads
+    a row (a warp's idle columns cost as much as its used ones), the
+    narrowest on ties (260 at k = 1: 5 strips of 52, 160 threads)."""
+    best = (None, nx)
+    for parts in range(1, max(1, nx // 8) + 1):
+        width = -(-nx // parts)
+        cost = parts * _stream_threads(width, k)
+        if best[0] is None or cost <= best[0]:
+            best = (cost, width)
+    return best[1]
+
+
+def hdiff_stream_smem(k: int, threads: int) -> int:
+    """Shared bytes of an hdiff stream block (`stream_smem` in
+    `csrc/hdiff.cu`) of w = HDIFF_COLS·threads window columns, in rows of
+    4·(w + 8) bytes: two fp32 laplacian rows a stage and four output rows
+    a stage but the last, then a row and an 8-byte mbarrier a ring row."""
+    row = 4 * (HDIFF_COLS * threads + 8)
+    return row * (2 * k + 4 * (k - 1) + HDIFF_RING) + 8 * HDIFF_RING
+
+
+def hdiff_launches(k: int) -> List[int]:
+    """The stages of each launch of a round of `k` hdiff steps: the fewest
+    launches of at most HDIFF_MAX_K stages, as even as can be (4: [2, 2];
+    9: [3, 3, 3])."""
+    if not isinstance(k, int) or k < 1:
+        raise ValueError(f"hdiff: k={k!r} stages; at least 1")
+    n = -(-k // HDIFF_MAX_K)
+    return [(k + i) // n for i in range(n)]
+
+
+def hdiff_kstep_tile(ny: int, nx: int, k: int = 1, ty: Optional[int] = None,
+                     tx: Optional[int] = None) -> CudaTile:
+    """The hdiff stream's tile for a round of `k` steps (k = 1: one step):
+    balanced y-segments of at most `ty` rows (default k·HDIFF_SEGMENT) and
+    x-strips of at most `tx` columns (default `hdiff_strip`), a thread for
+    each HDIFF_COLS columns of the widest strip and its halo (rounded up to
+    whole warps). A round of more than HDIFF_MAX_K steps is planned for
+    the largest of its `hdiff_launches`."""
+    k = max(hdiff_launches(k))
+    ty = balanced(ny, HDIFF_SEGMENT * k if ty is None else ty)
+    tx = balanced(nx, hdiff_strip(nx, k) if tx is None else tx)
+    threads = _stream_threads(tx, k)
+    return CudaTile("hdiff", ty, tx, threads, hdiff_stream_smem(k, threads))
+
+
+def hdiff_tile(ny: int, nx: int, ty: Optional[int] = None,
+               tx: Optional[int] = None) -> CudaTile:
+    """`hdiff_kstep_tile` at k = 1."""
+    return hdiff_kstep_tile(ny, nx, 1, ty, tx)
 
 
 def vadvc_tile(ny: int, nx: int, tj: int = 2, ti: int = 128) -> CudaTile:
@@ -137,10 +212,6 @@ def dycore_tile(ny: int, nx: int, ty: Optional[int] = None,
     return CudaTile("dycore_fused", ty, tx, cols, 2 * 4 * cols,
                     cluster=dycore_cluster(nf))
 
-
-# Threads per block of the hdiff k-step kernel, which loops over its tile's
-# points (`csrc/hdiff_kstep.cu` is built for at most 512).
-KSTEP_THREADS = 512
 
 # The dycore k-step kernel (`csrc/dycore_kstep.cu`): one thread a column,
 # holding the column's field and stage in 2·64 fp32 registers. Built
@@ -220,17 +291,6 @@ def dycore_kstep_tile(ny: int, nx: int, k: int, ty: Optional[int] = None,
     return CudaTile("dycore_kstep", ty, tx, rows * tw,
                     dycore_kstep_smem(nz, rows, tw), cluster=cluster,
                     rows=rows)
-
-
-def hdiff_kstep_tile(ny: int, nx: int, k: int, ty: int = 8,
-                     tx: int = 32) -> CudaTile:
-    """A `ty` x `tx` tile of output points with a `2k`-deep halo,
-    `(ty+4k)·(tx+4k)` points that the threads loop over, in two fp32
-    shared-memory buffers."""
-    ty, tx = min(ty, ny), min(tx, nx)
-    points = (ty + 2 * k * HALO) * (tx + 2 * k * HALO)
-    return CudaTile("hdiff_kstep", ty, tx, min(points, KSTEP_THREADS),
-                    2 * 4 * points)
 
 
 def hadv_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
@@ -478,20 +538,25 @@ def candidate_tiles(op: OpSpec,
 def cuda_tile_for(plan: TilePlan) -> CudaTile:
     """The kernel tile that launches a planner's hdiff or vadvc window.
 
-    The planner sizes a window against near memory; a CUDA block has one
-    thread per output point (hdiff) or column (vadvc), so its (y, x) extent
-    is clamped: x first, to the grid and 1024 threads (neighbouring threads
-    on neighbouring x keep loads coalesced), then y to the grid and the
-    threads x leaves. The window's z extent is not a kernel parameter: both
-    kernels take one plane (hdiff) or the whole column (vadvc) per block.
-    The tile's shared memory stays within 232,448 bytes at any such shape
-    (`CudaTile` checks both limits)."""
+    The planner sizes a window against near memory. The hdiff stream takes
+    the window's x extent as its strip, clamped to the grid and to the
+    columns 1024 threads hold with the halo, and its y extent as its
+    segment, clamped to the grid, both then balanced. A vadvc block has one
+    thread a column, so its (y, x) extent is clamped: x first, to the grid
+    and 1024 threads (neighbouring threads on neighbouring x keep loads
+    coalesced), then y to the grid and the threads x leaves. The window's z
+    extent is not a kernel parameter: both kernels take one plane (hdiff)
+    or the whole column (vadvc) per block. The tile's shared memory stays
+    within 232,448 bytes at any such shape (`CudaTile` checks both
+    limits)."""
     _, ny, nx = plan.grid_shape
     _, ty, tx = plan.tile
+    if plan.op.name == "hdiff":
+        return hdiff_tile(ny, nx, max(1, min(ty, ny)), max(1, min(
+            tx, nx, HDIFF_COLS * MAX_THREADS_PER_BLOCK - 2 * HALO
+            - HDIFF_COLS + 1)))
     tx = max(1, min(tx, nx, MAX_THREADS_PER_BLOCK))
     ty = max(1, min(ty, ny, MAX_THREADS_PER_BLOCK // tx))
-    if plan.op.name == "hdiff":
-        return hdiff_tile(ny, nx, ty, tx)
     if plan.op.name == "vadvc":
         return vadvc_tile(ny, nx, ty, tx)
     raise ValueError(f"no CUDA tile for op {plan.op.name!r}; the copy "

@@ -26,6 +26,25 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
+// An mbarrier in shared memory (a 32-bit shared address) that completes a
+// phase after `count` arrivals, and one test of whether the phase of the
+// given parity has completed.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
 // Compound horizontal diffusion of the point at `c` of a row-major tile of
 // row stride `w` (laplace -> flux -> COSMO limiter -> output). The caller
 // guarantees a 2-deep neighbourhood around `c` inside the tile.

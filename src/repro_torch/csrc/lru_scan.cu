@@ -49,9 +49,6 @@ namespace {
 constexpr int kLanes = 32;   // channels (threads) a block
 constexpr int kStages = 4;   // ring stages
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
-}
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
@@ -61,17 +58,6 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
 }
 // One bulk copy of `bytes` (a multiple of 16) from global memory into this
 // block's shared memory, completing on the mbarrier `bar`.
@@ -138,7 +124,7 @@ __global__ void __launch_bounds__(kLanes)
     }
   };
   if (lane == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(bar0 + 8u * s);
+    for (int s = 0; s < kStages; ++s) nero::mbar_init(bar0 + 8u * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
@@ -150,7 +136,7 @@ __global__ void __launch_bounds__(kLanes)
     const int s = g % kStages;
     const int n = min(kT, steps - g * kT);
     const uint32_t bar = bar0 + 8u * s;
-    while (!mbar_try_wait(bar, (g / kStages) & 1)) {
+    while (!nero::mbar_try_wait(bar, (g / kStages) & 1)) {
     }
     if (lane < nch) {
       if (n == kT) {

@@ -35,8 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
-           "hdiff_kstep.cu", "hadv.cu", "copy.cu", "flash_attn.cu",
-           "flash_attn_tc.cu", "lru_scan.cu", "xent.cu", "xent_tc.cu")
+           "hadv.cu", "copy.cu", "flash_attn.cu", "flash_attn_tc.cu",
+           "lru_scan.cu", "xent.cu", "xent_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 # built with -fmad=true in place of -fmad=false
@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
+    "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _P),
     "nero_vadvc": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                    _I, _I, _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,

@@ -1,9 +1,9 @@
-"""The CUDA compound hdiff kernels (`csrc/hdiff.cu`, `csrc/hdiff_kstep.cu`)
-and their launchers.
+"""The CUDA compound hdiff kernel (`csrc/hdiff.cu`: one row-streaming
+routine, one step or k steps a launch) and its launchers.
 
-Replaces the TPU kernels `repro.kernels.hdiff.hdiff.hdiff_pallas` and, with
-`csrc/hdiff_kstep.cu`, `hdiff_kstep_pallas`. The plain versions beside them
-are `ref.hdiff` and `ref.hdiff_kstep`.
+Replaces the TPU kernels `repro.kernels.hdiff.hdiff.hdiff_pallas` and
+`hdiff_kstep_pallas`. The plain versions beside them are `ref.hdiff` and
+`ref.hdiff_kstep`.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def hdiff_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
     lib = _build.load()
     with torch.cuda.device(src.device):
         err = lib.nero_hdiff(src.data_ptr(), out.data_ptr(), planes, ny, nx,
-                             coeff, tile.ty, tile.tx,
+                             coeff, tile.ty, tile.tx, tile.threads,
                              int(src.dtype == torch.bfloat16),
                              _build.stream_of(src))
     _build.check(err, "hdiff")
@@ -43,25 +43,26 @@ def hdiff_kstep_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
                      k_steps: int = 1,
                      tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
     """`k_steps` compound hdiff steps of a contiguous CUDA stack `(planes,
-    ny, nx)`, float32 or bfloat16, in one launch; every step rounds through
-    the storage dtype and passes the 2-wide ring of every plane through."""
+    ny, nx)`, float32 or bfloat16, in one launch, or for more than
+    `tiling.HDIFF_MAX_K` steps in `tiling.hdiff_launches(k_steps)`: every
+    step rounds through the storage dtype and passes the 2-wide ring of
+    every plane through, so the split changes no bit."""
     if src.dim() != 3:
         raise ValueError(f"hdiff k-step: src must be (planes, ny, nx), got "
                          f"{tuple(src.shape)}")
-    if not isinstance(k_steps, int) or k_steps < 1:
-        raise ValueError(f"hdiff k-step: k_steps={k_steps!r} must be a "
-                         f"positive int")
+    launches = tiling.hdiff_launches(k_steps)
     planes, ny, nx = src.shape
     _build.check_operand("hdiff k-step", "src", src, src.shape, src.dtype)
     tile = tile or tiling.hdiff_kstep_tile(ny, nx, k_steps)
-    out = torch.empty_like(src)
     lib = _build.load()
-    with torch.cuda.device(src.device):
-        err = lib.nero_hdiff_kstep(src.data_ptr(), out.data_ptr(), planes, ny,
-                                   nx, coeff, tile.ty, tile.tx, k_steps,
-                                   tile.threads,
-                                   int(src.dtype == torch.bfloat16),
-                                   _build.stream_of(src))
-    _build.check(err, "hdiff k-step")
-    _build.LAUNCHES["hdiff_kstep"] += 1
+    out = src
+    for k in launches:
+        src, out = out, torch.empty_like(src)
+        with torch.cuda.device(src.device):
+            err = lib.nero_hdiff_kstep(
+                src.data_ptr(), out.data_ptr(), planes, ny, nx, coeff,
+                tile.ty, tile.tx, tile.threads, k,
+                int(src.dtype == torch.bfloat16), _build.stream_of(src))
+        _build.check(err, "hdiff k-step")
+        _build.LAUNCHES["hdiff_kstep"] += 1
     return out

@@ -30,8 +30,9 @@ def hdiff(src: torch.Tensor, coeff: float = _ref.DEFAULT_COEFF,
 def hdiff_kstep(src: torch.Tensor, coeff: float = _ref.DEFAULT_COEFF,
                 k: int = 1,
                 tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
-    """`k` compound hdiff steps of a `(planes, ny, nx)` stack in one launch,
-    each rounded through the storage dtype; the ring passes through."""
+    """`k` compound hdiff steps of a `(planes, ny, nx)` stack in one launch
+    (`tiling.hdiff_launches(k)` for more than `tiling.HDIFF_MAX_K`), each
+    rounded through the storage dtype; the ring passes through."""
     if src.device.type == "cpu":
         return _ref.hdiff_kstep(src, coeff=coeff, k=k)
     return hdiff_kstep_cuda(src, coeff=coeff, k_steps=k, tile=tile)

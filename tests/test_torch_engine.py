@@ -203,8 +203,26 @@ def test_every_h100_candidate_maps_to_a_legal_cuda_tile(op, dtype, grid):
 
 
 def test_cuda_tile_clamps_a_wide_window():
+    # hdiff streams a window's x extent as its strip and y extent as its
+    # segment: 64 x 128 on 256 x 256 is 4 segments of 64 rows and 2 strips
+    # of 128 columns, a thread for each 2 columns of a strip, its halo and
+    # 1 column of slack (133, so 3 warps); a window wider than 1024 threads
+    # hold is clamped to 2043 columns, then balanced (8192 columns: 5
+    # strips of 1639).
     plan = tiling.TilePlan(op=tiling.HDIFF, grid_shape=(64, 256, 256),
                            tile=(1, 64, 128), dtype="float32")
+    tile = tiling.cuda_tile_for(plan)
+    assert (tile.ty, tile.tx, tile.threads) == (64, 128, 96)
+    wide = tiling.cuda_tile_for(tiling.TilePlan(
+        op=tiling.HDIFF, grid_shape=(1, 64, 8192), tile=(1, 64, 8192),
+        dtype="float32"))
+    assert (wide.ty, wide.tx, wide.threads) == (64, 1639, 832)
+    widest = tiling.cuda_tile_for(tiling.TilePlan(
+        op=tiling.HDIFF, grid_shape=(1, 64, 2043), tile=(1, 64, 2048),
+        dtype="float32"))
+    assert (widest.tx, widest.threads) == (2043, 1024)
+    plan = tiling.TilePlan(op=tiling.VADVC, grid_shape=(64, 256, 256),
+                           tile=(64, 64, 128), dtype="float32")
     tile = tiling.cuda_tile_for(plan)
     assert (tile.ty, tile.tx, tile.threads) == (8, 128, 1024)
     with pytest.raises(ValueError, match="no CUDA tile"):

@@ -78,24 +78,139 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 def test_default_tile_fits_a_hopper_block():
+    # The stream's tile: 5 balanced strips of 52 columns and 4 segments of
+    # 65 rows of a 260 x 260 plane; a thread for each 2 columns of a strip,
+    # its 2-column halo either side and 1 column of alignment slack (57, so
+    # one warp); a ring of input rows.
     t = tiling.hdiff_tile(260, 260)
+    assert (t.ty, t.tx, t.threads) == (65, 52, 32)
+    assert t.smem_bytes == tiling.hdiff_stream_smem(1, t.threads)
     assert t.threads <= tiling.MAX_THREADS_PER_BLOCK
     assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
     with pytest.raises(ValueError, match="threads"):
-        tiling.hdiff_tile(260, 260, ty=64, tx=64)
+        tiling.hdiff_tile(260, 2100, tx=2100)      # 2105 columns a block
+
+
+@pytest.mark.parametrize("nx,k,want", [(260, 1, 52), (264, 2, 53),
+                                       (268, 3, 268), (70, 1, 35),
+                                       (5, 1, 5), (260, 3, 260)])
+def test_default_strip_needs_fewest_threads(nx, k, want):
+    """The default strip: the balanced split whose blocks hold the fewest
+    threads for a row (idle columns of a block's last warp count), the
+    narrowest on ties."""
+    assert tiling.hdiff_strip(nx, k) == want
+
+    def threads_a_row(width):
+        return -(-nx // width) * tiling.hdiff_kstep_tile(
+            8, nx, k, tx=width).threads
+    widths = {tiling.balanced(nx, m) for m in range(8, nx + 1)} | {nx}
+    assert threads_a_row(want) == min(threads_a_row(w) for w in widths)
+
+
+@pytest.mark.parametrize("n,most,want", [(260, 96, 87), (260, 130, 130),
+                                         (260, 129, 87), (260, 1, 1),
+                                         (260, 400, 260), (37, 16, 13),
+                                         (5, 2, 2), (264, 96, 88)])
+def test_strips_are_balanced(n, most, want):
+    """The fewest parts of at most `most`, differing by at most one: never
+    a sliver beside wide strips."""
+    assert tiling.balanced(n, most) == want
+    parts = -(-n // want)
+    widths = [(p + 1) * n // parts - p * n // parts for p in range(parts)]
+    assert sum(widths) == n and max(widths) == want
+    assert max(widths) - min(widths) <= 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("ny,nx,ty,tx", [(260, 260, 65, 96), (37, 70, 8, 32),
+                                         (5, 6, 2, 3), (6, 5, 260, 260),
+                                         (268, 268, 268, 140)])
+def test_stream_tile_geometry(k, ny, nx, ty, tx):
+    t = tiling.hdiff_kstep_tile(ny, nx, k, ty=ty, tx=tx)
+    assert t.ty == tiling.balanced(ny, ty) <= min(ty, ny)
+    assert t.tx == tiling.balanced(nx, tx) <= min(tx, nx)
+    # whole warps of threads that own HDIFF_COLS columns each, enough for
+    # the strip, its 2k-column halo either side and HDIFF_COLS - 1 columns
+    # of alignment slack, and no spare warp
+    need = t.tx + 4 * k + tiling.HDIFF_COLS - 1
+    w = tiling.HDIFF_COLS * t.threads
+    assert t.threads % 32 == 0
+    assert need <= w < need + 32 * tiling.HDIFF_COLS
+    ring = tiling.HDIFF_RING
+    assert t.smem_bytes == 4 * (w + 8) * (2 * k + 4 * (k - 1) + ring) + 8 * ring
+    assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
+
+
+def test_stream_tile_refuses_what_the_kernel_cannot_run():
+    with pytest.raises(ValueError, match="stages"):
+        tiling.hdiff_kstep_tile(64, 64, 0)
+    with pytest.raises(ValueError, match="stages"):
+        tiling.hdiff_kstep_tile(64, 64, 2.0)
+    with pytest.raises(ValueError, match="threads"):
+        tiling.hdiff_kstep_tile(260, 2100, 5, tx=2100)   # 2113 columns
+    # so the widest block at the most stages a launch runs fits
+    assert tiling.hdiff_stream_smem(tiling.HDIFF_MAX_K, 1024) <= \
+        tiling.SMEM_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("k,want", [(1, [1]), (3, [3]), (4, [2, 2]),
+                                    (5, [2, 3]), (9, [3, 3, 3]),
+                                    (10, [2, 2, 3, 3])])
+def test_long_round_runs_even_launches(k, want):
+    """A round of more than HDIFF_MAX_K steps runs as the fewest launches
+    of at most HDIFF_MAX_K stages, as even as can be, on the tile of the
+    largest."""
+    assert tiling.hdiff_launches(k) == want
+    assert tiling.hdiff_kstep_tile(292, 292, k) == \
+        tiling.hdiff_kstep_tile(292, 292, max(want))
+
+
+def _cuda_matches_plain(src, tile_b):
+    """The kernel on its default tile against the plain version in fp32
+    from the same inputs (a bf16 kernel computes in fp32 too and rounds its
+    output once: twice bf16's unit roundoff), and on `tile_b` bit for
+    bit."""
+    got = ops.hdiff(src)
+    torch.cuda.synchronize()
+    want = ref.hdiff(src.float())
+    rtol = 0.0 if src.dtype == torch.float32 else 2.0 ** -7
+    assert ((got.float() - want).abs() <= 1e-5 + rtol * want.abs()).all()
+    assert torch.equal(hdiff_cuda(src, tile=tile_b), got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(dtype, cuda, rng):
     _, src = _pair(rng, (6, 37, 70), dtype)
+    tile_b = tiling.hdiff_tile(37, 70, ty=4, tx=24)
+    assert tile_b.tx != tiling.hdiff_tile(37, 70).tx   # 3 strips, not 2
+    _cuda_matches_plain(src.to(cuda), tile_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 5, 40), (3, 6, 40), (3, 40, 5),
+                                   (3, 40, 6), (2, 5, 5)])
+def test_cuda_small_planes(shape, dtype, cuda, rng):
+    """Planes of 5 and 6 rows or columns, where the ring and the halo are
+    most of the plane; one-row segments and strips of 2 as the second
+    tiling."""
+    _, src = _pair(rng, shape, dtype)
+    _cuda_matches_plain(src.to(cuda),
+                        tiling.hdiff_tile(shape[1], shape[2], ty=1, tx=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nx", [70, 260, 264, 69])
+def test_cuda_row_strides(nx, dtype, cuda, rng):
+    """bf16 rows of 140 and 520 bytes are not 16-byte multiples, of 528
+    bytes they are, of 138 every other row starts off 4 bytes; odd strips
+    start off 4 bytes too. Also a view that starts one element into its
+    storage."""
+    _, src = _pair(rng, (3, 21, nx), dtype)
     src = src.to(cuda)
-    got = ops.hdiff(src)
-    torch.cuda.synchronize()
-    # The plain version in fp32 from the same inputs. A bf16 kernel computes
-    # in fp32 too and rounds its output once: twice bf16's unit roundoff.
-    want = ref.hdiff(src.float())
-    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
-    assert ((got.float() - want).abs() <= 1e-5 + rtol * want.abs()).all()
-    other = hdiff_cuda(src, tile=tiling.hdiff_tile(37, 70, ty=4, tx=64))
-    assert torch.equal(other, got)
+    _cuda_matches_plain(src, tiling.hdiff_tile(21, nx, ty=7, tx=nx // 3 - 1))
+    view = src.reshape(-1)[1:1 + 2 * 21 * nx].view(2, 21, nx)
+    assert view.data_ptr() != src.data_ptr() and view.is_contiguous()
+    assert torch.equal(hdiff_cuda(view), hdiff_cuda(view.clone()))
