@@ -8,14 +8,18 @@
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
 bf16 flash and xent kernels issue HGMMA (wgmma), and prints the
-whole-state dycore, k-step, LRU and hdiff stream kernels' ptxas registers
-and spills and the dycore and hdiff kernels' tiles; holds each kernel against its plain PyTorch
+whole-state dycore, k-step, LRU, hdiff stream, vadvc and hadv kernels'
+ptxas registers and spills and the dycore, hdiff, vadvc and hadv kernels'
+tiles; holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (float32 and bfloat16), and
 two tilings of each against each other bit for bit (the whole-state kernel
 also in clusters of one, at one field against its slice of the whole
 state, at nz 2 to 1500, and its candidate tiles timed; the k-step kernels
 also against k launches of their one-step kernels, hdiff's also at k = 4
-and 9; the hdiff stream's candidate tiles timed); drives
+and 9; the hdiff stream's candidate tiles timed; vadvc with the state's
+periodic wcon and the staggered one bit for bit, and at nz 2, 3 and 1500;
+hadv in its periodic mode, as the hadv_upwind plan runs it, and bit for
+bit its passthrough mode on the wrap-padded stack, cropped); drives
 the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
 plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
@@ -57,11 +61,14 @@ ROOT as phase 5 times this one's (`copy_times_of`), to hold two commits'
 kernels against each other on one card, and prints no result line.
 `--kernel-times ROOT` (`kernel_times_of`) does the same for copy, the
 whole-state dycore kernel (also at one field), the dycore k-step rounds
-(k = 1, 2, 3), hdiff and its k-step rounds (k = 2, 3, 4, 9), one main-path step
-with its `run(state, 10)` peak memory, one `op="hdiff"` step and the k=2
-hdiff plan's `run(state, 5)`, and the LRU sweep (forward and reverse),
-fp32 and bf16, each output hashed so two checkouts' bits can be compared:
-run parent, change, change, parent in one call.
+(k = 1, 2, 3), hdiff and its k-step rounds (k = 2, 3, 4, 9), vadvc (a
+staggered wcon) and hadv (passthrough, on the padded stack), one main-path
+step with its `run(state, 10)` peak memory, one `op="hdiff"` step and the
+k=2 hdiff plan's `run(state, 5)`, one `op="vadvc"` and one
+`op="hadv_upwind"` step and the hadv plan's `run(state, 5)`, and the LRU
+sweep (forward and reverse), fp32 and bf16, each output hashed so two
+checkouts' bits can be compared: run parent, change, change, parent in
+one call.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
 # launches of 2 stages, and 9, three of 3
 LONG_KSTEPS = (4, 9)
 DEPTHS = (2, 9, 37, 96, 1500)  # nz of the whole-state kernel's depth checks
+VADVC_DEPTHS = (2, 3, 1500)    # nz of the vadvc kernel's depth checks
 # the whole-state kernel's candidate tiles (ty, tx), timed beside the
 # planner's pick at the main path's shapes (unsnapped: 12, 20 and 24 rows
 # leave a ragged last tile on 256 rows)
@@ -270,8 +278,8 @@ def digest(*tensors) -> str:
 
 
 def kernel_times_of(root: Path) -> int:
-    """`python3 chip_smoke.py --kernel-times ROOT`: the copy, dycore, hdiff
-    and LRU kernels of the checkout at ROOT, built from ROOT's sources and
+    """`python3 chip_smoke.py --kernel-times ROOT`: the copy, dycore, hdiff,
+    vadvc, hadv and LRU kernels of the checkout at ROOT, built from ROOT's sources and
     timed at the main path's shapes, each beside a hash of its output on
     inputs made from fixed seeds (equal hashes between two checkouts: the
     same bits): copy as `--copy-times` times it; the whole-state dycore
@@ -279,9 +287,12 @@ def kernel_times_of(root: Path) -> int:
     call and queued, on ROOT's default tiles; the dycore k-step rounds at
     k = 1, 2, 3; hdiff at (1024, 260, 260) and its k-step rounds at k = 2,
     3, 4, 9 on their padded stacks, per call and queued, on the wrappers' default
-    tiles; one main-path step (`ExecutionPlan.step`) and the peak device
-    memory of a main-path `run(state, 10)`; one `op="hdiff"` whole-state
-    step and the k=2 hdiff plan's `run(state, 5)`; the LRU sweep forward at
+    tiles; vadvc at (4, 4, 64, 256, 256) with a staggered wcon and hadv in
+    passthrough mode at (1024, 257, 257), per call and queued; one main-path
+    step (`ExecutionPlan.step`) and the peak device memory of a main-path
+    `run(state, 10)`; one `op="hdiff"` whole-state step and the k=2 hdiff
+    plan's `run(state, 5)`; one `op="vadvc"` and one `op="hadv_upwind"`
+    step and the hadv plan's `run(state, 5)`; the LRU sweep forward at
     (4, 1024, 4096) and reverse at (4, 2048, 4096), fp32 and bf16, per call
     and queued. One JSON line. Run parent, change, change, parent in one
     call."""
@@ -295,8 +306,10 @@ def kernel_times_of(root: Path) -> int:
     from repro_torch.kernels.dycore_fused.kstep import (
         fused_dycore_kstep_cuda)
     from repro_torch.kernels.dycore_fused.ref import pad_periodic
+    from repro_torch.kernels.hadv.hadv import hadv_cuda
     from repro_torch.kernels.hdiff.hdiff import hdiff_cuda, hdiff_kstep_cuda
     from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
+    from repro_torch.kernels.vadvc.vadvc import vadvc_cuda
     from repro_torch.weather import fields
     from repro_torch.weather.program import StencilProgram, compile
 
@@ -343,7 +356,19 @@ def kernel_times_of(root: Path) -> int:
             r = out[f"{key} {dn} {tuple(src.shape)}"] = timed(run)
             r["hash"] = digest(run())
             del src
-        del fs, ts, ss, w
+        # vadvc with a staggered wcon, as every checkout takes it; hadv in
+        # passthrough mode on the stack wrap-padded by 1 on the low sides
+        wst = noise(0.15, ENSEMBLE, *GRID[:2], GRID[2] + 1)
+        run = lambda: vadvc_cuda(fs, wst, fs, ts, ss)
+        r = out[f"vadvc {dn} {tuple(fs.shape)}"] = timed(run)
+        r["hash"] = digest(run())
+        src = torch.cat([fs[..., -1:, :], fs], dim=-2)
+        src = torch.cat([src[..., :, -1:], src], dim=-1).reshape(
+            -1, ny + 1, nx + 1)
+        run = lambda: hadv_cuda(src)
+        r = out[f"hadv {dn} {tuple(src.shape)}"] = timed(run)
+        r["hash"] = digest(run())
+        del fs, ts, ss, w, wst, src
         torch.cuda.empty_cache()
 
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -375,6 +400,20 @@ def kernel_times_of(root: Path) -> int:
                                       k_steps=2))
         end = plan.run(st, PATH_STEPS)
         out[f"op=hdiff k=2 run({PATH_STEPS}) {dn}"] = dict(
+            ms=time_ms(lambda: plan.run(st, PATH_STEPS)),
+            hash=digest(*(end.fields[n] for n in end.fields)))
+        # one whole-state step of the vadvc and hadv_upwind ops, and the
+        # hadv plan's run(state, 5)
+        for op in ("vadvc", "hadv_upwind"):
+            plan = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                          op=op, dtype=dn))
+            nxt = plan.step(st)
+            out[f"op={op} step {dn}"] = dict(
+                step_ms=time_ms(lambda: plan.step(st)),
+                hash=digest(*(getattr(nxt, part)[n] for part in
+                              ("fields", "stage_tens") for n in nxt.fields)))
+        end = plan.run(st, PATH_STEPS)
+        out[f"op=hadv_upwind run({PATH_STEPS}) {dn}"] = dict(
             ms=time_ms(lambda: plan.run(st, PATH_STEPS)),
             hash=digest(*(end.fields[n] for n in end.fields)))
         del st, end, nxt, plan
@@ -1248,7 +1287,9 @@ def main() -> int:
     for src, label in (("dycore_fused.cu", "fused"),
                        ("dycore_kstep.cu", "kstep"),
                        ("lru_scan.cu", "lru_scan"),
-                       ("hdiff.cu", "hdiff")):
+                       ("hdiff.cu", "hdiff"),
+                       ("vadvc.cu", "vadvc"),
+                       ("hadv.cu", "hadv")):
         rep = _build.build_log["ptxas"].get(src, "")
         entry, seen = None, 0
         for line in rep.splitlines():
@@ -1277,6 +1318,19 @@ def main() -> int:
             f"of {t.tx} columns, {t.threads} threads a block, a ring of "
             f"{tiling.HDIFF_RING} rows, {t.smem_bytes} bytes of shared "
             f"memory a block")
+    for dnz in (GRID[0], VADVC_DEPTHS[-1]):
+        for isz in (4, 2):
+            t = tiling.vadvc_tile(GRID[1], GRID[2], dnz, isz)
+            say(f"vadvc tile nz={dnz} {8 * isz}-bit: a warp a block, "
+                f"segments of {t.tx} columns, {t.smem_bytes} bytes of shared "
+                f"memory a warp")
+    for isz in (4, 2):
+        for n in (GRID[1], GRID[1] + 1):
+            t = tiling.hadv_tile(n, n, isz)
+            say(f"hadv tile {n}x{n} {8 * isz}-bit: segments of {t.ty} rows, "
+                f"strips of {t.tx} columns, {t.threads // 32} warps a block, "
+                f"a ring of {tiling.HADV_RING} rows, {t.smem_bytes} bytes of "
+                f"shared memory a block")
 
     nz, ny, nx = GRID
     nf = len(fields.PROGNOSTIC)
@@ -1559,11 +1613,13 @@ def main() -> int:
         del src, got, want, d
 
         # vadvc on the field-stacked state, each member's wcon shared by
-        # its fields, as the vadvc plan's whole-state step calls it
+        # its fields, as the vadvc plan's whole-state step calls it (with
+        # the state's periodic wcon); the staggered wcon, as the engine and
+        # the parent take it, bit for bit; two tilings bit for bit
         wconp = torch.cat([wcon, wcon[..., :1]], dim=-1)
-        tile_a = tiling.vadvc_tile(ny, nx)
-        tile_b = tiling.vadvc_tile(ny, nx, tj=4, ti=64)
-        got = vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a)
+        tile_a = tiling.vadvc_tile(ny, nx, nz, isz)
+        tile_b = tiling.vadvc_tile(ny, nx, nz, isz, cols=16)
+        got = vadvc_cuda(fs, wcon, fs, ts, ss, tile=tile_a)
         torch.cuda.synchronize()
         want = vadvc_ref.vadvc(fs.float(), wconp.float().unsqueeze(1),
                                fs.float(), ts.float(), ss.float())
@@ -1573,24 +1629,60 @@ def main() -> int:
             f"{excess:.3g} (atol 2e-4 + {rtol:.3g}|want|)")
         require(excess <= 2e-4, "vadvc kernel disagrees with its plain "
                 "version")
-        require(torch.equal(vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_b),
+        require(torch.equal(vadvc_cuda(fs, wcon, fs, ts, ss, tile=tile_b),
                             got), "vadvc: two tilings differ")
-        ms = time_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a))
-        queued_ms = stream_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss,
+        require(torch.equal(vadvc_cuda(fs, wconp, fs, ts, ss, tile=tile_a),
+                            got), "vadvc: the periodic and the staggered "
+                "wcon differ")
+        ms = time_ms(lambda: vadvc_cuda(fs, wcon, fs, ts, ss, tile=tile_a))
+        queued_ms = stream_ms(lambda: vadvc_cuda(fs, wcon, fs, ts, ss,
                                                  tile=tile_a))
-        wpb = wconp.unsqueeze(1)
+        stag_ms = time_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss,
+                                             tile=tile_a))
+        stag_queued_ms = stream_ms(lambda: vadvc_cuda(fs, wconp, fs, ts, ss,
+                                                      tile=tile_a))
+        wpb = wcon.unsqueeze(1)
         plain_ms = time_ms(lambda: vadvc_ref.vadvc(fs, wpb, fs, ts, ss))
         # three fields read (u_pos is u_stage), one written, and each
-        # member's staggered wcon read once
-        nbytes = (4 * fs.numel() + wconp.numel()) * isz
+        # member's periodic wcon read once
+        nbytes = (4 * fs.numel() + wcon.numel()) * isz
         b_ms, b_by = bound(nbytes, 38.0 * fs.numel())
         results[("vadvc", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by)
-        say(f"vadvc {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
-            f"bitwise equal")
+                                      bound_by=b_by,
+                                      staggered_ms=stag_ms,
+                                      staggered_queued_ms=stag_queued_ms,
+                                      tile=tile_a.describe())
+        say(f"vadvc {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms; staggered "
+            f"wcon {stag_ms:.4f} ms, queued {stag_queued_ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}); tiles and "
+            f"wcon forms bitwise equal")
         del wconp, wpb, got, want, d
+        # Every depth runs the one build: nz from 2 to 1500 (fewer columns
+        # a warp) on a ragged (37, 70) plane, u_pos apart from u_stage,
+        # against the plain version; a second tiling bit for bit.
+        for dnz in VADVC_DEPTHS:
+            dgrid = (dnz, 37, 70)
+            d_u, d_p, d_t, d_s = (noise(sc, 2, 3, *dgrid).to(dtype)
+                                  for sc in (1.0, 1.0, 0.01, 0.01))
+            d_w = noise(0.15, 2, *dgrid).to(dtype)
+            tile = tiling.vadvc_tile(37, 70, dnz, isz)
+            d_g = vadvc_cuda(d_u, d_w, d_p, d_t, d_s, tile=tile)
+            torch.cuda.synchronize()
+            want = vadvc_ref.vadvc(*(a.float() for a in (
+                d_u, d_w.unsqueeze(1), d_p, d_t, d_s)))
+            d = (d_g.float() - want).abs()
+            excess = float((d - rtol * want.abs()).max())
+            say(f"vadvc {dn} nz={dnz} ({tile.tx} columns a warp, "
+                f"{tile.smem_bytes} bytes of shared memory): err "
+                f"{float(d.max()):.3g}, excess {excess:.3g}")
+            require(excess <= 2e-4, f"vadvc {dn} nz={dnz}: disagrees with "
+                    f"its plain version")
+            require(torch.equal(vadvc_cuda(
+                d_u, d_w, d_p, d_t, d_s,
+                tile=tiling.vadvc_tile(37, 70, dnz, isz, cols=5)), d_g),
+                f"vadvc {dn} nz={dnz}: two tilings differ")
+            del d_u, d_p, d_t, d_s, d_w, d_g, want, d
 
         # dycore k-step rounds. float32: k chained whole-state launches,
         # each held against its plain version from the same input, and the
@@ -1771,46 +1863,75 @@ def main() -> int:
                 f"to them bit for bit")
             del src
 
-        # hadv on the stack the hadv_upwind plan gives it: wrap-padded by 1
-        # on the low sides only.
-        src = torch.cat([fs[..., -1:, :], fs], dim=-2)
-        src = torch.cat([src[..., :, -1:], src], dim=-1).reshape(
-            -1, ny + 1, nx + 1)
-        planes, Y, X = src.shape
+        # hadv, periodic, on the field-stacked state as the hadv_upwind
+        # plan gives it (unpadded): bit for bit the passthrough mode on the
+        # stack wrap-padded by 1 on the low sides, cropped (the parent's
+        # plan); each mode against its plain version; two tilings that
+        # differ in strip width and segment height bit for bit.
         cfl = fused_ref.DEFAULT_COEFF          # the program's coeff is its cfl
-        tile_a = tiling.hadv_tile(Y, X)
-        tile_b = tiling.hadv_tile(Y, X, ty=4, tx=128)
-        got = hadv_cuda(src, cfl=cfl, tile=tile_a)
-        torch.cuda.synchronize()
-        want = hadv_ref.hadv_upwind(src.float(), cfl=cfl)
-        d = (got.float() - want).abs()
-        err, excess = float(d.max()), float((d - rtol * want.abs()).max())
-        say(f"hadv {dn} {tuple(src.shape)}: err {err:.3g}, excess "
-            f"{excess:.3g} (atol 1e-5 + {rtol:.3g}|want|)")
-        check(excess <= 1e-5, f"hadv {dn}: disagrees with its plain version")
-        check(torch.equal(hadv_cuda(src, cfl=cfl, tile=tile_b), got),
-              f"hadv {dn}: two tilings differ")
+        src = fs.reshape(-1, ny, nx)
+        pad = torch.cat([fs[..., -1:, :], fs], dim=-2)
+        pad = torch.cat([pad[..., :, -1:], pad], dim=-1).reshape(
+            -1, ny + 1, nx + 1)
+        planes, Y, X = pad.shape
+        checks = {}
+        for mode, x, plain in (
+                ("periodic", src, hadv_ref.hadv_periodic),
+                ("passthrough", pad, hadv_ref.hadv_upwind)):
+            periodic = mode == "periodic"
+            tile_a = tiling.hadv_tile(*x.shape[1:], isz)
+            tile_b = tiling.hadv_tile(*x.shape[1:], isz, ty=13,
+                                      tx=x.shape[2] // 3)
+            got = hadv_cuda(x, cfl=cfl, tile=tile_a, periodic=periodic)
+            torch.cuda.synchronize()
+            want = plain(x.float(), cfl=cfl)
+            d = (got.float() - want).abs()
+            err, excess = float(d.max()), float((d - rtol * want.abs()).max())
+            say(f"hadv {mode} {dn} {tuple(x.shape)}: err {err:.3g}, excess "
+                f"{excess:.3g} (atol 1e-5 + {rtol:.3g}|want|); strips of "
+                f"{tile_a.tx} and {tile_b.tx}, segments of {tile_a.ty} and "
+                f"{tile_b.ty}")
+            check(excess <= 1e-5, f"hadv {mode} {dn}: disagrees with its "
+                  f"plain version")
+            check(torch.equal(hadv_cuda(x, cfl=cfl, tile=tile_b,
+                                        periodic=periodic), got),
+                  f"hadv {mode} {dn}: two tilings differ")
+            checks[mode] = (err, got, tile_a)
+        check(torch.equal(checks["periodic"][1],
+                          checks["passthrough"][1][:, 1:, 1:]),
+              f"hadv {dn}: periodic differs from pad + passthrough + crop")
         del got, want, d
-        ms = time_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a))
-        queued_ms = stream_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a))
-        plain_ms = time_ms(lambda: hadv_ref.hadv_upwind(src, cfl=cfl))
-        # One convolution computes the same interior (not the passed-through
-        # row 0 and column 0): the yardstick, never called by the port.
+        err, _, tile_a = checks["periodic"]
+        ms = time_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a,
+                                       periodic=True))
+        queued_ms = stream_ms(lambda: hadv_cuda(src, cfl=cfl, tile=tile_a,
+                                                periodic=True))
+        plain_ms = time_ms(lambda: hadv_ref.hadv_periodic(src, cfl=cfl))
+        pt_tile = checks["passthrough"][2]
+        pt_ms = time_ms(lambda: hadv_cuda(pad, cfl=cfl, tile=pt_tile))
+        pt_queued_ms = stream_ms(lambda: hadv_cuda(pad, cfl=cfl,
+                                                   tile=pt_tile))
+        del checks
+        # One convolution computes the same points from the padded stack:
+        # the yardstick, never called by the port.
         weight = torch.tensor([[0.0, cfl], [cfl, 1.0 - 2.0 * cfl]],
                               dtype=dtype, device=dev).reshape(1, 1, 2, 2)
-        planes4 = src.reshape(planes, 1, Y, X)
+        planes4 = pad.reshape(planes, 1, Y, X)
         library_ms = time_ms(lambda: torch.nn.functional.conv2d(planes4,
                                                                 weight))
-        b_ms, b_by = bound(2 * src.numel() * isz,
-                           5.0 * planes * (Y - 1) * (X - 1))
+        b_ms, b_by = bound(2 * src.numel() * isz, 5.0 * src.numel())
         results[("hadv", dn)] = dict(err=err, ms=ms, queued_ms=queued_ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=library_ms)
-        say(f"hadv {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms, conv2d "
+                                     bound_by=b_by, library_ms=library_ms,
+                                     passthrough_ms=pt_ms,
+                                     passthrough_queued_ms=pt_queued_ms,
+                                     tile=tile_a.describe())
+        say(f"hadv periodic {dn}: {ms:.4f} ms, queued {queued_ms:.4f} ms; "
+            f"passthrough {tuple(pad.shape)} {pt_ms:.4f} ms, queued "
+            f"{pt_queued_ms:.4f} ms (plain {plain_ms:.3f} ms, conv2d "
             f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}); tiles "
             f"bitwise equal")
-        del src, planes4, fs, ts, ss, wcon, w
+        del src, pad, planes4, fs, ts, ss, wcon, w
         torch.cuda.empty_cache()
 
     phase_done("phase 3 (kernel checks)")
@@ -2262,6 +2383,13 @@ def main() -> int:
     # the LM paths run flash attention and xent in bf16, the rest in fp32
     keys = {"flash_attn": ("flash_attn", "bfloat16"),
             "xent": (f"xent_{TRAIN_RUNS[1][0]}", "bfloat16")}
+    # the design of each kernel this file's last redesign changed
+    designs = {"vadvc": "a warp a row segment, levels through a cp.async "
+                        "ring, (c, d) and u_pos of the column in shared "
+                        "memory; staggered or periodic wcon",
+               "hadv": "a warp a (segment, strip) row stream through a "
+                       "cp.async ring, 16 bytes a lane of a row; passthrough "
+                       "or periodic mode"}
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[keys.get(name, (name, "float32"))]
@@ -2272,6 +2400,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if name in designs:
+            kernels[-1]["design"] = designs[name]
         if name in ("flash_attn", "lru_scan", "xent"):
             # each serving and training path's own launches; flash also its
             # own times at that model's prefill shape, xent at that model's
@@ -2314,7 +2444,9 @@ def main() -> int:
                 ("main_step", "float32")]["run_peak_bytes"]
         for extra in ("queued_ms", "profiler_ms", "library_queued_ms",
                       "library_profiler_ms", "per_step_ms",
-                      "whole_state_launches_ms", "hdiff_launches_ms"):
+                      "whole_state_launches_ms", "hdiff_launches_ms",
+                      "staggered_ms", "staggered_queued_ms",
+                      "passthrough_ms", "passthrough_queued_ms"):
             if extra in r and name not in ("flash_attn", "xent"):
                 kernels[-1][extra] = r[extra]
         if name == "dycore_kstep":
@@ -2332,7 +2464,7 @@ def main() -> int:
     say("library_ms: no single PyTorch call computes the fused dycore step "
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
-        "interior; copy's is Tensor.copy_ into a preallocated tensor; "
+        "wrap-padded stack; copy's is Tensor.copy_ into a preallocated tensor; "
         "flash_attn's is scaled_dot_product_attention (causal, enable_gqa) "
         "at recurrentgemma-9b's prefill shape; none computes the LRU sweep; "
         "xent's is a pair of calls, h @ head then F.cross_entropy, at "

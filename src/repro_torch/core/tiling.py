@@ -149,10 +149,42 @@ def hdiff_tile(ny: int, nx: int, ty: Optional[int] = None,
     return hdiff_kstep_tile(ny, nx, 1, ty, tx)
 
 
-def vadvc_tile(ny: int, nx: int, tj: int = 2, ti: int = 128) -> CudaTile:
-    """One thread per (y, x) column; no shared memory."""
-    tj, ti = min(tj, ny), min(ti, nx)
-    return CudaTile("vadvc", tj, ti, tj * ti, 0)
+# The vadvc sweep (`csrc/vadvc.cu`): a block is one warp and owns a segment
+# of at most VADVC_COLS adjacent columns of a row, one a lane, for the whole
+# column: the levels ahead stream through a ring of VADVC_RING levels, and
+# the forward sweep keeps (c, d) and u_pos of every level in shared memory.
+VADVC_COLS = 32
+VADVC_RING = 4
+VADVC_STREAMS = 5       # ring regions a level: 4 fields and wcon
+
+
+def vadvc_smem(nz: int, cols: int, itemsize: int) -> int:
+    """Shared bytes of a vadvc warp (`warp_smem` in `csrc/vadvc.cu`): a ring
+    of VADVC_RING levels (five regions of the 4-byte words that hold 32
+    elements, and a word for the wcon element right of the segment,
+    rounded to 16 bytes), then c and d in fp32 and u_pos in the storage
+    dtype for every level of `cols` columns."""
+    region = 32 * itemsize + 4
+    slot = -(-(VADVC_STREAMS * region + 4) // 16) * 16
+    return VADVC_RING * slot + nz * cols * (8 + itemsize)
+
+
+def vadvc_tile(ny: int, nx: int, nz: int, itemsize: int = 4,
+               cols: Optional[int] = None) -> CudaTile:
+    """The vadvc sweep's tile: segments of at most `cols` columns of a row
+    (default VADVC_COLS, fewer where nz levels of them would not fit a
+    block's shared memory), balanced over nx; a warp a block. `itemsize`
+    is the fields' (4 fp32, 2 bf16)."""
+    if cols is None:
+        cols = VADVC_COLS
+        while cols > 1 and vadvc_smem(nz, cols, itemsize) > \
+                SMEM_BYTES_PER_BLOCK:
+            cols -= 1
+    if not 1 <= cols <= VADVC_COLS:
+        raise ValueError(f"vadvc tile: {cols} columns a warp; 1 to "
+                         f"{VADVC_COLS}, one a lane")
+    cols = balanced(nx, cols)
+    return CudaTile("vadvc", 1, cols, 32, vadvc_smem(nz, cols, itemsize))
 
 
 def snap_ty_kstep(ty: int, ny: int, k_steps: int) -> int:
@@ -293,10 +325,44 @@ def dycore_kstep_tile(ny: int, nx: int, k: int, ty: Optional[int] = None,
                     rows=rows)
 
 
-def hadv_tile(ny: int, nx: int, ty: int = 8, tx: int = 32) -> CudaTile:
-    """One thread per output point; no shared memory."""
-    ty, tx = min(ty, ny), min(tx, nx)
-    return CudaTile("hadv", ty, tx, ty * tx, 0)
+# The hadv row stream (`csrc/hadv.cu`): a block holds HADV_WARPS warps, and
+# a warp streams one y-segment of one x-strip of a plane through a ring of
+# HADV_RING rows, 16 bytes of a row a lane (4 fp32 or 8 bf16 columns, 32
+# apart), so a strip is at most 512 bytes wide.
+HADV_RING = 8
+HADV_WARPS = 4
+HADV_SEGMENT = 32       # default tallest segment
+
+
+def ring_region(n: int, itemsize: int) -> int:
+    """Bytes of a ring region that holds a segment of `n` elements at any
+    alignment in 16-byte chunks (`nero::ring_region` in
+    `csrc/warp_ring.cuh`)."""
+    return 16 * ((n * itemsize + 15) // 16 + 1)
+
+
+def hadv_smem(tx: int, itemsize: int) -> int:
+    """Shared bytes of an hadv block (`block_smem` in `csrc/hadv.cu`): a
+    ring region of a strip of `tx` columns and its left neighbour, and a
+    16-byte chunk for the periodic wrap, a ring row and warp."""
+    return HADV_WARPS * HADV_RING * (ring_region(tx + 1, itemsize) + 16)
+
+
+def hadv_tile(ny: int, nx: int, itemsize: int = 4, ty: Optional[int] = None,
+              tx: Optional[int] = None) -> CudaTile:
+    """The hadv stream's tile: balanced y-segments of at most `ty` rows
+    (default HADV_SEGMENT) and x-strips of at most `tx` columns (default
+    the widest a warp holds, 16 bytes a lane), a warp a (segment, strip);
+    257 fp32 columns are 3 strips of 86, 256 are 2 of 128."""
+    widest = 32 * (16 // itemsize)
+    tx = widest if tx is None else tx
+    if not 1 <= tx <= widest:
+        raise ValueError(f"hadv tile: a strip of {tx} columns needs "
+                         f"{-(-tx // (16 // itemsize))} threads of "
+                         f"{16 // itemsize} columns; a warp has 32")
+    ty = balanced(ny, HADV_SEGMENT if ty is None else ty)
+    tx = balanced(nx, tx)
+    return CudaTile("hadv", ty, tx, 32 * HADV_WARPS, hadv_smem(tx, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -541,23 +607,23 @@ def cuda_tile_for(plan: TilePlan) -> CudaTile:
     The planner sizes a window against near memory. The hdiff stream takes
     the window's x extent as its strip, clamped to the grid and to the
     columns 1024 threads hold with the halo, and its y extent as its
-    segment, clamped to the grid, both then balanced. A vadvc block has one
-    thread a column, so its (y, x) extent is clamped: x first, to the grid
-    and 1024 threads (neighbouring threads on neighbouring x keep loads
-    coalesced), then y to the grid and the threads x leaves. The window's z
-    extent is not a kernel parameter: both kernels take one plane (hdiff)
-    or the whole column (vadvc) per block. The tile's shared memory stays
-    within 232,448 bytes at any such shape (`CudaTile` checks both
-    limits)."""
-    _, ny, nx = plan.grid_shape
+    segment, clamped to the grid, both then balanced. A vadvc warp takes a
+    segment of the window's x extent, clamped to the grid, to VADVC_COLS
+    and to what fits the window's nz levels in shared memory; its y extent
+    is one row. The window's z extent is not a kernel parameter: both
+    kernels take one plane (hdiff) or the whole column (vadvc) per block.
+    The tile's shared memory stays within 232,448 bytes at any such shape
+    (`CudaTile` checks both limits)."""
+    nz, ny, nx = plan.grid_shape
     _, ty, tx = plan.tile
     if plan.op.name == "hdiff":
         return hdiff_tile(ny, nx, max(1, min(ty, ny)), max(1, min(
             tx, nx, HDIFF_COLS * MAX_THREADS_PER_BLOCK - 2 * HALO
             - HDIFF_COLS + 1)))
-    tx = max(1, min(tx, nx, MAX_THREADS_PER_BLOCK))
-    ty = max(1, min(ty, ny, MAX_THREADS_PER_BLOCK // tx))
     if plan.op.name == "vadvc":
-        return vadvc_tile(ny, nx, ty, tx)
+        itemsize = hw.dtype_bytes(plan.dtype)
+        fit = vadvc_tile(ny, nx, nz, itemsize).tx
+        return vadvc_tile(ny, nx, nz, itemsize,
+                          max(1, min(tx, nx, VADVC_COLS, fit)))
     raise ValueError(f"no CUDA tile for op {plan.op.name!r}; the copy "
                      f"kernel takes no tile and the others have none yet")

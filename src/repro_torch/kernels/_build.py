@@ -48,14 +48,14 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _P),
-    "nero_vadvc": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                   _I, _I, _P),
+    "nero_vadvc": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
+                   _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                           _I, _F, _F, _I, _I, _I, _P),
     "nero_dycore_kstep": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _I, _I, _I, _P),
     "nero_hdiff_kstep": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
-    "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _P),
+    "nero_hadv": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _P),
     "nero_copy": (_P, _P, _LL, _P),
     "nero_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -1,7 +1,8 @@
 """Public upwind-advection entry point: the tensor's device decides.
 
-A CPU tensor takes the plain version (`ref.hadv_upwind`); a CUDA tensor
-launches the CUDA kernel (`hadv.hadv_cuda`) or raises. There is no
+A CPU tensor takes the plain version (`ref.hadv_upwind`, or
+`ref.hadv_periodic`); a CUDA tensor launches the CUDA kernel
+(`hadv.hadv_cuda`) or raises. There is no
 fallback.
 """
 
@@ -19,9 +20,12 @@ HALO = 1   # one-sided (low-side) reach in y and x
 
 
 def hadv_upwind(src: torch.Tensor, cfl: float = _ref.DEFAULT_CFL,
-                tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
+                tile: Optional[tiling.CudaTile] = None,
+                periodic: bool = False) -> torch.Tensor:
     """Upwind advection of a `(planes, ny, nx)` stack; row 0 and column 0
-    pass through."""
+    pass through, or with `periodic=True` wrap to row ny - 1 and column
+    nx - 1."""
     if src.device.type == "cpu":
-        return _ref.hadv_upwind(src, cfl=cfl)
-    return hadv_cuda(src, cfl=cfl, tile=tile)
+        plain = _ref.hadv_periodic if periodic else _ref.hadv_upwind
+        return plain(src, cfl=cfl)
+    return hadv_cuda(src, cfl=cfl, tile=tile, periodic=periodic)

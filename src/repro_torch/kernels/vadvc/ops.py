@@ -19,8 +19,9 @@ def vadvc(u_stage: torch.Tensor, wcon: torch.Tensor, u_pos: torch.Tensor,
           utens: torch.Tensor, utens_stage: torch.Tensor,
           tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
     """Updated stage tendency of `(..., nz, ny, nx)` fields; `wcon` is
-    staggered, `(..., nz, ny, nx + 1)`, its leading axes a prefix of the
-    fields' (shared by the fields under it)."""
+    staggered, `(..., nz, ny, nx + 1)`, or periodic, `(..., nz, ny, nx)`,
+    its leading axes a prefix of the fields' (shared by the fields under
+    it)."""
     if u_stage.device.type == "cpu":
         extra = u_stage.dim() - wcon.dim()
         wb = wcon.reshape(wcon.shape[:-3] + (1,) * extra + wcon.shape[-3:])

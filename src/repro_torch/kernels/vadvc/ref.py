@@ -4,7 +4,8 @@ A port of `repro.kernels.vadvc.ref.vadvc`, in the same fp32 operation
 order: build the tridiagonal system, forward elimination, back
 substitution, and the tendency `DTR_STAGE·(x - u_pos)`. Layout
 `(..., nz, ny, nx)` with z at axis -3 and any leading batch axes; `wcon`
-is staggered in x, `(..., nz, ny, nx + 1)`.
+is staggered in x, `(..., nz, ny, nx + 1)`, or periodic, `(..., nz, ny,
+nx)`, where column nx is column 0.
 """
 
 from __future__ import annotations
@@ -40,11 +41,19 @@ def vadvc(u_stage: torch.Tensor, wcon: torch.Tensor, u_pos: torch.Tensor,
           utens: torch.Tensor, utens_stage: torch.Tensor) -> torch.Tensor:
     """The updated stage tendency, shaped and typed like `u_stage`. Each
     staggered column is widened to float32 before the sum, as in the TPU
-    kernel."""
+    kernel; a periodic wcon's right column at i = nx - 1 is its column 0."""
     nx = u_stage.shape[-1]
     wcon = wcon.float()
-    return vadvc_summed(u_stage, wcon[..., :nx] + wcon[..., 1:nx + 1], u_pos,
-                        utens, utens_stage)
+    if wcon.shape[-1] == nx:
+        right = torch.roll(wcon, -1, dims=-1)
+    elif wcon.shape[-1] == nx + 1:
+        right = wcon[..., 1:nx + 1]
+    else:
+        raise ValueError(f"vadvc: wcon rows are {wcon.shape[-1]} wide; "
+                         f"nx + 1 = {nx + 1} (staggered) or nx = {nx} "
+                         f"(periodic)")
+    return vadvc_summed(u_stage, wcon[..., :nx] + right, u_pos, utens,
+                        utens_stage)
 
 
 def vadvc_summed(u_stage: torch.Tensor, w: torch.Tensor, u_pos: torch.Tensor,

@@ -19,10 +19,11 @@ def vadvc_cuda(u_stage: torch.Tensor, wcon: torch.Tensor, u_pos: torch.Tensor,
                utens: torch.Tensor, utens_stage: torch.Tensor,
                tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
     """Thomas solve along z. Fields contiguous CUDA `(..., nz, ny, nx)`,
-    float32 or bfloat16; `wcon` staggered `(..., nz, ny, nx + 1)`, its
-    leading axes a prefix of the fields' (the fields of one ensemble member
-    share their member's wcon). Returns the updated stage tendency.
-    `u_pos` may be the same tensor as `u_stage`."""
+    float32 or bfloat16; `wcon` staggered `(..., nz, ny, nx + 1)` or
+    periodic `(..., nz, ny, nx)` (column nx is column 0), its leading axes
+    a prefix of the fields' (the fields of one ensemble member share their
+    member's wcon). Returns the updated stage tendency. `u_pos` may be the
+    same tensor as `u_stage`; the kernel then reads it once."""
     if u_stage.dim() < 3:
         raise ValueError(f"vadvc: fields must be (..., nz, ny, nx), got "
                          f"{tuple(u_stage.shape)}")
@@ -37,21 +38,27 @@ def vadvc_cuda(u_stage: torch.Tensor, wcon: torch.Tensor, u_pos: torch.Tensor,
     for name, t in (("u_stage", u_stage), ("u_pos", u_pos), ("utens", utens),
                     ("utens_stage", utens_stage)):
         _build.check_operand("vadvc", name, t, u_stage.shape, dt)
-    _build.check_operand("vadvc", "wcon", wcon, wlead + (nz, ny, nx + 1), dt)
+    wcon_w = wcon.shape[-1] if wcon.dim() >= 3 else -1
+    if wcon_w not in (nx, nx + 1):
+        raise ValueError(f"vadvc: wcon rows are {wcon_w} wide; nx + 1 = "
+                         f"{nx + 1} (staggered) or nx = {nx} (periodic)")
+    _build.check_operand("vadvc", "wcon", wcon, wlead + (nz, ny, wcon_w), dt)
     batch = math.prod(lead)
     group = math.prod(lead[len(wlead):])
-    tile = tile or tiling.vadvc_tile(ny, nx)
+    isz = u_stage.element_size()
+    tile = tile or tiling.vadvc_tile(ny, nx, nz, isz)
+    if tiling.vadvc_smem(nz, tile.tx, isz) > tiling.SMEM_BYTES_PER_BLOCK:
+        raise ValueError(f"vadvc: {tile.tx} columns of {nz} levels need "
+                         f"{tiling.vadvc_smem(nz, tile.tx, isz)} bytes of "
+                         f"shared memory; at most "
+                         f"{tiling.SMEM_BYTES_PER_BLOCK}")
     out = torch.empty_like(u_stage)
-    ccol = torch.empty(u_stage.shape, dtype=torch.float32,
-                       device=u_stage.device)
-    dcol = torch.empty_like(ccol)
     lib = _build.load()
     with torch.cuda.device(u_stage.device):
         err = lib.nero_vadvc(u_stage.data_ptr(), wcon.data_ptr(),
                              u_pos.data_ptr(), utens.data_ptr(),
-                             utens_stage.data_ptr(), out.data_ptr(),
-                             ccol.data_ptr(), dcol.data_ptr(), batch, group,
-                             nz, ny, nx, tile.ty, tile.tx,
+                             utens_stage.data_ptr(), out.data_ptr(), batch,
+                             group, nz, ny, nx, wcon_w, tile.tx,
                              int(dt == torch.bfloat16),
                              _build.stream_of(u_stage))
     _build.check(err, "vadvc")

@@ -28,10 +28,9 @@ def hdiff_periodic(src: torch.Tensor, coeff: float) -> torch.Tensor:
 
 
 def vadvc_field(u_stage, wcon, u_pos, utens, utens_stage):
-    """vadvc over a (..., nz, ny, nx) field. `wcon` is (..., nz, ny, nx) and
-    is wrap-padded to the staggered (nx+1) extent (periodic domain)."""
-    wcon_s = torch.cat([wcon, wcon[..., :1]], dim=-1)
-    return vadvc_ref.vadvc(u_stage, wcon_s, u_pos, utens, utens_stage)
+    """vadvc over a (..., nz, ny, nx) field. `wcon` is (..., nz, ny, nx),
+    periodic: its column nx is column 0."""
+    return vadvc_ref.vadvc(u_stage, wcon, u_pos, utens, utens_stage)
 
 
 def stack_state(d: dict, names=PROGNOSTIC) -> torch.Tensor:

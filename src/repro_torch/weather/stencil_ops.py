@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.hwspec import dtype_bytes
 from repro_torch.kernels.dycore_fused import ops as fused_ops
 from repro_torch.kernels.dycore_fused.ref import pad_periodic
 from repro_torch.kernels.hadv import ops as hadv_ops
@@ -332,12 +333,14 @@ def _vadvc_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
                         k):
     if variant == "unfused":
         return None
-    return tiling.vadvc_tile(compute_grid[1], compute_grid[2])
+    nz, ny, nx = compute_grid
+    return tiling.vadvc_tile(ny, nx, nz, dtype_bytes(dtype))
 
 
 def _vadvc_local_step(plan):
-    """Single-device vadvc round: wcon gains its right staggering column
-    by periodic wrap (the `(0, 1)` x-ride); fields and tendencies need no
+    """Single-device vadvc round: the state's periodic wcon goes to the
+    plain version or the kernel as it is (each wraps its right staggering
+    column, the `(0, 1)` x-ride, itself); fields and tendencies need no
     halo. The kernel takes a member's wcon once for all the fields under
     it: per_field launches once per field over the ensemble, whole_state
     once over the field-stacked state."""
@@ -345,9 +348,9 @@ def _vadvc_local_step(plan):
     names, variant, tile = prog.fields, plan.variant, plan.tile
 
     def step(state: WeatherState) -> WeatherState:
-        wconp = torch.cat([state.wcon, state.wcon[..., :1]], dim=-1)
+        wcon = state.wcon
         if variant == "unfused":
-            new_stage = {n: vadvc_ref.vadvc(state.fields[n], wconp,
+            new_stage = {n: vadvc_ref.vadvc(state.fields[n], wcon,
                                             state.fields[n], state.tens[n],
                                             state.stage_tens[n])
                          for n in names}
@@ -356,12 +359,12 @@ def _vadvc_local_step(plan):
             for n in names:
                 u = state.fields[n].contiguous()
                 new_stage[n] = vadvc_ops.vadvc(
-                    u, wconp, u, state.tens[n].contiguous(),
+                    u, wcon, u, state.tens[n].contiguous(),
                     state.stage_tens[n].contiguous(), tile=tile)
         else:                                        # whole_state
             stack = lambda d: _dycore.stack_state(d, names)
             u = stack(state.fields)
-            out = vadvc_ops.vadvc(u, wconp, u, stack(state.tens),
+            out = vadvc_ops.vadvc(u, wcon, u, stack(state.tens),
                                   stack(state.stage_tens), tile=tile)
             new_stage = _dycore.unstack_state(out, names)
         return _new_state(state, dict(state.fields), new_stage)
@@ -396,34 +399,35 @@ register_stencil_op(StencilOpDef(
 def _hadv_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
     if variant == "unfused":
         return None
-    return tiling.hadv_tile(compute_grid[1], compute_grid[2])
+    # the kernel runs on the unpadded planes
+    return tiling.hadv_tile(compute_grid[1] - 2 * hadv_ops.HALO,
+                            compute_grid[2] - 2 * hadv_ops.HALO,
+                            dtype_bytes(dtype))
 
 
 def _hadv_local_step(plan):
-    """Single-device hadv round: wrap-pad the LOW sides only, by 1 (the
-    donor cell only looks backward; the JAX package's packed exchange at the
-    asymmetric `(1, 0)` depth on one shard), then the oracle or one launch
-    for the whole state, and the interior crop. The compute grid the plan
-    reports is padded symmetrically, as the JAX package reports it; the
-    slab the kernel runs on is `(ny+1, nx+1)` and the kernel masks its own
-    ragged tiles."""
+    """Single-device hadv round: the periodic step on the field-stacked
+    state, by the oracle or one launch for the whole state, whose output
+    is a new contiguous field-stacked state (the next step stacks it
+    without a copy). The wrap the JAX package gets from its packed exchange
+    at the asymmetric `(1, 0)` depth is read inside the step: the result is
+    that of wrap-padding the low sides by 1, the passthrough step and the
+    interior crop. The compute grid the plan reports is padded
+    symmetrically, as the JAX package reports it."""
     prog = plan.program
     names, cfl, variant, tile = prog.fields, prog.coeff, plan.variant, \
         plan.tile
 
     def step(state: WeatherState) -> WeatherState:
         fs = _dycore.stack_state(state.fields, names)   # (e, nf, nz, ly, lx)
-        ly, lx = fs.shape[-2:]
-        fs = torch.cat([fs[..., -1:, :], fs], dim=-2)
-        fs = torch.cat([fs[..., :, -1:], fs], dim=-1)
-        Y, X = fs.shape[-2:]
+        planes = fs.reshape((-1,) + fs.shape[-2:])
         if variant == "unfused":
-            out = hadv_ref.hadv_upwind(fs.reshape(-1, Y, X), cfl=cfl)
+            out = hadv_ref.hadv_periodic(planes, cfl=cfl)
         else:                                        # whole_state
-            out = hadv_ops.hadv_upwind(fs.reshape(-1, Y, X), cfl=cfl,
-                                       tile=tile)
-        out = out.reshape(fs.shape)[..., 1:1 + ly, 1:1 + lx]
-        return _new_state(state, {n: out[:, i] for i, n in enumerate(names)},
+            out = hadv_ops.hadv_upwind(planes, cfl=cfl, tile=tile,
+                                       periodic=True)
+        return _new_state(state, _dycore.unstack_state(out.reshape(fs.shape),
+                                                       names),
                           dict(state.stage_tens))
     return step
 

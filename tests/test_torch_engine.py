@@ -208,7 +208,8 @@ def test_cuda_tile_clamps_a_wide_window():
     # of 128 columns, a thread for each 2 columns of a strip, its halo and
     # 1 column of slack (133, so 3 warps); a window wider than 1024 threads
     # hold is clamped to 2043 columns, then balanced (8192 columns: 5
-    # strips of 1639).
+    # strips of 1639). A vadvc warp takes a row segment of at most 32 of
+    # the window's columns, one a lane, and at most what fits nz levels.
     plan = tiling.TilePlan(op=tiling.HDIFF, grid_shape=(64, 256, 256),
                            tile=(1, 64, 128), dtype="float32")
     tile = tiling.cuda_tile_for(plan)
@@ -224,7 +225,11 @@ def test_cuda_tile_clamps_a_wide_window():
     plan = tiling.TilePlan(op=tiling.VADVC, grid_shape=(64, 256, 256),
                            tile=(64, 64, 128), dtype="float32")
     tile = tiling.cuda_tile_for(plan)
-    assert (tile.ty, tile.tx, tile.threads) == (8, 128, 1024)
+    assert (tile.ty, tile.tx, tile.threads) == (1, 32, 32)
+    narrow = tiling.cuda_tile_for(tiling.TilePlan(
+        op=tiling.VADVC, grid_shape=(1500, 256, 256), tile=(1500, 8, 16),
+        dtype="bfloat16"))
+    assert (narrow.ty, narrow.tx, narrow.threads) == (1, 15, 32)  # fits
     with pytest.raises(ValueError, match="no CUDA tile"):
         tiling.cuda_tile_for(tiling.TilePlan(
             op=tiling.COPY, grid_shape=(1, 8, 8), tile=(1, 1, 1),

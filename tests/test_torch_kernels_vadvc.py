@@ -3,9 +3,14 @@
 The same numpy inputs go through `repro.kernels.vadvc.vadvc.vadvc_pallas`
 (interpret mode), the numpy oracle `vadvc_np` and the port's `ops.vadvc` on
 the CPU (its plain version), at the reference's tolerance of 2e-4
-(`tests/test_kernels_vadvc.py`). The `cuda` cases hold the CUDA kernel
-against the plain version on the card.
+(`tests/test_kernels_vadvc.py`). A periodic wcon `(..., nz, ny, nx)`, whose
+column nx is column 0, gives the bits of the staggered one built by
+appending column 0. The `cuda` cases hold the CUDA kernel against the plain
+version on the card.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -118,6 +123,71 @@ def test_kernel_wrapper_refuses_wcon_not_led_like_the_fields(rng):
         vadvc_cuda(us, wcon[0], up, ut, uts)     # wcon (3, ...): not (2,)
 
 
+def _periodic(wcon):
+    """The periodic wcon whose staggered form is `wcon` with its last
+    column replaced by its first."""
+    return wcon[..., :-1].contiguous()
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
+def test_periodic_wcon_equals_the_staggered_cat(lead, rng):
+    """`ops.vadvc` given a periodic wcon equals `ops.vadvc` given the
+    staggered wcon that appends column 0, bit for bit (on the CPU: the
+    plain version); a member's wcon shared by its fields either way."""
+    nz, ny, nx = 7, 5, 9
+    us, ut, uts = (torch.from_numpy(rng.normal(size=lead + (nz, ny, nx))
+                                    .astype(np.float32)) for _ in range(3))
+    wp = torch.from_numpy(rng.uniform(-0.2, 0.2, size=lead[:1] + (nz, ny, nx))
+                          .astype(np.float32))
+    ws = torch.cat([wp, wp[..., :1]], dim=-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = [t.to(dtype) for t in (us, wp, us, ut, uts)]
+        b = [t.to(dtype) for t in (us, ws, us, ut, uts)]
+        assert torch.equal(ops.vadvc(*a), ops.vadvc(*b))
+    with pytest.raises(ValueError, match="wide"):
+        ref.vadvc(us, ws[..., :-2], us, ut, uts)
+
+
+@pytest.mark.parametrize("nz,itemsize,cols", [
+    (64, 4, 32), (64, 2, 32), (2, 4, 32), (1500, 4, 12), (1500, 2, 15)])
+def test_tile_takes_fewer_columns_for_tall_columns(nz, itemsize, cols):
+    """A warp a block: 32 columns, one a lane, while nz levels of (c, d)
+    and u_pos fit a block's shared memory with the ring; fewer above."""
+    t = tiling.vadvc_tile(256, 256, nz, itemsize)
+    assert (t.ty, t.threads) == (1, 32)
+    assert t.smem_bytes <= tiling.SMEM_BYTES_PER_BLOCK
+    assert t.tx == tiling.balanced(256, cols)
+    assert tiling.vadvc_smem(nz, cols + 1, itemsize) > \
+        tiling.SMEM_BYTES_PER_BLOCK or cols == tiling.VADVC_COLS
+    assert tiling.vadvc_tile(37, 70, 64).tx == 24       # 3 balanced segments
+    with pytest.raises(ValueError, match="columns a warp"):
+        tiling.vadvc_tile(37, 70, 64, cols=33)
+
+
+def test_one_kernel_and_no_device_scratch():
+    """`csrc/vadvc.cu` holds one kernel for every nz, dtype and wcon form,
+    launched from one place; the sweep's (c, d) live in shared memory, so
+    neither the C entry nor the wrapper has a scratch buffer, and the
+    wrapper allocates only the output."""
+    import inspect
+
+    from repro_torch.kernels.vadvc import vadvc as wrapper
+
+    code = re.sub(r"//[^\n]*", "",
+                  (Path(_build.CSRC) / "vadvc.cu").read_text())
+    assert code.count("__global__") == 1 and code.count("<<<") == 1
+    assert "cp_async4(" in code and "cp.async.ca.shared.global" in code
+    entry = code[code.index('extern "C" int nero_vadvc('):]
+    entry = entry[entry.index("(") + 1:entry.index(")")]
+    names = [re.split(r"[\s*]+", a.strip())[-1] for a in entry.split(",")]
+    assert names[:7] == ["ustage", "wcon", "upos", "utens", "ustagetens",
+                         "out", "batch"]
+    assert "wcon_w" in names and "ccol" not in names and "dcol" not in names
+    assert len(names) == len(_build._SIGNATURES["nero_vadvc"])
+    src = inspect.getsource(wrapper.vadvc_cuda)
+    assert src.count("torch.empty") == 1 and "empty_like(u_stage)" in src
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(dtype, cuda, rng):
@@ -130,8 +200,33 @@ def test_cuda_kernel_matches_plain(dtype, cuda, rng):
     want = ref.vadvc(*(a.float() for a in args))
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
     assert ((got.float() - want).abs() <= 2e-4 + rtol * want.abs()).all()
-    other = vadvc_cuda(*args, tile=tiling.vadvc_tile(37, 70, tj=4, ti=64))
+    other = vadvc_cuda(*args, tile=tiling.vadvc_tile(37, 70, 64, cols=16))
     assert torch.equal(other, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [2, 3, 64, 1500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_at_every_depth(nz, dtype, cuda, rng):
+    """nz 2 to 1500 (fewer columns a warp) on a ragged (37, 70) plane,
+    against the plain version; two block geometries bit for bit; a
+    periodic wcon bit for bit with the staggered one that appends its
+    column 0; u_pos apart from u_stage."""
+    us, wcon, up, ut, uts = (torch.from_numpy(a).to(cuda, dtype)
+                             for a in _fields(rng, nz, 37, 70))
+    wcon[..., -1] = wcon[..., 0]
+    got = vadvc_cuda(us, wcon, up, ut, uts)
+    torch.cuda.synchronize()
+    want = ref.vadvc(*(a.float() for a in (us, wcon, up, ut, uts)))
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert ((got.float() - want).abs() <= 2e-4 + rtol * want.abs()).all()
+    isz = us.element_size()
+    narrow = tiling.vadvc_tile(37, 70, nz, isz, cols=7)
+    assert narrow.tx != tiling.vadvc_tile(37, 70, nz, isz).tx
+    assert torch.equal(vadvc_cuda(us, wcon, up, ut, uts, tile=narrow), got)
+    assert torch.equal(vadvc_cuda(us, _periodic(wcon), up, ut, uts), got)
+    same = vadvc_cuda(us, wcon, us, ut, uts)       # u_pos is u_stage
+    assert torch.equal(same, vadvc_cuda(us, wcon, us.clone(), ut, uts))
 
 
 @pytest.mark.cuda
@@ -147,3 +242,7 @@ def test_cuda_kernel_shares_member_wcon(cuda, rng):
                              up[e, f].contiguous(), ut[e, f].contiguous(),
                              uts[e, f].contiguous())
             assert torch.equal(got[e, f], one)
+    assert torch.equal(vadvc_cuda(us, _periodic(wcon), up, ut, uts),
+                       vadvc_cuda(us, torch.cat(
+                           [_periodic(wcon), wcon[..., :1]], -1), up, ut,
+                           uts))

@@ -373,6 +373,68 @@ def test_cuda_plan_matches_cpu_plan(op, variant):
             <= 2e-4
 
 
+@pytest.mark.parametrize("variant", ["whole_state", "unfused"])
+def test_hadv_plan_leaves_one_contiguous_stack(variant):
+    """A hadv_upwind step writes a new contiguous field-stacked state, so
+    the next step's `stack_state` is a view of it, and the lowering holds
+    no `torch.cat` and no crop: the wrap is read inside the step."""
+    import inspect
+
+    from repro_torch.weather import stencil_ops
+
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              device="cpu")
+    plan = compile(StencilProgram(grid_shape=GRID, ensemble=E,
+                                  op="hadv_upwind", variant=variant),
+                   device="cpu")
+    nxt = plan.step(st)
+    stacked = dycore.stack_state(nxt.fields)
+    assert stacked.is_contiguous() and stacked.shape == (E, 4) + GRID
+    assert stacked.data_ptr() == nxt.fields["u"].data_ptr()
+    assert stacked.data_ptr() != dycore.stack_state(st.fields).data_ptr()
+    for fn in (stencil_ops._hadv_local_step, stencil_ops._vadvc_local_step):
+        assert "torch.cat" not in inspect.getsource(fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,kernel", [("hadv_upwind", "hadv"),
+                                       ("vadvc", "vadvc")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_op_step_is_one_launch(op, kernel, dtype):
+    """One whole-state step of `op="hadv_upwind"` launches one hadv kernel
+    and of `op="vadvc"` one vadvc kernel, and no other kernel; each equal
+    to the CPU plan's step (fp32 bits for hadv, vadvc within 2e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
+                              dtype=dtype, device="cpu")
+    st.stage_tens = fields.initial_state(torch.Generator().manual_seed(1),
+                                         GRID, E, dtype=dtype,
+                                         device="cpu").tens
+    on_card = fields.WeatherState(
+        fields=fields.field_views(dycore.stack_state(st.fields).cuda(),
+                                  fields.PROGNOSTIC),
+        wcon=st.wcon.cuda(),
+        tens={k: v.cuda() for k, v in st.tens.items()},
+        stage_tens={k: v.cuda() for k, v in st.stage_tens.items()})
+    prog = StencilProgram(grid_shape=GRID, ensemble=E, op=op, dtype=dtype)
+    plan = compile(prog, device="cuda")
+    _build.reset_launches()
+    got = plan.step(on_card)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == 1 == sum(_build.LAUNCHES.values())
+    want = compile(prog, device="cpu").step(st)
+    for n in want.fields:
+        for part in ("fields", "stage_tens"):
+            a = getattr(got, part)[n].cpu().float()
+            b = getattr(want, part)[n].float()
+            if op == "hadv_upwind" and dtype == "float32":
+                assert torch.equal(a, b), (part, n)
+            else:
+                tol = 2e-4 if dtype == "float32" else 2e-2
+                assert (a - b).abs().max() <= tol + 2.0 ** -7 * b.abs().max()
+
+
 def test_stack_state_takes_stacked_states_without_a_copy():
     st = fields.initial_state(torch.Generator().manual_seed(0), GRID, E,
                               device="cpu")
