@@ -24,7 +24,14 @@ the main path — `compile(StencilProgram(grid_shape=(64, 256, 256),
 ensemble=4)).run(state, 10)` — in float32 and bfloat16, the hdiff and vadvc
 plans, the k-step plans (`variant="kstep"`, `run(state, 5)`: full rounds and
 a ragged tail) and the hadv_upwind plan, counting the kernel launches of
-each run and comparing with the whole-state or unfused plan; drives the
+each run and comparing with the whole-state or unfused plan; the planner
+(`compile(..., tune="measure")` of the main path in both dtypes, the hdiff,
+vadvc and hadv_upwind plans and the dycore k=2 plan, with a fresh tuning
+cache under build/: every candidate kernel tile timed, the pick's step
+bit for bit and launch for launch equal to the default tile's, a second
+compile measuring nothing and giving the same tile, `report()`'s analytic
+model under h100_sxm and the modelled bytes over the measured step beside
+it, and `hardware="power9"` modelling under that spec); drives the
 `NeroEngine` entry point (plan + run of hdiff and vadvc at the paper's
 domain in both dtypes and of copy, each equal to the direct kernel call bit
 for bit; the measured "auto-tuned" pick beside the model's; the copy
@@ -73,10 +80,13 @@ one call.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,16 +106,6 @@ KSTEPS = (2, 3)                # k-step rounds checked; the k-step path runs 2
 LONG_KSTEPS = (4, 9)
 DEPTHS = (2, 9, 37, 96, 1500)  # nz of the whole-state kernel's depth checks
 VADVC_DEPTHS = (2, 3, 1500)    # nz of the vadvc kernel's depth checks
-# the whole-state kernel's candidate tiles (ty, tx), timed beside the
-# planner's pick at the main path's shapes (unsnapped: 12, 20 and 24 rows
-# leave a ragged last tile on 256 rows)
-FUSED_TILES = ((8, 32), (12, 32), (16, 32), (20, 32), (24, 32), (8, 64))
-# the hdiff stream's candidate tiles, timed queued beside each wrapper's
-# default at the main path's shapes (260 to 268 square): segments of at
-# most 67, 134 or 268 rows (4, 2 or 1 a plane) by strips of at most 268,
-# 134, 90 or 54 columns (1, 2, 3 or 5 a plane)
-HDIFF_TILES = tuple((ty, tx) for ty in (67, 134, 268)
-                    for tx in (268, 134, 90, 54))
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
@@ -123,6 +123,14 @@ PROMPT_LENS = (256, 1024)      # prompt lengths, drawn from a seed
 # LM training: (arch, layers kept (0: all), steps); full width, bf16
 TRAIN_RUNS = (("tinyllama-1.1b", 0, 5), ("recurrentgemma-9b", 3, 3))
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048      # tinyllama's published context
+# the planner phase's plans, each compiled with tune="measure":
+# (op, variant, k_steps, dtype)
+PLANNER_PLANS = (("dycore", "auto", "auto", "float32"),
+                 ("dycore", "auto", "auto", "bfloat16"),
+                 ("hdiff", "auto", "auto", "float32"),
+                 ("vadvc", "auto", "auto", "float32"),
+                 ("hadv_upwind", "auto", "auto", "float32"),
+                 ("dycore", "kstep", 2, "float32"))
 
 
 class SmokeFailure(Exception):
@@ -1355,14 +1363,15 @@ def main() -> int:
                                cluster=tiling.dycore_cluster(nf_))
 
     def hdiff_candidates(src, k):
-        """The hdiff stream at k stages on each of HDIFF_TILES, queued,
+        """The hdiff stream at k stages on each of `tiling.HDIFF_TILES`
+        (the planner's candidates, unbalanced), queued,
         each bit for bit equal to the default tile's output."""
         _, Y, X = src.shape
         run = ((lambda t: hdiff_cuda(src, tile=t)) if k == 1 else
                (lambda t: hdiff_kstep_cuda(src, k_steps=k, tile=t)))
         want = run(None)
         cand = {}
-        for cty, ctx in HDIFF_TILES:
+        for cty, ctx in tiling.HDIFF_TILES:
             t = tiling.hdiff_kstep_tile(Y, X, k, ty=cty, tx=ctx)
             key = f"{t.ty}x{t.tx}"
             if key not in cand:
@@ -1511,7 +1520,7 @@ def main() -> int:
         # the planner's tile beside the other candidates, queued, in
         # clusters of nf field blocks and of one
         cand = {}
-        for cty, ctx in FUSED_TILES:
+        for cty, ctx in tiling.FUSED_TILES:
             for cnf in (nf, 1):
                 t = fused_tile(cty, ctx, cnf)
                 cand[f"{t.ty}x{t.tx} cluster {t.cluster}"] = stream_ms(
@@ -1543,7 +1552,7 @@ def main() -> int:
             one[0], wb, one[1], one[2]))
         b_ms, b_by = bound(6 * ENSEMBLE * vol * isz, 61.0 * ENSEMBLE * vol)
         cand = {}
-        for cty, ctx in FUSED_TILES:
+        for cty, ctx in tiling.FUSED_TILES:
             t = fused_tile(cty, ctx, 1)
             cand[f"{t.ty}x{t.tx}"] = stream_ms(
                 lambda: fused_dycore_cuda(one[0], w, one[1], one[2], tile=t))
@@ -2170,6 +2179,122 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase_done("phase 4 (main path)")
+
+    # ---- 4b. the planner: compile(tune="measure") ----------------------
+    # Each plan of PLANNER_PLANS at the paper's domain: the first measured
+    # compile times every candidate kernel tile on the card (a fresh cache
+    # under build/, so nothing is read from an earlier run); the pick's
+    # step bit for bit and launch for launch equal to the default tile's;
+    # a second compile measures nothing and gives the same tile; and
+    # report()'s analytic model under h100_sxm beside the measured step,
+    # with the modelled bytes of the variant over that step as a rate
+    # (prints, not gates: the model is a model). Also the hardware= spec.
+    cache_root = ROOT / "build"
+    cache_root.mkdir(parents=True, exist_ok=True)
+    os.environ["REPRO_TUNE_CACHE"] = tempfile.mkdtemp(prefix="tune-",
+                                                      dir=cache_root)
+    measured = {"n": 0}
+    real_measure = autotune.measure_walltime
+
+    def spy(fn, repeats=3, device="cpu"):
+        measured["n"] += 1
+        return real_measure(fn, repeats=repeats, device=device)
+
+    def variant_bytes(plan, traffic):
+        """The modelled bytes of one round of the plan's variant, over the
+        ensemble (the models count one member)."""
+        if plan.program.op == "dycore":
+            key = {"per_field": "fused", "whole_state": "fused_whole",
+                   "kstep": "fused_kstep"}[plan.variant]
+            return ENSEMBLE * traffic[key]["total"]
+        return ENSEMBLE * traffic["stream_per_round"]
+
+    autotune.measure_walltime = spy
+    for op, variant, k, dtype in PLANNER_PLANS:
+        prog = StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE, op=op,
+                              variant=variant, k_steps=k, dtype=dtype)
+        label = f"planner op={op} {prog.variant}/k={prog.k_steps} {dtype}"
+        default = compile(prog)
+        n0, hits0 = measured["n"], autotune.TUNE_CACHE_STATS["hits"]
+        tuned = compile(prog, tune="measure")
+        rep = tuned.report()
+        json.dumps(rep)
+        tuning = rep["tuning"]
+        check(not tuning["cached"]
+              and measured["n"] - n0 == len(tuning["measured"]) > 1,
+              f"{label}: measured {measured['n'] - n0} candidates, "
+              f"{tuning}")
+        ms = {t: s * 1e3 for t, s in tuning["measured"].items()}
+        say(f"{label}: {len(ms)} tiles timed, ms by tile "
+            + json.dumps(ms) + f"; pick {tuning['kernel_tile']} "
+            f"{tuning['measured_s'] * 1e3:.4f} ms (request {tuning['tile']}),"
+            f" default {tuning['default_tile']} "
+            f"{ms[tuning['default_tile']]:.4f} ms")
+        check(tuning["measured_s"] <= tuning["measured"][
+            tuning["default_tile"]], f"{label}: the pick is slower than the "
+              f"default in its own measurement")
+        st = make_state(dtype, seed=6)
+        _build.reset_launches()
+        got = tuned.step(st)
+        torch.cuda.synchronize()
+        tuned_counts = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        want = default.step(st)
+        torch.cuda.synchronize()
+        check(tuned_counts == dict(_build.LAUNCHES)
+              and sum(tuned_counts.values()) == tuned.pallas_calls_per_round,
+              f"{label}: launches {tuned_counts}, default's "
+              f"{dict(_build.LAUNCHES)}")
+        check(state_equal(got, want), f"{label}: the pick's step differs "
+              f"from the default tile's")
+        n1, hits1 = measured["n"], autotune.TUNE_CACHE_STATS["hits"]
+        again = compile(prog, tune="measure")
+        check(measured["n"] == n1 and again.report()["tuning"]["cached"]
+              and autotune.TUNE_CACHE_STATS["hits"] == hits1 + 1 > hits0
+              and again.tile == tuned.tile,
+              f"{label}: the second compile measured "
+              f"{measured['n'] - n1} tiles, tile {again.tile} against "
+              f"{tuned.tile}")
+        step_ms = time_ms(lambda: tuned.step(st))
+        default_ms = time_ms(lambda: default.step(st))
+        model = rep["model"]
+        # the model's window covers one field of one member (vadvc's folds
+        # the ensemble and the fields): scaled to the round's work
+        model_round_us = model["time_us"] * (
+            1 if op == "vadvc" else ENSEMBLE * prog.n_fields)
+        nbytes = variant_bytes(tuned, rep["traffic"])
+        tb_s = nbytes / (step_ms * 1e-3) / 1e12
+        results[(f"planner_{op}_{tuned.variant}_k{tuned.k_steps}", dtype)] \
+            = dict(pick=tuning["kernel_tile"],
+                   pick_measured_ms=tuning["measured_s"] * 1e3,
+                   default=tuning["default_tile"],
+                   default_measured_ms=ms[tuning["default_tile"]],
+                   tiles_ms=ms, step_ms=step_ms, default_step_ms=default_ms,
+                   model_us=model["time_us"],
+                   model_round_us=model_round_us,
+                   model_bottleneck=model["bottleneck"],
+                   model_window=list(tuned.model_window().tile),
+                   modelled_bytes=nbytes, achieved_tb_per_s=tb_s)
+        say(f"{label}: step {step_ms:.4f} ms at the pick, {default_ms:.4f} "
+            f"ms at the default (median of {REPS} calls, CUDA events); "
+            f"model under {model['hardware']}: {model['time_us']:.3f} us "
+            f"({model['bottleneck']}, window {tuned.model_window().tile}), "
+            f"{model_round_us:.1f} us for the round's fields and members; "
+            f"modelled bytes {nbytes / 1e6:.1f} MB over the step: "
+            f"{tb_s:.3f} TB/s against 3.35")
+        p9 = compile(dataclasses.replace(prog, hardware="power9")).report()
+        check(p9["model"]["hardware"] == "power9"
+              and p9["model"]["spec_fingerprint"]
+              == hwspec.load_spec("power9").fingerprint
+              and rep["model"]["hardware"] == "h100_sxm",
+              f"{label}: hardware= models {p9['model']}")
+        del st, got, want
+    autotune.measure_walltime = real_measure
+    say(f"planner: {measured['n']} tiles measured; tuning cache "
+        f"{autotune.TUNE_CACHE_STATS} in {os.environ['REPRO_TUNE_CACHE']}")
+    torch.cuda.empty_cache()
+
+    phase_done("phase 4b (planner)")
 
     # ---- 5. the NeroEngine entry point ---------------------------------
     # plan + run for hdiff and vadvc at the paper's domain in both dtypes,

@@ -11,10 +11,12 @@ Two kinds of tile live here.
   arithmetic, so both packages pick the same window under the same spec.
 * The kernel's: a `CudaTile` is a block shape a CUDA kernel launches with,
   at most 1024 threads and 227 KB of shared memory (232,448 bytes, NVIDIA's
-  H100 data sheet). Each kernel has a fixed default (`hdiff_tile`, ...);
-  `cuda_tile_for` maps a planner's window for hdiff or vadvc onto the
-  kernel's tile. Every kernel masks its own ragged edge tiles, so a tile
-  need not divide the grid; results do not depend on the tile, bit for bit.
+  H100 data sheet). Each kernel has a fixed default (`hdiff_tile`, ...)
+  and candidate (ty, tx) requests (`FUSED_TILES`, `HDIFF_TILES`, ...)
+  that `compile(tune="measure")` times on the device; `cuda_tile_for` maps
+  a planner's window for hdiff or vadvc onto the kernel's tile. Every
+  kernel masks its own ragged edge tiles, so a tile need not divide the
+  grid; results do not depend on the tile, bit for bit.
 """
 
 from __future__ import annotations
@@ -77,6 +79,12 @@ HDIFF_MAX_K = 3
 HDIFF_COLS = 2          # window columns a thread owns (`kCols`)
 HDIFF_SEGMENT = 66      # default tallest segment, a stage (k = 1: 4 x 65)
 HDIFF_RING = 8          # ring rows (`kRing`): 5 rows in flight
+# the stream's candidate (ty, tx) requests, which `compile(tune="measure")`
+# times beside the default tile (`hdiff_kstep_tile`; at the main path's
+# 260-268 square planes: segments of at most 67, 134 or 268 rows, 4, 2 or 1
+# a plane, by strips of at most 268, 134, 90 or 54 columns, 1, 2, 3 or 5)
+HDIFF_TILES = tuple((ty, tx) for ty in (67, 134, 268)
+                    for tx in (268, 134, 90, 54))
 
 
 def balanced(n: int, most: int) -> int:
@@ -156,6 +164,9 @@ def hdiff_tile(ny: int, nx: int, ty: Optional[int] = None,
 VADVC_COLS = 32
 VADVC_RING = 4
 VADVC_STREAMS = 5       # ring regions a level: 4 fields and wcon
+# the sweep's candidate segment widths (columns a warp), timed by
+# `compile(tune="measure")` beside the default
+VADVC_TILES = (32, 24, 16, 12, 8, 4)
 
 
 def vadvc_smem(nz: int, cols: int, itemsize: int) -> int:
@@ -187,6 +198,17 @@ def vadvc_tile(ny: int, nx: int, nz: int, itemsize: int = 4,
     return CudaTile("vadvc", 1, cols, 32, vadvc_smem(nz, cols, itemsize))
 
 
+def snap_to_divisor(t: int, n: int, lo: int = 2) -> int:
+    """Largest divisor of `n` that is `<= t` and `>= lo`; `n` itself when
+    no divisor lands in `[lo, t]`. The JAX package's one snapping rule,
+    which the model's windows (`kernels/*/ops.py::plan_tile`) and the
+    traffic hooks (`weather/stencil_ops.py`) snap through."""
+    t = max(lo, min(int(t), n))
+    while n % t and t > lo:
+        t -= 1
+    return t if n % t == 0 else n
+
+
 def snap_ty_kstep(ty: int, ny: int, k_steps: int) -> int:
     """Legal k-step y-window: a divisor of `ny` that is at least
     `k_steps * HALO` (each local step consumes a HALO-deep ring of window
@@ -209,6 +231,12 @@ def dycore_cluster(nf: int) -> int:
     block cluster, sharing one copy of w's sweep coefficients: the largest
     divisor of `nf` up to `MAX_CLUSTER` (1 for one field)."""
     return max(d for d in range(1, min(nf, MAX_CLUSTER) + 1) if nf % d == 0)
+
+
+# the whole-state kernel's candidate (ty, tx) requests, which
+# `compile(tune="measure")` times beside the default (`dycore_tile` may
+# shrink a request's ty, so two requests can give one tile)
+FUSED_TILES = ((8, 32), (12, 32), (16, 32), (20, 32), (24, 32), (8, 64))
 
 
 def dycore_default(nf: int) -> Tuple[int, int]:
@@ -253,6 +281,11 @@ def dycore_tile(ny: int, nx: int, ty: Optional[int] = None,
 DYCORE_KSTEP_THREADS = 256
 DYCORE_KSTEP_MAX_NZ = 64
 _KSTEP_CHUNK, _KSTEP_BUFS = 8, 3                   # as in the kernel
+# the k-step kernel's candidate (ty, tx) requests for
+# `compile(tune="measure")`; a request `dycore_kstep_tile` refuses at a
+# grid, nz or k is no candidate there
+DYCORE_KSTEP_TILES = ((16, 32), (32, 24), (8, 32), (16, 24), (24, 24),
+                      (32, 16))
 
 
 def check_kstep_nz(nz: int) -> None:
@@ -332,6 +365,8 @@ def dycore_kstep_tile(ny: int, nx: int, k: int, ty: Optional[int] = None,
 HADV_RING = 8
 HADV_WARPS = 4
 HADV_SEGMENT = 32       # default tallest segment
+# the stream's candidate (ty, tx) requests for `compile(tune="measure")`
+HADV_TILES = tuple((ty, tx) for ty in (16, 32, 64) for tx in (128, 64, 32))
 
 
 def ring_region(n: int, itemsize: int) -> int:

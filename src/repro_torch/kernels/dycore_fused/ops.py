@@ -11,6 +11,19 @@
 A CPU tensor takes the plain unfused composition (`ref.fused_step_ref`,
 `ref.fused_kstep_ref`); a CUDA tensor launches the kernel
 (`fused.fused_dycore_cuda`, `kstep.fused_dycore_kstep_cuda`) or raises.
+
+`plan_tile`, `plan_tile_whole_state`, `plan_tile_kstep` and `resolve_tile`
+are the JAX package's window planners: the analytic model's y-extent of a
+(nz, ty, nx) window over the variant's tile space, tuned under
+`hwspec.default_spec()` and snapped as the JAX package snaps it. The
+window is what `ExecutionPlan.report()["model"]` estimates. It does not
+choose the kernel's tile: a launch takes `tiling.dycore_tile` /
+`tiling.dycore_kstep_tile` (or the tile `compile(tune="measure")` timed
+fastest on the device), since the model ranks windows differently from
+the card. Where no window of the space fits the spec's near memory (the
+z-by-x slabs never fit the H100's 227 KB), the window takes the kernel's
+default rows; and a k-step window that outgrows it is not refused, since
+the CUDA kernel's own tile decides which k runs.
 """
 
 from __future__ import annotations
@@ -19,13 +32,66 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import tiling
+from repro_torch.core import autotune, tiling
 from repro_torch.kernels.dycore_fused import ref as _ref
 from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
 from repro_torch.kernels.dycore_fused.kstep import fused_dycore_kstep_cuda
 
 DEFAULT_COEFF = _ref.DEFAULT_COEFF
 DEFAULT_DT = _ref.DEFAULT_DT
+
+
+def snap_ty(ty: int, ny: int) -> int:
+    """Largest legal y-window <= `ty`: a divisor of ny, >= 2 (a single
+    whole-y window when ny has no divisor in [2, ty])."""
+    return tiling.snap_to_divisor(ty, ny, lo=2)
+
+
+def plan_tile(grid_shape, dtype) -> int:
+    """The model's y-window over the per-field space."""
+    nz, ny, nx = grid_shape
+    window = autotune.tuned_window(tiling.DYCORE_FUSED, grid_shape, dtype,
+                                   (nz, tiling.dycore_default(1)[0], nx))
+    return snap_ty(window[1], ny)
+
+
+def plan_tile_whole_state(grid_shape, dtype, n_fields: int) -> int:
+    """The model's y-window over the whole-state space of `n_fields`
+    fields (w amortized in bytes but resident in near memory beside the
+    field windows, so the legal set shifts with the field count)."""
+    nz, ny, nx = grid_shape
+    window = autotune.tuned_window(
+        tiling.dycore_whole_state_spec(n_fields), grid_shape, dtype,
+        (nz, tiling.dycore_default(n_fields)[0], nx))
+    return snap_ty(window[1], ny)
+
+
+def plan_tile_kstep(grid_shape, dtype, n_fields: int, k_steps: int,
+                    hier=None) -> int:
+    """The model's y-window over the k-step space (a three-window working
+    slab), snapped to a divisor of ny that holds the k-step validity front
+    (`tiling.snap_ty_kstep`, which refuses ny < 2k)."""
+    nz, ny, nx = grid_shape
+    window = autotune.tuned_window(
+        tiling.dycore_kstep_spec(n_fields, k_steps), grid_shape, dtype,
+        (nz, tiling.dycore_kstep_default(k_steps)[0], nx), hier=hier)
+    return tiling.snap_ty_kstep(window[1], ny, k_steps)
+
+
+def resolve_tile(variant: str, grid_shape, dtype, n_fields: int,
+                 k_steps: int = 1, hier=None) -> Optional[int]:
+    """The model's y-window of any variant; None for the unfused oracle,
+    which has no kernel."""
+    if variant == "unfused":
+        return None
+    if variant == "per_field":
+        return plan_tile(grid_shape, dtype)
+    if variant == "whole_state":
+        return plan_tile_whole_state(grid_shape, dtype, n_fields)
+    if variant == "kstep":
+        return plan_tile_kstep(grid_shape, dtype, n_fields, k_steps,
+                               hier=hier)
+    raise ValueError(f"unknown dycore variant {variant!r}")
 
 
 def staggered_w(wcon: torch.Tensor) -> torch.Tensor:

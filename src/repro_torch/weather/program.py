@@ -3,45 +3,53 @@
 A port of `repro.weather.program` for a single device:
 
 * `StencilProgram` is the *what*: the registered op (`"dycore"`, `"hdiff"`,
-  `"vadvc"`, `"hadv_upwind"`), grid, ensemble, field set, precision and
-  step policy. It keeps the JAX package's checks, and `to_json` /
-  `from_json` round-trip with the JAX package's JSON.
-* `compile(program, device="cuda")` is the planner: it resolves the
-  execution variant, the kernel tile and the launch count per round once.
+  `"vadvc"`, `"hadv_upwind"`), grid, ensemble, field set, precision, step
+  policy and the hardware spec its modelled numbers target. It keeps the
+  JAX package's checks, and `to_json` / `from_json` round-trip with the JAX
+  package's JSON.
+* `compile(program, device="cuda", tune=None)` is the planner: it resolves
+  the execution variant, the kernel tile and the launch count per round
+  once. The tile is the kernel's own rule (`core/tiling.py`); with
+  `tune="measure"` it is the candidate tile (the op's
+  `cuda_tile_candidates`) that ran the round fastest on the plan's device,
+  measured once and kept in a disk cache (`core/autotune.py`).
 * `ExecutionPlan` is the *how*: `step(state)` advances one round of
   `k_steps` timesteps, `run(state, steps)` runs `steps // k_steps` rounds and
   one shorter tail round (`round_plan(steps % k_steps)`), `report()` returns
-  the structural strategy under the JAX package's key names and the
-  paper's cross-machine table (`model_by_hardware`).
+  the strategy under the JAX package's key names: the structure, the
+  modelled bytes of a step (`traffic`), the analytic model of the variant's
+  window under the program's hardware spec (`model`) and the paper's
+  cross-machine table (`model_by_hardware`).
 
 What runs is decided by the plan's device: on CUDA every kernelled variant
 launches the hand-written kernels (a k-step round is ONE launch of the
 k-step kernel); on the CPU the same lowering takes their plain versions.
 Not yet ported, each raising `NotImplementedError`: meshes (ROADMAP queue
-1, item 6), `tune="measure"` (item 2), `hardware=` and the `model` /
-`traffic` blocks of `report()` (item 4).
+1, item 6) and pipeline programs (`stages`, item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import autotune, hwspec, perfmodel, tiling
 from repro_torch.weather import stencil_ops as _sops
-from repro_torch.weather.fields import PROGNOSTIC, WeatherState, dtype_name
+from repro_torch.weather.fields import (PROGNOSTIC, WeatherState, dtype_name,
+                                        zeros_state)
 from repro_torch.weather.stencil_ops import (StencilOpDef, get_stencil_op,
                                              register_stencil_op,
                                              registered_stencil_ops)
 
 VARIANTS = _sops.VARIANTS
-# The hardware specs the port ships (`repro_torch/specs/*.json`); a program
-# naming one is valid, though `compile(hardware=...)` is not ported yet.
+# The hardware specs the port ships (`repro_torch/specs/*.json`): a
+# program's `hardware` names the one its modelled numbers target.
 KNOWN_HARDWARE = hwspec.available_specs()
 
-__all__ = ["StencilProgram", "ExecutionPlan", "compile",
+__all__ = ["StencilProgram", "ExecutionPlan", "compile", "plan_cache_key",
            "StencilOpDef", "get_stencil_op",
            "register_stencil_op", "registered_stencil_ops", "VARIANTS"]
 
@@ -143,6 +151,16 @@ class StencilProgram:
         return cls(**d)
 
 
+def plan_cache_key(program: StencilProgram,
+                   ensemble: Optional[int] = None) -> StencilProgram:
+    """The compile-once cache key of `program`: the frozen, normalized
+    program itself, with `ensemble` rebound when given (requests that
+    differ only in ensemble share a plan keyed at the slot count)."""
+    if ensemble is not None and ensemble != program.ensemble:
+        program = dataclasses.replace(program, ensemble=ensemble)
+    return program
+
+
 def same_device(a: torch.device, b: torch.device) -> bool:
     """Whether `a` and `b` name one device (`cuda` matches `cuda:0`)."""
     return a.type == b.type and (a.index is None or b.index is None
@@ -169,6 +187,26 @@ class ExecutionPlan:
     @property
     def op_def(self) -> StencilOpDef:
         return get_stencil_op(self.program.op)
+
+    @property
+    def hardware(self) -> str:
+        """The spec the plan's modelled numbers target (never None)."""
+        return self.program.hardware or hwspec.default_spec_name()
+
+    def hardware_spec(self) -> hwspec.HardwareSpec:
+        return hwspec.load_spec(self.hardware)
+
+    def model_window(self) -> Optional[tiling.TilePlan]:
+        """The analytic model's window of the plan's variant (the op's
+        `model_tile`, tuned under `hwspec.default_spec()`), or None for the
+        unfused oracle; cached. `report()["model"]` estimates it; no launch
+        takes it."""
+        if "model_window" not in self._cache:
+            prog = self.program
+            self._cache["model_window"] = self.op_def.model_tile(
+                self.variant, self.compute_grid, prog.dtype, prog.n_fields,
+                prog.ensemble, self.k_steps)
+        return self._cache["model_window"]
 
     def step(self, state: WeatherState) -> WeatherState:
         """Advance ONE round (`k_steps` timesteps)."""
@@ -207,11 +245,17 @@ class ExecutionPlan:
         return plan
 
     def report(self) -> Dict[str, Any]:
-        """The structural strategy under the JAX package's key names and
-        the cross-machine table `model_by_hardware`. The `model` and
-        `traffic` blocks are not ported yet (ROADMAP queue 1, item 4)."""
+        """The strategy under the JAX package's key names, plain JSON: the
+        structure, `traffic_model_ty` and `traffic` (the op's modelled
+        bytes of a step at the rows of the kernel tile that runs; an
+        unfused plan takes the whole-state tile's rows), `exchange_model`
+        (None: one device exchanges nothing), `model` (the analytic model
+        of `model_window()` under `hardware_spec()`, None for the unfused
+        oracle), `model_by_hardware`, and `tuning`: the measured pick of
+        `compile(tune="measure")`, None otherwise."""
         prog = self.program
-        return {
+        opdef = self.op_def
+        rep = {
             "op": prog.op,
             "program": prog.to_json(),
             "variant": self.variant,
@@ -226,8 +270,38 @@ class ExecutionPlan:
             "exchange": None,
             "pallas_calls_per_round": self.pallas_calls_per_round,
             "collectives_per_round": self.collectives_per_round,
-            "model_by_hardware": self.model_by_hardware(),
         }
+        model_ty = self.tile_ty
+        if model_ty is None:
+            model_ty = self._cache.get("traffic_model_ty")
+            if model_ty is None:
+                # the tile a whole-state plan of the program launches
+                model_ty = opdef.resolve_tile(
+                    "whole_state", self.compute_grid, prog.dtype,
+                    prog.n_fields, prog.ensemble, 1).ty
+                self._cache["traffic_model_ty"] = model_ty
+        rep["traffic_model_ty"] = model_ty
+        rep["traffic"] = opdef.traffic(self, model_ty)
+        rep["exchange_model"] = None
+        window = self.model_window()
+        if window is None:
+            rep["model"] = None
+        else:
+            est = self._cache.get("perf_est")
+            if est is None:
+                est = perfmodel.estimate(window, spec=self.hardware_spec())
+                self._cache["perf_est"] = est
+            rep["model"] = {"time_us": est.time_s * 1e6,
+                            "gflops": est.gflops,
+                            "gflops_per_watt": est.gflops_per_watt,
+                            "bottleneck": est.bottleneck,
+                            "hardware": est.hardware,
+                            "kernel_class": est.kernel_class,
+                            "spec_fingerprint":
+                                self.hardware_spec().fingerprint}
+        rep["model_by_hardware"] = self.model_by_hardware()
+        rep["tuning"] = self._cache.get("tuning")
+        return rep
 
     def model_by_hardware(self, grid_shape: Optional[Tuple[int, int, int]]
                           = None) -> Dict[str, Any]:
@@ -301,12 +375,19 @@ class ExecutionPlan:
 
 
 def compile(program: StencilProgram, mesh=None, *, device="cuda",
-            tune: Optional[str] = None) -> ExecutionPlan:
+            tune: Optional[str] = None,
+            _tile: Optional[Tuple[int, int]] = None) -> ExecutionPlan:
     """Resolve `program`'s single-device execution strategy once.
 
     `device` defaults to the GPU; pass `device="cpu"` to run the plain
-    versions of the kernels. `tune=None` / `"model"` take the fixed tile of
-    `core/tiling.py`."""
+    versions of the kernels. `tune=None` / `"model"` take the kernel tile
+    of `core/tiling.py` (the analytic model's window is reported, not
+    launched: it ranks windows differently from the card). `tune="measure"`
+    (the paper's "auto-tuned" mode) times one round at each of the op's
+    candidate tiles on `device` and keeps the fastest, stored in the disk
+    cache of `core/autotune.py` under (program, hardware spec, device), so
+    a later compile measures nothing. `_tile` is the `(ty, tx)` request
+    the measured path pins."""
     if not isinstance(program, StencilProgram):
         raise TypeError(f"compile wants a StencilProgram, got "
                         f"{type(program).__name__}")
@@ -315,10 +396,6 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
                          f"'measure'")
     if mesh is not None:
         raise _not_ported("mesh= (distributed rounds)", "item 6")
-    if tune == "measure":
-        raise _not_ported("tune='measure'", "item 2")
-    if program.hardware is not None:
-        raise _not_ported("hardware= (modeled numbers)", "item 4")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("compile(device='cuda'): no CUDA device is "
@@ -355,10 +432,82 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
                     f"only ({ny}, {nx}); use a bigger grid or a smaller "
                     f"k_steps")
     tile = opdef.resolve_tile(variant, compute_grid, program.dtype, nf,
-                              program.ensemble, k)
-    return ExecutionPlan(
+                              program.ensemble, k, _tile)
+    plan = ExecutionPlan(
         program=program, variant=variant, k_steps=k,
         tile_ty=None if tile is None else tile.ty, tile=tile,
         local_grid=(nz, ny, nx), compute_grid=compute_grid, device=device,
         pallas_calls_per_round=opdef.pallas_calls(variant, nf, k),
         collectives_per_round=0)
+    if tune == "measure" and _tile is None:
+        plan = _measured_retune(plan)
+    return plan
+
+
+def _measured_retune(plan: ExecutionPlan) -> ExecutionPlan:
+    """The `tune="measure"` path: the candidate tile that ran a round
+    fastest on the plan's device, looked up in the disk cache by (program,
+    one shard, hardware spec, device) or measured once and stored; the
+    plan recompiled with that tile pinned."""
+    if plan.tile is None:
+        return plan               # the unfused oracle has no tile to tune
+    program = plan.program
+    spec = plan.hardware_spec()
+    backend = autotune.backend_name(plan.device)
+    key = autotune.tune_cache_key((plan_cache_key(program), (1, 1)), spec,
+                                  backend)
+    entry = autotune.tune_cache_load(key)
+    cached = entry is not None
+    if entry is None:
+        entry = _measure_tile_candidates(plan)
+        entry.update({"backend": backend, "spec": spec.name,
+                      "spec_fingerprint": spec.fingerprint,
+                      "k_steps": plan.k_steps})
+        autotune.tune_cache_store(key, entry)
+    tuned = compile(program, device=plan.device,
+                    _tile=tuple(int(t) for t in entry["tile"]))
+    tuned._cache["tuning"] = {"mode": "measure", "cached": cached, **entry}
+    return tuned
+
+
+# `tune="measure"` times at most MAX_MEASURED candidate tiles (the JAX
+# package's bound), each the median of MEASURE_REPEATS rounds: on the H100
+# a median of 3 moved a round's time by up to 10% between a tile's own
+# calls, more than the tiles differ (PERF.md §6)
+MAX_MEASURED = 8
+MEASURE_REPEATS = 10
+
+
+def _measure_tile_candidates(plan: ExecutionPlan) -> Dict[str, Any]:
+    """Time one round (`autotune.measure_walltime`) at each of the op's
+    kernel tile candidates, at most MAX_MEASURED spread over the list (the
+    default first), on an all-zero state on the plan's device; return the
+    cache entry. Only a ValueError of the planner, refusing a pinned
+    request, scores a candidate `inf`: a kernel that fails to build or
+    launch raises."""
+    program = plan.program
+    cands = plan.op_def.cuda_tile_candidates(
+        plan.variant, plan.compute_grid, program.dtype, program.n_fields,
+        plan.k_steps)
+    if len(cands) > MAX_MEASURED:
+        stride = len(cands) / MAX_MEASURED
+        cands = [cands[int(i * stride)] for i in range(MAX_MEASURED)]
+    state = zeros_state(program.grid_shape, program.ensemble, program.dtype,
+                        names=program.fields, device=plan.device)
+    timed = {}
+    for request, tile in cands:
+        try:
+            cp = compile(program, device=plan.device, _tile=request)
+        except ValueError:
+            timed[request] = (tile, math.inf)
+            continue
+        timed[request] = (tile, autotune.measure_walltime(
+            lambda: cp.step(state), repeats=MEASURE_REPEATS,
+            device=plan.device))
+    best = min(timed, key=lambda r: timed[r][1])
+    name = lambda t: f"{t.ty}x{t.tx}"
+    return {"tile": list(best),
+            "kernel_tile": name(timed[best][0]),
+            "default_tile": name(cands[0][1]),
+            "measured_s": timed[best][1],
+            "measured": {name(t): sec for t, sec in timed.values()}}

@@ -15,16 +15,24 @@ variants, and its lowerings: tile resolution and the single-device step.
 timesteps in ONE kernel launch. On one device the halo exchange of the JAX
 package degenerates to periodic wrap-padding, which the lowerings here do
 directly. Distributed rounds are later work (ROADMAP queue 1, item 6).
+
+Each op also declares its models, as the JAX package's do: the analytic
+window `report()["model"]` estimates (`model_tile`), the modelled bytes of
+a step (`traffic`, from `core/memmodel.py`), the wire bytes of a packed
+exchange at depth k over a mesh (`exchange_model`; a single-device plan
+has none), the CUDA k-step legality `autotune.resolve_k_steps` walks
+(`kstep_check`), and the kernel tiles `compile(tune="measure")` times
+(`cuda_tile_candidates`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core import tiling
+from repro_torch.core import autotune, memmodel, tiling
 from repro_torch.core.hwspec import dtype_bytes
 from repro_torch.kernels.dycore_fused import ops as fused_ops
 from repro_torch.kernels.dycore_fused.ref import pad_periodic
@@ -36,7 +44,7 @@ from repro_torch.kernels.vadvc import ops as vadvc_ops
 from repro_torch.kernels.vadvc import ref as vadvc_ref
 from repro_torch.weather import dycore as _dycore
 from repro_torch.weather.dycore import HALO
-from repro_torch.weather.fields import WeatherState
+from repro_torch.weather.fields import WeatherState, dtype_name
 
 VARIANTS = ("auto", "unfused", "per_field", "whole_state", "kstep")
 
@@ -77,11 +85,27 @@ class OperandRide:
 class StencilOpDef:
     """A registered stencil operator: footprint declaration + lowerings.
 
-    * `resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k)`
-      -> `tiling.CudaTile`, or None for the unfused oracle variant;
+    * `resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k,
+      request=None)` -> `tiling.CudaTile`, or None for the unfused oracle
+      variant; a `(ty, tx)` request pins the kernel planner's arguments;
     * `build_local_step(plan)` -> `state -> state`, the single-device round;
     * `pallas_calls(variant, n_fields, k)` -> kernel launches per round
-      (the JAX package's key name, kept for schema parity).
+      (the JAX package's key name, kept for schema parity);
+    * `model_tile(variant, compute_grid, dtype, n_fields, ensemble, k)` ->
+      the analytic model's `tiling.TilePlan` window over the variant's tile
+      space (`tile_spaces`), or None for the oracle: what
+      `report()["model"]` estimates, never what a launch takes;
+    * `traffic(plan, model_ty)` -> `report()["traffic"]`, the modelled
+      bytes of a step at a `model_ty`-row window of the physical grid;
+    * `exchange_model(program, k, shards)` -> the modelled wire bytes of
+      the op's packed exchange at depth k over `shards` = (py, px);
+    * `kstep_check(program, shards)` -> a callable that raises ValueError
+      for a k the op's CUDA k-step round refuses (for
+      `autotune.resolve_k_steps`);
+    * `cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k)` ->
+      `[(request, CudaTile), ...]`, the kernel tiles
+      `compile(tune="measure")` times: the default tile first, then one a
+      distinct tile, each with the request that pins it.
     """
 
     name: str
@@ -95,16 +119,32 @@ class StencilOpDef:
     inkernel_kstep: bool = False             # k-step round is ONE launch
     pads_single_chip: bool = False           # single chip wrap-pads + crops
     packed_variants: Tuple[str, ...] = ()    # variants on the packed wire
+    tile_spaces: Tuple[Tuple[str, str], ...] = ()  # (variant, autotune op)
     resolve_tile: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
     build_local_step: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
     pallas_calls: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
+    model_tile: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    traffic: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    exchange_model: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    kstep_check: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    cuda_tile_candidates: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def resolved_rides(self, k: int):
         """((operand, (y_lo, y_hi), (x_lo, x_hi)), ...) at depth k."""
         return tuple((r.operand,) + r.depths(k) for r in self.rides)
+
+    def memmodel_rides(self, n_fields: int):
+        """The rides in `memmodel.packed_exchange_model` form."""
+        return tuple((r.operand, n_fields if r.per_field else 1,
+                      r.y, r.x, r.y_fixed, r.x_fixed) for r in self.rides)
 
     def describe(self, n_fields: int = 4, k: int = 1) -> Dict[str, Any]:
         """JSON footprint declaration (`plan.report()["footprint"]`)."""
@@ -148,23 +188,100 @@ def _new_state(state: WeatherState, fields, stage_tens) -> WeatherState:
                         stage_tens=stage_tens)
 
 
+def _tile_candidates(resolve, default_request, requests
+                     ) -> List[Tuple[Tuple[int, int], tiling.CudaTile]]:
+    """`[(request, tile), ...]` for `cuda_tile_candidates`: the default
+    request first, then each of `requests` whose tile the kernel's planner
+    accepts (a ValueError drops it) and no earlier request gave. `resolve`
+    maps a `(ty, tx)` request, or None for the default, to a tile."""
+    default = resolve(None)
+    if resolve(default_request) != default:
+        raise RuntimeError(f"the request {default_request} does not pin "
+                           f"the default tile {default}")
+    out, seen = [(tuple(default_request), default)], {default}
+    for request in requests:
+        try:
+            tile = resolve(tuple(request))
+        except ValueError:
+            continue
+        if tile not in seen:
+            seen.add(tile)
+            out.append((tuple(request), tile))
+    return out
+
+
+def _generic_exchange_model(program, k, shards):
+    """The packed exchange of any op, from its declared rides."""
+    op = get_stencil_op(program.op)
+    return memmodel.packed_exchange_model(
+        program.grid_shape, program.dtype,
+        rides=op.memmodel_rides(program.n_fields), k=k, shards=shards,
+        compute_halo=(k * op.halo, k * op.halo),
+        exchange_dtype=program.exchange_dtype)
+
+
 # ---------------------------------------------------------------------------
 # "dycore" — the fused compound step
 # ---------------------------------------------------------------------------
 
 
 def _dycore_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
-                         k):
+                         k, request=None):
     if variant == "unfused":
         return None
+    nz, ny, nx = compute_grid
+    ty, tx = request or (None, None)
     if variant == "kstep":
-        return tiling.dycore_kstep_tile(compute_grid[1], compute_grid[2], k,
-                                        nz=compute_grid[0])
+        return tiling.dycore_kstep_tile(ny, nx, k, ty, tx, nz=nz)
     # per_field launches one field at a time: no fields to share w's
     # sweep coefficients, a cluster of one
-    return tiling.dycore_tile(
-        compute_grid[1], compute_grid[2], nz=compute_grid[0],
-        nf=1 if variant == "per_field" else n_fields)
+    return tiling.dycore_tile(ny, nx, ty, tx, nz=nz,
+                              nf=1 if variant == "per_field" else n_fields)
+
+
+def _dycore_cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k):
+    if variant == "unfused":
+        return []
+    resolve = lambda req: _dycore_resolve_tile(
+        variant, compute_grid, dtype, n_fields, 1, k, req)
+    if variant == "kstep":
+        default = resolve(None)
+        return _tile_candidates(resolve, (default.ty, default.tx),
+                                tiling.DYCORE_KSTEP_TILES)
+    nf = 1 if variant == "per_field" else n_fields
+    return _tile_candidates(resolve, tiling.dycore_default(nf),
+                            tiling.FUSED_TILES)
+
+
+def _dycore_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+    ty = fused_ops.resolve_tile(variant, compute_grid, dtype, n_fields, k)
+    if ty is None:
+        return None
+    spec = {"per_field": tiling.DYCORE_FUSED,
+            "whole_state": tiling.dycore_whole_state_spec(n_fields),
+            "kstep": tiling.dycore_kstep_spec(n_fields, k)}[variant]
+    return tiling.TilePlan(op=spec, grid_shape=tuple(compute_grid),
+                           tile=(compute_grid[0], ty, compute_grid[2]),
+                           dtype=dtype_name(dtype))
+
+
+def _dycore_traffic(plan, model_ty):
+    prog = plan.program
+    return memmodel.dycore_step_traffic(
+        prog.grid_shape, prog.dtype, n_fields=prog.n_fields, ty=model_ty,
+        k_steps=plan.k_steps)
+
+
+def _dycore_exchange_model(program, k, shards):
+    return memmodel.kstep_exchange_model(
+        program.grid_shape, program.dtype, n_fields=program.n_fields, k=k,
+        shards=shards, halo=HALO, exchange_dtype=program.exchange_dtype)
+
+
+def _dycore_kstep_check(program, shards):
+    """The k-step kernel's tile on the k-padded local slab at the grid's
+    nz (`autotune.resolve_k_steps`'s default)."""
+    return autotune.dycore_kstep_check(program.grid_shape, shards, HALO)
 
 
 def _dycore_local_step(plan):
@@ -242,11 +359,19 @@ register_stencil_op(StencilOpDef(
     inkernel_kstep=True,
     pads_single_chip=False,
     packed_variants=("whole_state", "kstep"),
+    tile_spaces=(("per_field", "dycore_fused"),
+                 ("whole_state", "dycore_whole_state"),
+                 ("kstep", "dycore_kstep")),
     resolve_tile=_dycore_resolve_tile,
     build_local_step=_dycore_local_step,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1, "kstep": 1}[
                                              variant],
+    model_tile=_dycore_model_tile,
+    traffic=_dycore_traffic,
+    exchange_model=_dycore_exchange_model,
+    kstep_check=_dycore_kstep_check,
+    cuda_tile_candidates=_dycore_cuda_tile_candidates,
 ))
 
 
@@ -256,12 +381,39 @@ register_stencil_op(StencilOpDef(
 
 
 def _hdiff_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
-                        k):
+                        k, request=None):
     if variant == "unfused":
         return None
-    if variant == "kstep":
-        return tiling.hdiff_kstep_tile(compute_grid[1], compute_grid[2], k)
-    return tiling.hdiff_tile(compute_grid[1], compute_grid[2])
+    ty, tx = request or (None, None)
+    return tiling.hdiff_kstep_tile(compute_grid[1], compute_grid[2],
+                                   k if variant == "kstep" else 1, ty, tx)
+
+
+def _hdiff_cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k):
+    if variant == "unfused":
+        return []
+    resolve = lambda req: _hdiff_resolve_tile(
+        variant, compute_grid, dtype, n_fields, 1, k, req)
+    default = resolve(None)
+    return _tile_candidates(resolve, (default.ty, default.tx),
+                            tiling.HDIFF_TILES)
+
+
+def _hdiff_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+    if variant == "unfused":
+        return None
+    return hdiff_ops.resolve_tile(compute_grid, dtype)
+
+
+def _hdiff_traffic(plan, model_ty):
+    prog = plan.program
+    nz, ny, nx = prog.grid_shape
+    # model_ty may come from the padded compute grid; the model runs on the
+    # physical grid, so snap to a legal window of it
+    tile = (1, tiling.snap_to_divisor(model_ty, ny, lo=1), nx)
+    return memmodel.stencil_op_traffic(
+        autotune.get_op("hdiff"), prog.grid_shape, prog.dtype,
+        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
 
 
 def _hdiff_local_step(plan):
@@ -316,11 +468,20 @@ register_stencil_op(StencilOpDef(
     inkernel_kstep=True,
     pads_single_chip=True,
     packed_variants=("unfused", "per_field", "whole_state", "kstep"),
+    tile_spaces=(("per_field", "hdiff"), ("whole_state", "hdiff"),
+                 ("kstep", "hdiff")),
     resolve_tile=_hdiff_resolve_tile,
     build_local_step=_hdiff_local_step,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1, "kstep": 1}[
                                              variant],
+    model_tile=_hdiff_model_tile,
+    traffic=_hdiff_traffic,
+    exchange_model=_generic_exchange_model,
+    # every k runs: a round of more than tiling.HDIFF_MAX_K steps runs as
+    # several launches, each planning its own tile
+    kstep_check=lambda program, shards: (lambda k: None),
+    cuda_tile_candidates=_hdiff_cuda_tile_candidates,
 ))
 
 
@@ -330,11 +491,52 @@ register_stencil_op(StencilOpDef(
 
 
 def _vadvc_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
-                        k):
+                        k, request=None):
     if variant == "unfused":
         return None
     nz, ny, nx = compute_grid
-    return tiling.vadvc_tile(ny, nx, nz, dtype_bytes(dtype))
+    # a warp owns one row: a request's ty is not the kernel's to take
+    cols = None if request is None else request[1]
+    return tiling.vadvc_tile(ny, nx, nz, dtype_bytes(dtype), cols)
+
+
+def _vadvc_cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k):
+    if variant == "unfused":
+        return []
+    resolve = lambda req: _vadvc_resolve_tile(
+        variant, compute_grid, dtype, n_fields, 1, k, req)
+    return _tile_candidates(resolve, (1, resolve(None).tx),
+                            [(1, cols) for cols in tiling.VADVC_TILES])
+
+
+def _vadvc_fold_grid(variant, local_grid, n_fields, ensemble):
+    """The grid the JAX package's vadvc kernel tiles: the horizontally
+    parallel sweep folds (ensemble [, field]) into y."""
+    nz, ly, lx = local_grid
+    fold = ensemble * (n_fields if variant == "whole_state" else 1)
+    return (nz, fold * ly, lx)
+
+
+def _vadvc_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+    if variant == "unfused":
+        return None
+    return vadvc_ops.resolve_tile(
+        _vadvc_fold_grid(variant, compute_grid, n_fields, ensemble), dtype)
+
+
+def _vadvc_traffic(plan, model_ty):
+    prog = plan.program
+    nz, ny, nx = prog.grid_shape
+    # the model's window lives on the ensemble/field-folded grid; the model
+    # runs on the physical grid, so snap its (tj, ti) to legal extents of
+    # (ny, nx) (z whole: the sweep is sequential)
+    window = plan.model_window()
+    tj, ti = (model_ty, nx) if window is None else window.tile[1:]
+    tile = (nz, tiling.snap_to_divisor(tj, ny, lo=1),
+            tiling.snap_to_divisor(ti, nx, lo=1))
+    return memmodel.stencil_op_traffic(
+        autotune.get_op("vadvc"), prog.grid_shape, prog.dtype,
+        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
 
 
 def _vadvc_local_step(plan):
@@ -383,10 +585,15 @@ register_stencil_op(StencilOpDef(
     inkernel_kstep=False,
     pads_single_chip=True,
     packed_variants=("unfused", "per_field", "whole_state"),
+    tile_spaces=(("per_field", "vadvc"), ("whole_state", "vadvc")),
     resolve_tile=_vadvc_resolve_tile,
     build_local_step=_vadvc_local_step,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1}[variant],
+    model_tile=_vadvc_model_tile,
+    traffic=_vadvc_traffic,
+    exchange_model=_generic_exchange_model,
+    cuda_tile_candidates=_vadvc_cuda_tile_candidates,
 ))
 
 
@@ -396,13 +603,40 @@ register_stencil_op(StencilOpDef(
 # ---------------------------------------------------------------------------
 
 
-def _hadv_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+def _hadv_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble, k,
+                       request=None):
     if variant == "unfused":
         return None
+    ty, tx = request or (None, None)
     # the kernel runs on the unpadded planes
     return tiling.hadv_tile(compute_grid[1] - 2 * hadv_ops.HALO,
                             compute_grid[2] - 2 * hadv_ops.HALO,
-                            dtype_bytes(dtype))
+                            dtype_bytes(dtype), ty, tx)
+
+
+def _hadv_cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k):
+    if variant == "unfused":
+        return []
+    resolve = lambda req: _hadv_resolve_tile(
+        variant, compute_grid, dtype, n_fields, 1, k, req)
+    default = resolve(None)
+    return _tile_candidates(resolve, (default.ty, default.tx),
+                            tiling.HADV_TILES)
+
+
+def _hadv_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
+    if variant == "unfused":
+        return None
+    return hadv_ops.resolve_tile(compute_grid, dtype)
+
+
+def _hadv_traffic(plan, model_ty):
+    prog = plan.program
+    nz, ny, nx = prog.grid_shape
+    tile = (1, tiling.snap_to_divisor(model_ty, ny, lo=1), nx)
+    return memmodel.stencil_op_traffic(
+        autotune.get_op("hadv_upwind"), prog.grid_shape, prog.dtype,
+        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
 
 
 def _hadv_local_step(plan):
@@ -445,8 +679,13 @@ register_stencil_op(StencilOpDef(
     inkernel_kstep=False,
     pads_single_chip=True,
     packed_variants=("unfused", "whole_state"),
+    tile_spaces=(("whole_state", "hadv_upwind"),),
     resolve_tile=_hadv_resolve_tile,
     build_local_step=_hadv_local_step,
     pallas_calls=lambda variant, nf, k: {"unfused": 0,
                                          "whole_state": 1}[variant],
+    model_tile=_hadv_model_tile,
+    traffic=_hadv_traffic,
+    exchange_model=_generic_exchange_model,
+    cuda_tile_candidates=_hadv_cuda_tile_candidates,
 ))
