@@ -31,7 +31,12 @@ cache under build/: every candidate kernel tile timed, the pick's step
 bit for bit and launch for launch equal to the default tile's, a second
 compile measuring nothing and giving the same tile, `report()`'s analytic
 model under h100_sxm and the modelled bytes over the measured step beside
-it, and `hardware="power9"` modelling under that spec); drives the
+it, and `hardware="power9"` modelling under that spec); the stage chains
+(`PipelineProgram` of hadv_upwind -> vadvc_update -> hdiff in both dtypes:
+3 launches a step, bit for bit its solo plans, near its unfused plan, the
+k=2 round and `run(state, 5)`, the `vadvc_update` and `asselin` plans, an
+`hdiff[u,v]` binding, and the chain step against the solo steps with
+hdiff's pad and crop and a profiled split); drives the
 `NeroEngine` entry point (plan + run of hdiff and vadvc at the paper's
 domain in both dtypes and of copy, each equal to the direct kernel call bit
 for bit; the measured "auto-tuned" pick beside the model's; the copy
@@ -107,6 +112,8 @@ LONG_KSTEPS = (4, 9)
 DEPTHS = (2, 9, 37, 96, 1500)  # nz of the whole-state kernel's depth checks
 VADVC_DEPTHS = (2, 3, 1500)    # nz of the vadvc kernel's depth checks
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
+# the flagship stage chain of phase 4c (pipelines)
+PIPELINE = ("hadv_upwind", "vadvc_update", "hdiff")
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
 COPY_SIZES = (("paper domain", GRID[0] * GRID[1]),
@@ -470,12 +477,12 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, category=kernel_category):
     """Run `fn()` under `torch.profiler` and read its device kernels:
     the host window (ms, profiler on, ending in a synchronise), the union
     of kernel intervals (busy ms), the idle share of the window, and the
-    kernel time by `kernel_category`. None when the profiler saw no
-    device kernel."""
+    kernel time by `category` of the kernel's name. None when the
+    profiler saw no device kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -494,7 +501,7 @@ def device_breakdown(fn):
     busy, (lo, hi) = 0.0, spans[0][:2]
     by = {}
     for start, end, name in spans:
-        cat = kernel_category(name)
+        cat = category(name)
         by[cat] = by.get(cat, 0.0) + (end - start) / 1e3
         if start > hi:
             busy += hi - lo
@@ -506,6 +513,22 @@ def device_breakdown(fn):
                 idle_share=1.0 - busy_ms / wall_ms, kernels=len(spans),
                 by_category_ms=dict(sorted(by.items(),
                                            key=lambda kv: -kv[1])))
+
+
+def pipeline_category(name: str) -> str:
+    """The group a device kernel of a stage chain's round is reported
+    under: each stage kernel, hdiff's wrap pad (the round's only copies:
+    `torch.cat` of strided slices runs as copy kernels), the point-wise
+    update."""
+    n = name.lower()
+    for kernel in ("hdiff_stream", "vadvc_stream", "hadv_stream"):
+        if kernel in n:
+            return kernel.split("_")[0]
+    if "cat" in n or "copy" in n:
+        return "pad"
+    if "mul" in n or "add" in n:
+        return "update"
+    return "other"
 
 
 def serve_phase(torch, dev, check, results, main_launches):
@@ -1238,6 +1261,8 @@ def main() -> int:
         from repro_torch.kernels.vadvc import ref as vadvc_ref
         from repro_torch.kernels.vadvc.vadvc import vadvc_cuda
         from repro_torch.weather import dycore, fields
+        from repro_torch.weather.pipeline import (PipelineProgram,
+                                                  PipelineStage)
         from repro_torch.weather.program import StencilProgram, compile
     except ImportError as e:
         raise SmokeFailure(f"the repro_torch package is not importable "
@@ -2296,6 +2321,214 @@ def main() -> int:
 
     phase_done("phase 4b (planner)")
 
+    # ---- 4c. pipelines -------------------------------------------------
+    # The flagship chain hadv_upwind -> vadvc_update -> hdiff as ONE plan
+    # at the paper's domain, fp32 and bf16: 3 launches a round, bit for bit
+    # its three solo plans run one after the other, and within tolerance
+    # of the chain's unfused plan (the plain versions on the card, no
+    # launch); the k=2 plan's round bit for bit two rounds (6 launches) and
+    # its run(5) five chain steps; the vadvc_update plan (1 launch) bit for
+    # bit the vadvc step then f + dt * stage; asselin (no launch); the
+    # hadv_upwind -> hdiff[u,v] binding; the chain step, the solo steps,
+    # hdiff's pad and crop, a profiled step by kernel group, and the
+    # model's bytes over the steps (`pipeline` lines).
+    pipe_launches = {}
+    for dtype in ("float32", "bfloat16"):
+        st = make_state(dtype, seed=7)
+        kw = dict(grid_shape=GRID, ensemble=ENSEMBLE, dtype=dtype)
+        label = f"pipeline {dtype}"
+        chain = compile(PipelineProgram(stages=PIPELINE, **kw))
+        check(chain.variant == "whole_state" and chain.k_steps == 1
+              and chain.pallas_calls_per_round == 3 and chain.tile is None,
+              f"{label}: resolved to {chain.variant}/k={chain.k_steps}, "
+              f"{chain.pallas_calls_per_round} launches a round")
+        _build.reset_launches()
+        out = chain.step(st)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        say(f"{label}: {' -> '.join(PIPELINE)} step launches {counts}")
+        check(counts == launches_of(hadv=1, vadvc=1, hdiff=1),
+              f"{label}: launched {counts}")
+        if dtype == "float32":
+            pipe_launches = {k: counts[k] for k in ("hadv", "vadvc",
+                                                    "hdiff")}
+        check(all(tuple(out.fields[n].shape) == (ENSEMBLE,) + GRID
+                  and bool(torch.isfinite(out.fields[n]).all()
+                           and torch.isfinite(out.stage_tens[n]).all())
+                  for n in out.fields), f"{label}: not finite or misshapen")
+        solos = [compile(StencilProgram(op=op, **kw)) for op in PIPELINE]
+        ref = st
+        for plan in solos:
+            ref = plan.step(ref)
+        check(state_equal(out, ref), f"{label}: the chain differs from its "
+              f"solo plans run in sequence")
+        unfused = compile(PipelineProgram(stages=PIPELINE, variant="unfused",
+                                          **kw))
+        _build.reset_launches()
+        plain_out = unfused.step(st)
+        torch.cuda.synchronize()
+        check(not any(_build.LAUNCHES.values()),
+              f"{label}: the unfused chain launched {dict(_build.LAUNCHES)}")
+        d_f = (stacked(out, "fields").float()
+               - stacked(plain_out, "fields").float()).abs()
+        err_f, err_s = float(d_f.max()), max(
+            max_err(out.stage_tens[n], plain_out.stage_tens[n])
+            for n in out.fields)
+        if dtype == "float32":
+            # The stage is vadvc's output: vadvc's tolerance. The field
+            # then passes hdiff from inputs ~1e-8 apart, so a limiter branch
+            # that sits within noise of flipping may flip (check_fused's
+            # limits): 1e-5 plus the flip bound of the hdiff stage's input
+            # (the plain hadv and vadvc_update steps' fields).
+            f2 = stacked(compile(StencilProgram(
+                op="vadvc_update", variant="unfused", **kw)).step(compile(
+                    StencilProgram(op="hadv_upwind", variant="unfused",
+                                   **kw)).step(st)), "fields")
+            flip = fused_ref.limiter_flip_bound(f2, coeff=chain.program.coeff)
+            excess = float((d_f - flip).max())
+            say(f"{label}: bit for bit its solo sequence; vs the unfused "
+                f"chain (plain versions, 0 launches) stage err {err_s:.3g} "
+                f"(atol 2e-4), field err {err_f:.3g} (atol 1e-5 + flip "
+                f"bound, excess {excess:.3g}), "
+                f"{float(torch.where(flip > 0, 0.0, d_f).max()):.3g} off "
+                f"the {int((flip > 0).sum())} fragile points")
+            ok = err_s <= 2e-4 and excess <= 1e-5
+            del f2, flip
+        else:
+            # the JAX package's bf16 tolerance
+            say(f"{label}: bit for bit its solo sequence; vs the unfused "
+                f"chain (plain versions, 0 launches) field err {err_f:.3g}, "
+                f"stage err {err_s:.3g} (atol 0.25)")
+            ok = err_f <= 0.25 and err_s <= 0.25
+        check(ok, f"{label}: disagrees with the unfused chain")
+        del plain_out, ref, d_f
+
+        two = compile(PipelineProgram(stages=PIPELINE, variant="kstep",
+                                      k_steps=2, **kw))
+        check(two.pallas_calls_per_round == 6, f"{label} k=2: "
+              f"{two.pallas_calls_per_round} launches a round")
+        _build.reset_launches()
+        got = two.step(st)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == launches_of(hadv=2, vadvc=2, hdiff=2),
+              f"{label} k=2: a round launched {counts}")
+        check(state_equal(got, chain.step(out)), f"{label} k=2: the round "
+              f"differs from two chain rounds")
+        _build.reset_launches()
+        got = two.run(st, PATH_STEPS)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == launches_of(hadv=PATH_STEPS, vadvc=PATH_STEPS,
+                                    hdiff=PATH_STEPS),
+              f"{label} k=2: run({PATH_STEPS}) launched {counts}")
+        check(state_equal(got, chain.run(st, PATH_STEPS)),
+              f"{label} k=2: run({PATH_STEPS}) differs from {PATH_STEPS} "
+              f"chain steps")
+        say(f"{label} k=2: a round (6 launches) bit for bit two chain "
+            f"rounds; run({PATH_STEPS}) launches {counts}, bit for bit "
+            f"{PATH_STEPS} chain steps")
+        del got
+
+        vu = compile(StencilProgram(op="vadvc_update", **kw))
+        _build.reset_launches()
+        got = vu.step(st)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        solo_v = compile(StencilProgram(op="vadvc", **kw)).step(st)
+        stage = stacked(solo_v, "stage_tens")
+        check(counts == launches_of(vadvc=1)
+              and torch.equal(stacked(got, "stage_tens"), stage)
+              and torch.equal(stacked(got, "fields"),
+                              stacked(st, "fields") + vu.program.dt * stage),
+              f"{label}: the vadvc_update plan launched {counts} or differs "
+              f"from the vadvc step then f + dt * stage")
+        asl = compile(StencilProgram(op="asselin", **kw))
+        _build.reset_launches()
+        got = asl.step(st)
+        torch.cuda.synchronize()
+        prog = asl.program
+        check(not any(_build.LAUNCHES.values()) and torch.equal(
+            stacked(got, "fields"), stacked(st, "fields") + prog.coeff
+            * prog.dt * (stacked(st, "tens") - stacked(st, "stage_tens"))),
+            f"{label}: asselin launched {dict(_build.LAUNCHES)} or differs "
+            f"from its filter")
+        bind = compile(PipelineProgram(stages=(
+            PipelineStage("hadv_upwind"),
+            PipelineStage("hdiff", fields=("u", "v"))), **kw))
+        _build.reset_launches()
+        got = bind.step(st)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        adv = solos[0].step(st)
+        full = solos[2].step(adv)
+        check(counts == launches_of(hadv=1, hdiff=1) and all(
+            torch.equal(got.fields[n], (full if n in ("u", "v") else adv)
+                        .fields[n])
+            and torch.equal(got.stage_tens[n], st.stage_tens[n])
+            for n in st.fields), f"{label}: hadv_upwind -> hdiff[u,v] "
+              f"launched {counts} or differs from its solo plans")
+        say(f"{label}: vadvc_update 1 launch, bit for bit vadvc then f + dt "
+            f"* stage; asselin 0 launches; hadv_upwind -> hdiff[u,v] "
+            f"launches {counts}, u and v as hdiff leaves them, t and pp as "
+            f"hadv does")
+        del got, solo_v, stage, adv, full
+
+        # The chain step against its solo steps, and hdiff's own wrap pad
+        # and the copy its crop costs the next step (the stack of the
+        # cropped views), timed at the solo shape.
+        fs = stacked(st, "fields")
+        halo = 2
+        padded = fused_ref.pad_periodic(fs, halo)
+        cropped = dycore.unstack_state(
+            padded[..., halo:halo + ny, halo:halo + nx], fields.PROGNOSTIC)
+        chain_ms = time_ms(lambda: chain.step(st))
+        solo_ms = {op: time_ms(lambda plan=plan: plan.step(st))
+                   for op, plan in zip(PIPELINE, solos)}
+        # queued back to back: a by-call time also holds the host's gap
+        # before a step's first launch, once for the chain, once a solo step
+        chain_queued_ms = stream_ms(lambda: chain.step(st))
+        solo_queued_ms = {op: stream_ms(lambda plan=plan: plan.step(st))
+                          for op, plan in zip(PIPELINE, solos)}
+        pad_ms = time_ms(lambda: fused_ref.pad_periodic(fs, halo))
+        crop_ms = time_ms(lambda: dycore.stack_state(cropped))
+        ss = stacked(st, "stage_tens")
+        update_ms = time_ms(lambda: fs + chain.program.dt * ss)
+        split = device_breakdown(lambda: chain.step(st), pipeline_category)
+        traffic = chain.report()["traffic"]
+        chained = ENSEMBLE * traffic["chained_per_round"]
+        sequential = ENSEMBLE * traffic["sequential_per_round"]
+        solo_sum = sum(solo_ms.values())
+        r = dict(chain_ms=chain_ms, solo_ms=solo_ms, solo_sum_ms=solo_sum,
+                 chain_queued_ms=chain_queued_ms,
+                 solo_queued_ms=solo_queued_ms,
+                 solo_queued_sum_ms=sum(solo_queued_ms.values()),
+                 pad_ms=pad_ms, crop_ms=crop_ms, pad_crop_ms=pad_ms + crop_ms,
+                 update_ms=update_ms, profiled_step=split,
+                 chained_per_round_bytes=chained,
+                 sequential_per_round_bytes=sequential,
+                 chained_tb_per_s=chained / (chain_ms * 1e-3) / 1e12,
+                 sequential_tb_per_s_over_chain=(
+                     sequential / (chain_ms * 1e-3) / 1e12),
+                 sequential_tb_per_s_over_solo=(
+                     sequential / (solo_sum * 1e-3) / 1e12))
+        results[("pipeline", dtype)] = r
+        say(f"pipeline {dtype} " + json.dumps(r))
+        say(f"{label}: chain step {chain_ms:.4f} ms against the solo steps' "
+            f"{solo_sum:.4f} ms (" + ", ".join(
+                f"{op} {ms:.4f}" for op, ms in solo_ms.items())
+            + f"); queued {chain_queued_ms:.4f} against "
+            f"{r['solo_queued_sum_ms']:.4f}; hdiff's pad {pad_ms:.4f} ms "
+            f"+ crop copy {crop_ms:.4f} "
+            f"ms; modelled "
+            f"chained {chained / 1e6:.1f} MB, sequential "
+            f"{sequential / 1e6:.1f} MB: {r['chained_tb_per_s']:.3f} TB/s "
+            f"over the chain step")
+        del st, out, fs, ss, padded, cropped, chain, two, solos
+        torch.cuda.empty_cache()
+
+    phase_done("phase 4c (pipelines)")
+
     # ---- 5. the NeroEngine entry point ---------------------------------
     # plan + run for hdiff and vadvc at the paper's domain in both dtypes,
     # and copy, on the card: each result against the direct kernel call
@@ -2527,6 +2760,10 @@ def main() -> int:
                         "library_ms": r.get("library_ms")})
         if name in designs:
             kernels[-1]["design"] = designs[name]
+        if name in pipe_launches:
+            # the flagship chain's own launches (one fp32 step)
+            kernels[-1]["paths"] = {"pipeline": {
+                "launches": pipe_launches[name]}}
         if name in ("flash_attn", "lru_scan", "xent"):
             # each serving and training path's own launches; flash also its
             # own times at that model's prefill shape, xent at that model's

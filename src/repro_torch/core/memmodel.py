@@ -226,7 +226,13 @@ def pipeline_step_traffic(chain_spec, stage_specs, grid_shape, dtype, *,
     the sum of each stage's own traffic (`stage_specs`: `(OpSpec,
     n_fields)` pairs). Returns the chain's `stencil_op_traffic` plus
     `chained_per_round`, `sequential_per_round`, `sequential_by_stage` and
-    `chained_reduction_x`."""
+    `chained_reduction_x`.
+
+    `chained_per_round` models a chain whose intermediates stay on chip.
+    The port's chain (`weather/pipeline.py`) runs one kernel launch a
+    stage (its stages' solo plans in order), so each stage's output goes
+    through device memory before the next stage reads it: what it moves
+    is nearer `sequential_per_round`."""
     n_chain = max(int(nf) for _, nf in stage_specs)
     out = stencil_op_traffic(chain_spec, grid_shape, dtype,
                              n_fields=n_chain, tile=tile, k_steps=k_steps)

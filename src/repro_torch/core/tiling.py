@@ -484,6 +484,29 @@ ASSELIN = OpSpec(
     seq_axes=(), parallel_axes=(0, 1, 2), flops_per_point=3.0)
 
 
+def pipeline_spec(name: str, stage_specs: Sequence[OpSpec], *,
+                  fields_in: float, fields_out: int,
+                  halo: Tuple[int, int, int]) -> OpSpec:
+    """The tile space of a stage chain (`weather/pipeline.py`), as the
+    model prices it: ONE pass streams the union of the stages' operands
+    (`fields_in` / `fields_out`, from the chain's operand bindings) while
+    intermediates stay on chip, so flops are the sum over the stages and
+    the byte streams are not. Sequential axes union (one z-sequential
+    stage pins the chain's z), scratch is the largest stage's, and `halo`
+    is the chain's summed one-sided reach. The port runs a chain as one
+    launch a stage, its intermediates in device memory: this is the
+    model's chain, not what runs."""
+    if not stage_specs:
+        raise ValueError("pipeline needs at least one stage spec")
+    seq = tuple(sorted({a for s in stage_specs for a in s.seq_axes}))
+    par = tuple(sorted(set(range(3)) - set(seq)))
+    return OpSpec(
+        name=name, fields_in=float(fields_in), fields_out=int(fields_out),
+        halo=tuple(int(h) for h in halo), seq_axes=seq, parallel_axes=par,
+        flops_per_point=float(sum(s.flops_per_point for s in stage_specs)),
+        scratch_fields=max(s.scratch_fields for s in stage_specs))
+
+
 def dycore_whole_state_spec(n_fields: int = 4) -> OpSpec:
     """Tile space of the whole-state fused dycore step: 3 private input
     streams per field plus the shared `w` amortized over the field axis,

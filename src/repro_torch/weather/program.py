@@ -3,10 +3,12 @@
 A port of `repro.weather.program` for a single device:
 
 * `StencilProgram` is the *what*: the registered op (`"dycore"`, `"hdiff"`,
-  `"vadvc"`, `"hadv_upwind"`), grid, ensemble, field set, precision, step
+  `"vadvc"`, `"vadvc_update"`, `"hadv_upwind"`, `"asselin"`, or a stage
+  chain's `"pipeline(...)"`), grid, ensemble, field set, precision, step
   policy and the hardware spec its modelled numbers target. It keeps the
   JAX package's checks, and `to_json` / `from_json` round-trip with the JAX
-  package's JSON.
+  package's JSON; a program with `stages` comes back as a
+  `weather/pipeline.py::PipelineProgram`.
 * `compile(program, device="cuda", tune=None)` is the planner: it resolves
   the execution variant, the kernel tile and the launch count per round
   once. The tile is the kernel's own rule (`core/tiling.py`); with
@@ -23,9 +25,9 @@ A port of `repro.weather.program` for a single device:
 
 What runs is decided by the plan's device: on CUDA every kernelled variant
 launches the hand-written kernels (a k-step round is ONE launch of the
-k-step kernel); on the CPU the same lowering takes their plain versions.
-Not yet ported, each raising `NotImplementedError`: meshes (ROADMAP queue
-1, item 6) and pipeline programs (`stages`, item 5).
+k-step kernel; a chain's round one launch a stage); on the CPU the same
+lowering takes their plain versions. Not yet ported: meshes (ROADMAP
+queue 1, item 6), which raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ class StencilProgram:
         if (isinstance(self.k_steps, int) and self.k_steps > 1
                 and "kstep" not in opdef.variants):
             raise ValueError(f"k_steps={self.k_steps}: op {self.op!r} has "
-                             f"no k-step round")
+                             f"no k-step round (its footprint does not "
+                             f"deepen with k)")
         if (self.variant in ("unfused", "per_field", "whole_state")
                 and self.k_steps not in ("auto", 1)):
             raise ValueError(f"variant={self.variant!r} with "
@@ -144,8 +147,11 @@ class StencilProgram:
     @classmethod
     def from_json(cls, d: Dict[str, Any]) -> "StencilProgram":
         d = dict(d)
-        if "stages" in d:
-            raise _not_ported("PipelineProgram", "item 5")
+        if "stages" in d and cls is StencilProgram:
+            # a serialized PipelineProgram (late import: pipeline.py builds
+            # on this module)
+            from repro_torch.weather.pipeline import PipelineProgram
+            return PipelineProgram.from_json(d)
         d["grid_shape"] = tuple(d["grid_shape"])
         d["fields"] = tuple(d["fields"])
         return cls(**d)
@@ -247,8 +253,8 @@ class ExecutionPlan:
     def report(self) -> Dict[str, Any]:
         """The strategy under the JAX package's key names, plain JSON: the
         structure, `traffic_model_ty` and `traffic` (the op's modelled
-        bytes of a step at the rows of the kernel tile that runs; an
-        unfused plan takes the whole-state tile's rows), `exchange_model`
+        bytes of a step at the rows of the kernel tile that runs; a plan
+        with no tile takes `_traffic_model_ty`'s rows), `exchange_model`
         (None: one device exchanges nothing), `model` (the analytic model
         of `model_window()` under `hardware_spec()`, None for the unfused
         oracle), `model_by_hardware`, and `tuning`: the measured pick of
@@ -275,10 +281,7 @@ class ExecutionPlan:
         if model_ty is None:
             model_ty = self._cache.get("traffic_model_ty")
             if model_ty is None:
-                # the tile a whole-state plan of the program launches
-                model_ty = opdef.resolve_tile(
-                    "whole_state", self.compute_grid, prog.dtype,
-                    prog.n_fields, prog.ensemble, 1).ty
+                model_ty = self._traffic_model_ty()
                 self._cache["traffic_model_ty"] = model_ty
         rep["traffic_model_ty"] = model_ty
         rep["traffic"] = opdef.traffic(self, model_ty)
@@ -302,6 +305,26 @@ class ExecutionPlan:
         rep["model_by_hardware"] = self.model_by_hardware()
         rep["tuning"] = self._cache.get("tuning")
         return rep
+
+    def _traffic_model_ty(self) -> int:
+        """The rows the traffic model takes for a plan with no kernel tile:
+        those of the tile a whole-state plan of the program launches; for
+        a stage chain (whose stages each plan their own tile) the rows of
+        its model window, as the JAX package's chain resolves its tile,
+        at the compute grid, or for the unfused chain at the physical
+        grid, as the JAX package's report resolves an oracle's; for an op
+        with neither (asselin: no kernel, no window) the whole grid's ny,
+        where the JAX package's report raises."""
+        prog, opdef = self.program, self.op_def
+        tile = opdef.resolve_tile("whole_state", self.compute_grid,
+                                  prog.dtype, prog.n_fields, prog.ensemble,
+                                  1)
+        if tile is not None:
+            return tile.ty
+        window = self.model_window() or opdef.model_tile(
+            "whole_state", prog.grid_shape, prog.dtype, prog.n_fields,
+            prog.ensemble, 1)
+        return prog.grid_shape[1] if window is None else window.tile[1]
 
     def model_by_hardware(self, grid_shape: Optional[Tuple[int, int, int]]
                           = None) -> Dict[str, Any]:

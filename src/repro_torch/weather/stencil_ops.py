@@ -6,10 +6,20 @@ halo footprint (`OperandRide`), its stencil reach, flop count and execution
 variants, and its lowerings: tile resolution and the single-device step.
 `weather/program.py::compile` consumes only this declaration. Registered:
 
-  "dycore"      — the fused compound step (vadvc + point-wise + hdiff);
-  "hdiff"       — compound horizontal diffusion alone (fields only);
-  "vadvc"       — vertical advection alone (updates the stage tendencies);
-  "hadv_upwind" — first-order upwind advection (backward-only reach).
+  "dycore"       — the fused compound step (vadvc + point-wise + hdiff);
+  "hdiff"        — compound horizontal diffusion alone (fields only);
+  "vadvc"        — vertical advection alone (updates the stage tendencies);
+  "vadvc_update" — vadvc and the point-wise update `f + dt * stage` (writes
+                   fields and stage tendencies; no hdiff);
+  "hadv_upwind"  — first-order upwind advection (backward-only reach);
+  "asselin"      — the point-wise time filter from the stored tendencies
+                   (no ride, no kernel);
+  "pipeline(...)" — each chain of the ops above that a
+                   `weather/pipeline.py::PipelineProgram` builds registers
+                   itself under its signature.
+
+Every op but `dycore` is `chainable`: a pipeline chain runs its solo step
+as one of its stages.
 
 `dycore` and `hdiff` also run the k-step round (`variant="kstep"`): k
 timesteps in ONE kernel launch. On one device the halo exchange of the JAX
@@ -53,6 +63,8 @@ DYCORE_FLOPS_PER_POINT = 61.0
 HDIFF_FLOPS_PER_POINT = 21.0
 VADVC_FLOPS_PER_POINT = 38.0
 HADV_UPWIND_FLOPS_PER_POINT = 5.0
+VADVC_UPDATE_FLOPS_PER_POINT = 40.0
+ASSELIN_FLOPS_PER_POINT = 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +117,10 @@ class StencilOpDef:
     * `cuda_tile_candidates(variant, compute_grid, dtype, n_fields, k)` ->
       `[(request, CudaTile), ...]`, the kernel tiles
       `compile(tune="measure")` times: the default tile first, then one a
-      distinct tile, each with the request that pins it.
+      distinct tile, each with the request that pins it;
+    * `chainable`: whether the op may be a stage of a pipeline chain
+      (`weather/pipeline.py`), which runs its solo step over the stage's
+      bound fields; the JAX package's ops with an `apply_stage` lowering.
     """
 
     name: str
@@ -136,6 +151,7 @@ class StencilOpDef:
         default=None, compare=False, repr=False)
     cuda_tile_candidates: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
+    chainable: bool = False                  # may be a pipeline stage
 
     def resolved_rides(self, k: int):
         """((operand, (y_lo, y_hi), (x_lo, x_hi)), ...) at depth k."""
@@ -405,15 +421,19 @@ def _hdiff_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
     return hdiff_ops.resolve_tile(compute_grid, dtype)
 
 
-def _hdiff_traffic(plan, model_ty):
-    prog = plan.program
-    nz, ny, nx = prog.grid_shape
-    # model_ty may come from the padded compute grid; the model runs on the
-    # physical grid, so snap to a legal window of it
-    tile = (1, tiling.snap_to_divisor(model_ty, ny, lo=1), nx)
-    return memmodel.stencil_op_traffic(
-        autotune.get_op("hdiff"), prog.grid_shape, prog.dtype,
-        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
+def _plane_traffic(spec_name: str):
+    """The `traffic` hook of a plane-wise op (hdiff, hadv_upwind, asselin):
+    one plane, `model_ty` rows, the whole x extent."""
+    def traffic(plan, model_ty):
+        prog = plan.program
+        nz, ny, nx = prog.grid_shape
+        # model_ty may come from the padded compute grid; the model runs on
+        # the physical grid, so snap to a legal window of it
+        tile = (1, tiling.snap_to_divisor(model_ty, ny, lo=1), nx)
+        return memmodel.stencil_op_traffic(
+            autotune.get_op(spec_name), prog.grid_shape, prog.dtype,
+            n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
+    return traffic
 
 
 def _hdiff_local_step(plan):
@@ -476,12 +496,13 @@ register_stencil_op(StencilOpDef(
                                          "whole_state": 1, "kstep": 1}[
                                              variant],
     model_tile=_hdiff_model_tile,
-    traffic=_hdiff_traffic,
+    traffic=_plane_traffic("hdiff"),
     exchange_model=_generic_exchange_model,
     # every k runs: a round of more than tiling.HDIFF_MAX_K steps runs as
     # several launches, each planning its own tile
     kstep_check=lambda program, shards: (lambda k: None),
     cuda_tile_candidates=_hdiff_cuda_tile_candidates,
+    chainable=True,
 ))
 
 
@@ -524,19 +545,22 @@ def _vadvc_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
         _vadvc_fold_grid(variant, compute_grid, n_fields, ensemble), dtype)
 
 
-def _vadvc_traffic(plan, model_ty):
-    prog = plan.program
-    nz, ny, nx = prog.grid_shape
-    # the model's window lives on the ensemble/field-folded grid; the model
-    # runs on the physical grid, so snap its (tj, ti) to legal extents of
-    # (ny, nx) (z whole: the sweep is sequential)
-    window = plan.model_window()
-    tj, ti = (model_ty, nx) if window is None else window.tile[1:]
-    tile = (nz, tiling.snap_to_divisor(tj, ny, lo=1),
-            tiling.snap_to_divisor(ti, nx, lo=1))
-    return memmodel.stencil_op_traffic(
-        autotune.get_op("vadvc"), prog.grid_shape, prog.dtype,
-        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
+def _sweep_traffic(spec_name: str):
+    """The `traffic` hook of a z-sweep op (vadvc, vadvc_update)."""
+    def traffic(plan, model_ty):
+        prog = plan.program
+        nz, ny, nx = prog.grid_shape
+        # the model's window lives on the ensemble/field-folded grid; the
+        # model runs on the physical grid, so snap its (tj, ti) to legal
+        # extents of (ny, nx) (z whole: the sweep is sequential)
+        window = plan.model_window()
+        tj, ti = (model_ty, nx) if window is None else window.tile[1:]
+        tile = (nz, tiling.snap_to_divisor(tj, ny, lo=1),
+                tiling.snap_to_divisor(ti, nx, lo=1))
+        return memmodel.stencil_op_traffic(
+            autotune.get_op(spec_name), prog.grid_shape, prog.dtype,
+            n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
+    return traffic
 
 
 def _vadvc_local_step(plan):
@@ -591,9 +615,76 @@ register_stencil_op(StencilOpDef(
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1}[variant],
     model_tile=_vadvc_model_tile,
-    traffic=_vadvc_traffic,
+    traffic=_sweep_traffic("vadvc"),
     exchange_model=_generic_exchange_model,
     cuda_tile_candidates=_vadvc_cuda_tile_candidates,
+    chainable=True,
+))
+
+
+# ---------------------------------------------------------------------------
+# "vadvc_update" — vadvc and the point-wise update (no hdiff)
+# ---------------------------------------------------------------------------
+
+
+def _vadvc_update_model_tile(variant, compute_grid, dtype, n_fields, ensemble,
+                             k):
+    """The JAX package's window: vadvc's on the (ensemble, field)-folded
+    grid, in `VADVC_UPDATE`'s tile space."""
+    if variant == "unfused":
+        return None
+    tj, ti = vadvc_ops.plan_tile(
+        _vadvc_fold_grid("whole_state", compute_grid, n_fields, ensemble),
+        dtype)
+    return tiling.TilePlan(op=autotune.get_op("vadvc_update"),
+                           grid_shape=tuple(int(g) for g in compute_grid),
+                           tile=(int(compute_grid[0]), tj, ti),
+                           dtype=dtype_name(dtype))
+
+
+def _vadvc_update_local_step(plan):
+    """Single-device vadvc_update round: the whole-state vadvc step (one
+    launch over the field-stacked state with the state's periodic wcon,
+    or the plain version), then `f + dt * stage` on the stack."""
+    prog = plan.program
+    names, dt, tile = prog.fields, prog.dt, plan.tile
+    use_ref = plan.variant == "unfused"
+
+    def step(state: WeatherState) -> WeatherState:
+        stack = lambda d: _dycore.stack_state(d, names)
+        u, ts, ss = (stack(state.fields), stack(state.tens),
+                     stack(state.stage_tens))
+        if use_ref:
+            ss = vadvc_ref.vadvc(u, state.wcon.unsqueeze(1), u, ts, ss)
+        else:
+            ss = vadvc_ops.vadvc(u, state.wcon, u, ts, ss, tile=tile)
+        return _new_state(state, _dycore.unstack_state(u + dt * ss, names),
+                          _dycore.unstack_state(ss, names))
+    return step
+
+
+register_stencil_op(StencilOpDef(
+    name="vadvc_update",
+    title="vertical advection + fused point-wise update (no hdiff)",
+    reads=("fields", "wcon", "tens", "stage_tens"),
+    writes=("fields", "stage_tens"),
+    halo=0,
+    flops_per_point=VADVC_UPDATE_FLOPS_PER_POINT,
+    rides=(OperandRide("wcon", x_fixed=(0, 1)),),
+    variants=("unfused", "whole_state"),
+    inkernel_kstep=False,
+    pads_single_chip=True,
+    packed_variants=("unfused", "whole_state"),
+    tile_spaces=(("whole_state", "vadvc_update"),),
+    resolve_tile=_vadvc_resolve_tile,
+    build_local_step=_vadvc_update_local_step,
+    pallas_calls=lambda variant, nf, k: {"unfused": 0,
+                                         "whole_state": 1}[variant],
+    model_tile=_vadvc_update_model_tile,
+    traffic=_sweep_traffic("vadvc_update"),
+    exchange_model=_generic_exchange_model,
+    cuda_tile_candidates=_vadvc_cuda_tile_candidates,
+    chainable=True,
 ))
 
 
@@ -628,15 +719,6 @@ def _hadv_model_tile(variant, compute_grid, dtype, n_fields, ensemble, k):
     if variant == "unfused":
         return None
     return hadv_ops.resolve_tile(compute_grid, dtype)
-
-
-def _hadv_traffic(plan, model_ty):
-    prog = plan.program
-    nz, ny, nx = prog.grid_shape
-    tile = (1, tiling.snap_to_divisor(model_ty, ny, lo=1), nx)
-    return memmodel.stencil_op_traffic(
-        autotune.get_op("hadv_upwind"), prog.grid_shape, prog.dtype,
-        n_fields=prog.n_fields, tile=tile, k_steps=plan.k_steps)
 
 
 def _hadv_local_step(plan):
@@ -685,7 +767,56 @@ register_stencil_op(StencilOpDef(
     pallas_calls=lambda variant, nf, k: {"unfused": 0,
                                          "whole_state": 1}[variant],
     model_tile=_hadv_model_tile,
-    traffic=_hadv_traffic,
+    traffic=_plane_traffic("hadv_upwind"),
     exchange_model=_generic_exchange_model,
     cuda_tile_candidates=_hadv_cuda_tile_candidates,
+    chainable=True,
+))
+
+
+# ---------------------------------------------------------------------------
+# "asselin" — point-wise time filter (zero rides, no kernel)
+# ---------------------------------------------------------------------------
+
+
+def _asselin_local_step(plan):
+    """Single-device asselin round, every variant: the point-wise filter
+    in torch on the field-stacked state. The JAX package has no Pallas
+    kernel for it either (XLA fuses the point-wise expression), so this is
+    the op itself, not a stand-in for a kernel."""
+    prog = plan.program
+    names, coeff, dt = prog.fields, prog.coeff, prog.dt
+
+    def step(state: WeatherState) -> WeatherState:
+        stack = lambda d: _dycore.stack_state(d, names)
+        fs = stack(state.fields)
+        fs = fs + coeff * dt * (stack(state.tens) - stack(state.stage_tens))
+        return _new_state(state, _dycore.unstack_state(fs, names),
+                          dict(state.stage_tens))
+    return step
+
+
+register_stencil_op(StencilOpDef(
+    name="asselin",
+    title="leapfrog time filter from stored tendencies (point-wise)",
+    reads=("fields", "tens", "stage_tens"),
+    writes=("fields",),
+    halo=0,
+    flops_per_point=ASSELIN_FLOPS_PER_POINT,
+    rides=(),
+    variants=("unfused", "whole_state"),
+    inkernel_kstep=False,
+    pads_single_chip=False,
+    packed_variants=("unfused", "whole_state"),
+    tile_spaces=(),
+    # no kernel, so no tile and no model window: report() models its
+    # traffic at a window of the whole grid (`traffic_model_ty` = ny)
+    resolve_tile=lambda variant, compute_grid, dtype, nf, e, k, request=None:
+        None,
+    build_local_step=_asselin_local_step,
+    pallas_calls=lambda variant, nf, k: 0,
+    model_tile=lambda variant, compute_grid, dtype, nf, e, k: None,
+    traffic=_plane_traffic("asselin"),
+    exchange_model=_generic_exchange_model,
+    chainable=True,
 ))

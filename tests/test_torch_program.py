@@ -1,7 +1,7 @@
 """The port's single-device plans against the JAX package's, end to end.
 
-For `dycore`, `hdiff`, `vadvc` and `hadv_upwind` under every ported
-variant, in float32 and bfloat16, `repro.weather.program.compile(...).step`
+For `dycore`, `hdiff`, `vadvc`, `vadvc_update`, `hadv_upwind` and
+`asselin` under every ported variant, in float32 and bfloat16, `repro.weather.program.compile(...).step`
 and the port's `compile(..., device="cpu").step` advance the same state; the
 two are compared step by step for 3 steps, each step from the same input
 (the reference's output of the step before), so a flipped limiter branch in
@@ -10,8 +10,9 @@ reference's own per-kernel ones. The k-step plans of `dycore` and `hdiff`
 run 5 steps (full rounds and a ragged tail) against the reference's, and
 against the port's own whole-state plan. Also: programs round-trip as JSON
 across the packages, `report()` keeps the structural keys, the CPU launches
-no kernel, and the options not yet ported (meshes, pipeline programs)
-raise `NotImplementedError`.
+no kernel, the solo `asselin` plan reports where the reference's report
+raises, and the option not yet ported (meshes) raises
+`NotImplementedError`. Pipeline programs: `tests/test_torch_pipeline.py`.
 """
 
 import json
@@ -38,10 +39,13 @@ PLANS = [("dycore", "whole_state"), ("dycore", "per_field"),
          ("dycore", "unfused"), ("hdiff", "whole_state"),
          ("hdiff", "per_field"), ("hdiff", "unfused"),
          ("vadvc", "whole_state"), ("vadvc", "per_field"),
-         ("vadvc", "unfused"), ("hadv_upwind", "whole_state"),
-         ("hadv_upwind", "unfused")]
+         ("vadvc", "unfused"), ("vadvc_update", "whole_state"),
+         ("vadvc_update", "unfused"), ("hadv_upwind", "whole_state"),
+         ("hadv_upwind", "unfused"), ("asselin", "whole_state"),
+         ("asselin", "unfused")]
 KSTEP_PLANS = [("dycore", 2), ("dycore", 3), ("hdiff", 2), ("hdiff", 3)]
-TOL = {"dycore": 1e-5, "hdiff": 1e-5, "vadvc": 2e-4, "hadv_upwind": 1e-5}
+TOL = {"dycore": 1e-5, "hdiff": 1e-5, "vadvc": 2e-4, "vadvc_update": 2e-4,
+       "hadv_upwind": 1e-5, "asselin": 1e-5}
 STRUCTURAL = ("op", "variant", "k_steps", "local_grid", "compute_grid",
               "pallas_calls_per_round", "collectives_per_round", "footprint")
 
@@ -275,10 +279,30 @@ def test_program_checks_match_the_reference(kw):
         StencilProgram(**kw)
 
 
+def _structure(jplan):
+    """The structural keys and program of a reference plan, read off the
+    plan itself (the reference's `report()` raises for `asselin`)."""
+    prog = jplan.program
+    return {"op": prog.op, "variant": jplan.variant,
+            "k_steps": jplan.k_steps, "local_grid": list(jplan.local_grid),
+            "compute_grid": list(jplan.compute_grid),
+            "pallas_calls_per_round": jplan.pallas_calls_per_round,
+            "collectives_per_round": jplan.collectives_per_round,
+            "footprint": jplan.op_def.describe(prog.n_fields, jplan.k_steps),
+            "program": prog.to_json(), "tile": jplan.tile_plan}
+
+
 @pytest.mark.parametrize("op,variant", PLANS)
 def test_report_structural_keys_match(op, variant):
     kw = dict(grid_shape=GRID, ensemble=E, op=op, variant=variant)
-    want = jcompile(JProgram(**kw)).report()
+    jplan = jcompile(JProgram(**kw))
+    if op == "asselin":
+        # no tile: the reference's report() takes `.tile` of None
+        with pytest.raises(AttributeError):
+            jplan.report()
+        want = _structure(jplan)
+    else:
+        want = jplan.report()
     got = compile(StencilProgram(**kw), device="cpu").report()
     for key in STRUCTURAL:
         assert got[key] == want[key], key
@@ -291,11 +315,25 @@ def test_report_structural_keys_match(op, variant):
 
 @pytest.mark.parametrize("call", [
     lambda p: compile(p, mesh=object(), device="cpu"),
-    lambda p: StencilProgram.from_json({**p.to_json(), "stages": []}),
 ])
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(StencilProgram(grid_shape=GRID))
+
+
+@pytest.mark.parametrize("variant", ["whole_state", "unfused"])
+def test_asselin_plan_reports(variant):
+    """The solo asselin plan has no kernel tile and no model window: its
+    report models the traffic at a window of the whole grid (`ny` rows)
+    and has no model, where the reference's report raises."""
+    plan = compile(StencilProgram(grid_shape=GRID, ensemble=E, op="asselin",
+                                  variant=variant), device="cpu")
+    rep = plan.report()
+    json.dumps(rep)
+    assert rep["tile"] is None and rep["model"] is None
+    assert rep["traffic_model_ty"] == GRID[1]
+    assert rep["pallas_calls_per_round"] == 0
+    assert rep["traffic"]["stream_per_round"] == rep["traffic"]["ideal"] > 0
 
 
 def test_plan_refuses_a_state_on_another_device_or_shape():
