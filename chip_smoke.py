@@ -61,7 +61,19 @@ and depth, 5 steps) and recurrentgemma-9b (full width, 3 layers, 3 steps)
 at batch 4 x 2048 in bf16 with `remat="full"` (launches as planned, finite
 losses, moved parameters), a reduced fp32 step on the card against the
 CPU, each step's time, tokens/s, mfu, peak memory and a profiler split,
-and the xent kernel's time at each training shape; times every kernel,
+and the xent kernel's time at each training shape; then forecast
+serving (phase 8): the slot-guard kernel against its plain version (a
+lane-sized batch, clean and poisoned, fp32 and bf16, and each served
+lane's own batch), `ForecastEngine` on 4 slots over the main path's
+domain with a dycore fp32 lane, a bf16 lane, an `op="hdiff"` lane and a
+pinned k=2 lane of ragged steps (every result bit-equal to its solo run,
+one step kernel and one guard launch a lane round, no fallback, scrub or
+divergence), the engine's steady round beside `plan.step` of the same
+ensemble-4 plan with the device's share of it under the profiler, a
+`poison_nan` fault quarantining one slot, an injected `compile_fail`
+reaching the reference plan, a mid-drain checkpoint and restore bit-equal
+to the uninterrupted drain, and reduced tinyllama `fit` with
+`ckpt_every=2` resumed bit-equal to an uninterrupted run; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -138,6 +150,17 @@ PLANNER_PLANS = (("dycore", "auto", "auto", "float32"),
                  ("vadvc", "auto", "auto", "float32"),
                  ("hadv_upwind", "auto", "auto", "float32"),
                  ("dycore", "kstep", 2, "float32"))
+
+
+# forecast serving (phase 8): a dycore lane's requests in each dtype, their
+# steps drawn from a seed in FORECAST_STEPS, and the pinned k=2 lane's
+# ragged steps; the steady-round timing's requests and rounds
+FORECAST_REQUESTS = 8
+FORECAST_STEPS = (2, 8)
+KSTEP_STEPS = (3, 6, 5, 2)
+STEADY_ROUNDS = 20
+PROFILED_ROUNDS = 10
+STEADY_STEPS = STEADY_ROUNDS + PROFILED_ROUNDS + 4
 
 
 class SmokeFailure(Exception):
@@ -1226,6 +1249,450 @@ def train_phase(torch, dev, check, results):
               f"reduced {arch} train step: the card disagrees with the CPU")
     torch.cuda.empty_cache()
     return path_launches
+
+
+def forecast_phase(torch, dev, check, results):
+    """Forecast serving on the card (phase 8): the slot-guard kernel
+    against its plain version (a lane-sized batch, clean and poisoned,
+    fp32 and bf16, and each served lane's own batch), timed against its
+    bound; `ForecastEngine` over the main path's domain, 4 slots, with a
+    dycore fp32 lane and a bf16 lane (FORECAST_REQUESTS requests each,
+    steps from a seed), an `op="hdiff"` lane and a pinned k=2 lane with
+    ragged steps: every result bit-equal to its solo `run`, each lane
+    round's launches as planned (one step kernel and one guard), no
+    fallback, scrub or divergence; a `poison_nan` fault quarantining one
+    slot while the others stay bit-equal; an injected `compile_fail` on
+    `native` reaching the reference plan; a mid-drain checkpoint and
+    restore finishing bit-equal to the uninterrupted drain; reduced
+    tinyllama `fit` on the card with `ckpt_every=2`, resumed, bit-equal
+    to an uninterrupted run. Prints the engine round beside `plan.step` of
+    the same ensemble-4 plan, and the submit, admit and retire times.
+    Returns the forecast drain's launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slot_guard import ref as guard_ref
+    from repro_torch.kernels.slot_guard.slot_guard import slot_guard_cuda
+    from repro_torch.models import api
+    from repro_torch.serve.forecast import ForecastEngine, ForecastRequest
+    from repro_torch.testing.faults import FaultInjector, FaultSpec
+    from repro_torch.train import loop, optim
+    from repro_torch.weather import dycore, fields
+    from repro_torch.weather import program as wprog
+
+    limit = 1e6
+    slots = ENSEMBLE
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rng = np.random.default_rng(24)
+
+    def guard_equal(leaves, label):
+        """The kernel's (ok, fp) against the plain version's on the same
+        leaves, bit for bit; these launches are not the path's. The
+        measured discrepancy, the largest |kernel - plain| over the slots'
+        ok bits and uint32 digests (0 when bit-equal), is folded into its
+        dtype's `slot_guard` row as `err`."""
+        n = _build.LAUNCHES["slot_guard"]
+        ok, fp = slot_guard_cuda(leaves, limit)
+        _build.LAUNCHES["slot_guard"] = n
+        want_ok, want_fp = guard_ref.slot_guard(leaves, limit)
+        got = [int(v) for v in ok.tolist() + fp.tolist()]
+        want = [int(v) for v in want_ok.tolist() + want_fp.tolist()]
+        err = float(max(abs(a - b) for a, b in zip(got, want)))
+        dtype = fields.dtype_name(leaves[0].dtype)
+        guard_err[dtype] = max(guard_err.get(dtype, 0.0), err)
+        if ("slot_guard", dtype) in results:
+            results[("slot_guard", dtype)]["err"] = guard_err[dtype]
+        check(err == 0.0, f"slot guard {label}: the kernel differs from "
+              f"its plain version by {err} ({ok.tolist()} {fp.tolist()} "
+              f"against {want_ok.tolist()} {want_fp.tolist()})")
+        return ok.tolist()
+
+    guard_err = {}
+
+    # ---- (a) the guard kernel on a lane-sized batch ---------------------
+    for dtype in ("float32", "bfloat16"):
+        st = fields.initial_state(gen, GRID, slots, dtype=dtype, device=dev)
+        leaves = wprog.state_leaves(st)
+        oks = guard_equal(leaves, f"{dtype} clean")
+        check(oks == [True] * slots, f"slot guard {dtype}: a clean lane "
+              f"failed its guard: {oks}")
+        st.fields["u"][1, 3, 5, 7] = float("nan")
+        st.tens["t"][2, 0, 0, 0] = 2 * limit
+        st.stage_tens["pp"][3, 1, 2, 3] = -0.0
+        oks = guard_equal(leaves, f"{dtype} poisoned")
+        check(oks == [True, False, False, True], f"slot guard {dtype}: "
+              f"poisoned lane gave {oks}, expected [T, F, F, T]")
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        kernel = lambda: slot_guard_cuda(leaves, limit)
+        n = _build.LAUNCHES["slot_guard"]
+        ms, queued = time_ms(kernel), stream_ms(kernel)
+        _build.LAUNCHES["slot_guard"] = n
+        plain = time_ms(lambda: guard_ref.slot_guard(leaves, limit), reps=5)
+        bound_ms, bound_by = bound(nbytes, 0.0)
+        results[("slot_guard", dtype)] = dict(
+            err=guard_err[dtype], ms=ms, queued_ms=queued, plain_ms=plain,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            lane_bytes=nbytes)
+        say(f"slot guard {dtype}: {len(leaves)} leaves x {slots} slots, "
+            f"{nbytes / 1e6:.1f} MB; kernel {ms:.4f} ms by call, "
+            f"{queued:.4f} ms queued (bound {bound_ms:.4f} ms, bytes), "
+            f"plain {plain:.3f} ms; ok and digests bit-equal to the plain "
+            f"version, clean and poisoned")
+        del st, leaves
+    torch.cuda.empty_cache()
+
+    # ---- (b) the served mix ----------------------------------------------
+    class Recorded(ForecastEngine):
+        """The engine, with each lane round's launches and host time, and
+        each admission, retirement and submission's host time, recorded;
+        the guard kernel is held against its plain version on each lane's
+        batch after its first round."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.log, self.admit_s, self.retire_s = [], [], []
+            self.submit_s, self.checked = [], set()
+
+        def submit(self, request):
+            t0 = time.perf_counter()
+            rid = super().submit(request)
+            torch.cuda.synchronize()
+            self.submit_s.append(time.perf_counter() - t0)
+            return rid
+
+        def _admit(self):
+            n = self._stats["admitted"]
+            t0 = time.perf_counter()
+            super()._admit()
+            torch.cuda.synchronize()
+            if self._stats["admitted"] > n:
+                self.admit_s.append(((time.perf_counter() - t0),
+                                     self._stats["admitted"] - n))
+
+        def _retire(self, lane, i):
+            t0 = time.perf_counter()
+            super()._retire(lane, i)
+            self.retire_s.append((lane.key.dtype, time.perf_counter() - t0))
+
+        def _round(self, lane):
+            plan = self._plan_for(lane.key)
+            kk = min(min(s.remaining, plan.k_steps)
+                     for s in lane.slots if s is not None)
+            before = dict(_build.LAUNCHES)
+            done = self._stats["completed"]
+            t0 = time.perf_counter()
+            super()._round(lane)
+            dt = time.perf_counter() - t0
+            self.log.append(dict(
+                key=lane.key, kk=kk, s=dt,
+                retired=self._stats["completed"] - done,
+                launches={k: v - before[k]
+                          for k, v in _build.LAUNCHES.items()
+                          if v != before[k]}))
+            if lane.key not in self.checked and any(lane.slots):
+                self.checked.add(lane.key)
+                guard_equal(wprog.state_leaves(lane.batch),
+                            f"on the {self._lane_name(lane.key)} lane")
+
+        @staticmethod
+        def _lane_name(key):
+            kind = key.op if key.variant != "kstep" else \
+                f"{key.op} k={key.k_steps}"
+            return f"{kind} {key.dtype}"
+
+    def request_state(dtype, seed):
+        """A request's initial state, made on the card and handed over in
+        host memory, as a client would submit it."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        st = fields.initial_state(g, GRID, 1, dtype=dtype, device=dev)
+        return wprog.map_state(st, lambda t: t.cpu())
+
+    solo_plans = {}
+
+    def solo(prog, state, steps):
+        plan = solo_plans.get(prog)
+        if plan is None:
+            plan = solo_plans.setdefault(prog, compile_plan(prog))
+        out = plan.run(wprog.map_state(state, lambda t: t.to(dev)), steps)
+        return wprog.map_state(out, lambda t: t.cpu())
+
+    def compile_plan(prog):
+        return wprog.compile(prog, device=dev)
+
+    def equal_states(a, b):
+        la, lb = wprog.state_leaves(a), wprog.state_leaves(b)
+        return len(la) == len(lb) and all(
+            torch.equal(x, y) for x, y in zip(la, lb))
+
+    programs = {
+        "dycore float32": wprog.StencilProgram(grid_shape=GRID),
+        "dycore bfloat16": wprog.StencilProgram(grid_shape=GRID,
+                                                dtype="bfloat16"),
+        "hdiff float32": wprog.StencilProgram(grid_shape=GRID, op="hdiff"),
+        "dycore k=2 float32": wprog.StencilProgram(
+            grid_shape=GRID, variant="kstep", k_steps=2)}
+    mix = []
+    for name in ("dycore float32", "dycore bfloat16"):
+        mix += [(name, int(s)) for s in rng.integers(
+            FORECAST_STEPS[0], FORECAST_STEPS[1] + 1, FORECAST_REQUESTS)]
+    mix += [("hdiff float32", int(s)) for s in
+            rng.integers(FORECAST_STEPS[0], FORECAST_STEPS[1] + 1, slots)]
+    mix += [("dycore k=2 float32", s) for s in KSTEP_STEPS]
+    states = [request_state(programs[name].dtype, 100 + i)
+              for i, (name, _) in enumerate(mix)]
+    eng = Recorded(slots=slots, device=dev)
+    _build.reset_launches()
+    rids = [eng.submit(ForecastRequest(program=programs[name], state=st_,
+                                       steps=steps))
+            for (name, steps), st_ in zip(mix, states)]
+    t0 = time.perf_counter()
+    res = eng.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    stats = eng.stats()
+    steps_of = {n: [s for m, s in mix if m == n] for n in programs}
+    shown = ("admitted", "completed", "rolled_back_slot_rounds",
+             "quarantined", "scrubbed_idle_slots", "fingerprint_divergence",
+             "fallback_compiles", "plan_fallbacks", "round_retries",
+             "occupancy")
+    say(f"forecast mix: {len(mix)} requests (steps by lane {steps_of}) on "
+        f"{slots} slots, {stats['rounds']} lane rounds in {drain_s:.3f} s; "
+        f"launches {({k: v for k, v in launches.items() if v})}; stats "
+        f"{({k: stats[k] for k in shown})}")
+    bad = [rid for rid in rids if res[rid].status != "ok"]
+    check(not bad, f"forecast mix: requests {bad} did not finish ok")
+    unequal = [rid for rid, (name, steps), st_ in zip(rids, mix, states)
+               if not equal_states(res[rid].state,
+                                   solo(programs[name], st_, steps))]
+    say(f"forecast mix: {len(rids) - len(unequal)} of {len(rids)} results "
+        f"bit-equal to their solo run(state, steps) at ensemble 1")
+    check(not unequal, f"forecast mix: results {unequal} differ from "
+          f"their solo runs")
+    want_round = {"dycore": "dycore_fused", "hdiff": "hdiff"}
+    wrong = []
+    for e in eng.log:
+        kern = ("dycore_kstep" if e["key"].variant == "kstep"
+                and e["kk"] == 2 else want_round[e["key"].op])
+        if e["launches"] != {kern: 1, "slot_guard": 1}:
+            wrong.append((Recorded._lane_name(e["key"]), e["kk"],
+                          e["launches"]))
+    check(not wrong, f"forecast mix: lane rounds launched other than one "
+          f"step kernel and one guard: {wrong[:4]}")
+    check(launches["slot_guard"] == stats["rounds"],
+          f"forecast mix: {launches['slot_guard']} guard launches for "
+          f"{stats['rounds']} rounds")
+    for key in ("fallback_compiles", "scrubbed_idle_slots",
+                "fingerprint_divergence", "quarantined", "round_retries"):
+        check(stats[key] == 0, f"forecast mix: stats {key} = {stats[key]}")
+    check(stats["plan_fallbacks"] == {}, f"forecast mix: fallbacks "
+          f"{stats['plan_fallbacks']}")
+    check(stats["rolled_back_slot_rounds"] > 0
+          and any(e["kk"] == 1 and e["key"].variant == "kstep"
+                  for e in eng.log),
+          "forecast mix: the k=2 lane ran no tail round or no rollback")
+    unstacked = [Recorded._lane_name(k) for k, lane in eng._lanes.items()
+                 if k.op == "dycore" and not all(
+                     dycore._stacked_base(list(getattr(lane.batch, p)
+                                               .values())) is not None
+                     for p in ("fields", "tens", "stage_tens"))]
+    check(not unstacked, f"forecast mix: lanes {unstacked} lost the "
+          f"field-stacked layout")
+    forecast_launches = {k: launches[k] for k in
+                         ("dycore_fused", "dycore_kstep", "hdiff",
+                          "slot_guard")}
+
+    retire = {dt: [t * 1e3 for d_, t in eng.retire_s if d_ == dt]
+              for dt in ("float32", "bfloat16")}
+    admit = statistics.median(t / n for t, n in eng.admit_s) * 1e3
+    submit = statistics.median(eng.submit_s) * 1e3
+    slot_mb = 13 * GRID[0] * GRID[1] * GRID[2] * 4 / 1e6
+    results[("forecast_host", "float32")] = dict(
+        retire_ms={dt: statistics.median(v) for dt, v in retire.items()},
+        retire_ms_each=retire, retire_share=sum(map(sum, retire.values()))
+        / 1e3 / drain_s, admit_ms_per_request=admit, submit_ms=submit,
+        drain_s=drain_s, rounds=stats["rounds"], requests=len(mix))
+    say(f"forecast host: retire {statistics.median(retire['float32']):.3f}"
+        f" ms fp32, {statistics.median(retire['bfloat16']):.3f} ms bf16 "
+        f"(medians; one slot read back to host memory: {slot_mb:.0f} MB "
+        f"fp32, {slot_mb / 2:.0f} MB bf16; the retirements took "
+        f"{results[('forecast_host', 'float32')]['retire_share']:.3f} of "
+        f"the drain), admit {admit:.3f} ms a request, submit {submit:.3f} "
+        f"ms (pinned staging and the copy to the card)")
+    del eng, res
+    torch.cuda.empty_cache()
+
+    # ---- (b2) steady rounds against plan.step of the same plan -----------
+    # 4 requests of STEADY_STEPS steps on one lane: the rounds after the
+    # first, before any retirement, on the host clock, then PROFILED_ROUNDS
+    # more under the profiler for the device's share of a round
+    for name in ("dycore float32", "dycore bfloat16"):
+        prog = programs[name]
+        eng = Recorded(slots=slots, device=dev)
+        for i in range(slots):
+            eng.submit(ForecastRequest(
+                program=prog, state=request_state(prog.dtype, 200 + i),
+                steps=STEADY_STEPS))
+        for _ in range(STEADY_ROUNDS + 1):
+            eng.pump()
+        rounds = [e["s"] * 1e3 for e in eng.log[1:]]
+        key = wprog.plan_cache_key(prog, ensemble=slots)
+        lane = eng._lanes[key]
+        busy = device_ms(lambda: eng._round(lane), n=PROFILED_ROUNDS)
+        plan = eng._plans[key]
+        batch = lane.batch
+        step_ms = time_ms(lambda: plan.step(batch))
+        step_q = stream_ms(lambda: plan.step(batch))
+        guard = results[("slot_guard", prog.dtype)]
+        rnd = statistics.median(rounds)
+        results[("forecast_round", prog.dtype)] = dict(
+            round_ms=rnd, rounds=len(rounds), round_ms_each=rounds,
+            step_ms=step_ms, step_queued_ms=step_q, guard_ms=guard["ms"],
+            host_ms=rnd - step_ms - guard["ms"], device_ms=busy,
+            idle_share=None if busy is None else 1 - busy / rnd)
+        say(f"forecast {name}: engine round {rnd:.4f} ms (median of "
+            f"{len(rounds)} steady rounds; range {min(rounds):.4f}-"
+            f"{max(rounds):.4f}) against plan.step {step_ms:.4f} ms by "
+            f"call, {step_q:.4f} ms queued, and the guard {guard['ms']:.4f} "
+            f"ms by call: {rnd - step_ms - guard['ms']:.4f} ms of host "
+            f"bookkeeping; the device busy "
+            + ("not measured" if busy is None else
+               f"{busy:.4f} ms of a round under the profiler (idle share "
+               f"{1 - busy / rnd:.3f})"))
+        eng.drain()
+        del eng, lane, batch
+    torch.cuda.empty_cache()
+
+    # ---- (c) a poisoned slot is quarantined, the others stay exact ------
+    prog = programs["dycore float32"]
+    work = [(request_state("float32", 300 + i), 4) for i in range(slots)]
+    inj = FaultInjector([FaultSpec(kind="poison_nan", round=1)], seed=5)
+    eng = ForecastEngine(slots=slots, device=dev, fault_injector=inj)
+    rids = [eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+            for s, n in work]
+    res = eng.drain()
+    failed = [rid for rid in rids if res[rid].status == "failed"]
+    healthy = [rid for rid, (s, n) in zip(rids, work)
+               if res[rid].status == "ok"
+               and equal_states(res[rid].state, solo(prog, s, n))]
+    diag = res[failed[0]].diagnosis if failed else {}
+    say(f"forecast poison_nan at round 1: failed {failed} "
+        f"({diag.get('reason')}, leaves {sorted(diag.get('bad_leaves', {}))}"
+        f"), {len(healthy)} others bit-equal to solo; quarantined "
+        f"{eng.stats()['quarantined']}")
+    check(len(failed) == 1 and diag.get("reason") == "validity_guard"
+          and len(healthy) == slots - 1
+          and eng.stats()["quarantined"] == 1,
+          "forecast poison: not exactly one slot quarantined with the "
+          "others bit-equal to solo")
+    del eng, res
+
+    # ---- (d) an injected native compile failure reaches the reference ---
+    inj = FaultInjector([FaultSpec(kind="compile_fail", op="dycore",
+                                   attempt="native")])
+    eng = ForecastEngine(slots=slots, device=dev, fault_injector=inj)
+    work = [(request_state("float32", 400 + i), 2) for i in range(2)]
+    _build.reset_launches()
+    rids = [eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+            for s, n in work]
+    res = eng.drain()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    ref_prog = wprog.reference_program(prog)
+    same = [rid for rid, (s, n) in zip(rids, work)
+            if equal_states(res[rid].state, solo(ref_prog, s, n))]
+    st_ = eng.stats()
+    say(f"forecast compile_fail on native: plan_fallbacks "
+        f"{st_['plan_fallbacks']}, fallback_compiles "
+        f"{st_['fallback_compiles']}, launches {counts}, {len(same)} of "
+        f"{len(rids)} results bit-equal to solo runs of the reference plan")
+    check(st_["plan_fallbacks"] == {"dycore": "reference"}
+          and st_["fallback_compiles"] == 1
+          and counts == {"slot_guard": st_["rounds"]}
+          and len(same) == len(rids),
+          "forecast compile_fail: the reference stage was not reached, "
+          "counted and exact")
+    del eng, res
+
+    # ---- (e) a mid-drain checkpoint and restore -------------------------
+    work = [(request_state("float32", 500 + i), int(n)) for i, n in
+            enumerate(rng.integers(FORECAST_STEPS[0], FORECAST_STEPS[1] + 1,
+                                   slots + 2))]
+    ref_eng = ForecastEngine(slots=slots, device=dev)
+    for s, n in work:
+        ref_eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+    want = ref_eng.drain()
+    del ref_eng
+    d = ROOT / "build" / f"forecast-ckpt-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    eng = ForecastEngine(slots=slots, device=dev, ckpt_dir=str(d))
+    for s, n in work:
+        eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+    eng.pump()
+    eng.pump()
+    t0 = time.perf_counter()
+    step = eng.checkpoint()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in (d / f"step_{step:08d}").iterdir())
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = ForecastEngine.restore(str(d), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = eng.drain()
+    same = [rid for rid in want if rid in got and got[rid].status == "ok"
+            and equal_states(got[rid].state, want[rid].state)]
+    results[("forecast_checkpoint", "float32")] = dict(
+        bytes=nbytes, save_s=save_s, restore_s=restore_s)
+    say(f"forecast checkpoint after 2 rounds: {nbytes / 1e9:.3f} GB in "
+        f"{save_s:.3f} s, restored in {restore_s:.3f} s; {len(same)} of "
+        f"{len(want)} results bit-equal to the uninterrupted drain")
+    check(len(same) == len(want) == len(got),
+          "forecast checkpoint/restore: the resumed drain differs from "
+          "the uninterrupted one")
+    shutil.rmtree(d, ignore_errors=True)
+    del eng, got, want
+    torch.cuda.empty_cache()
+
+    # ---- (f) LM training resumed from a checkpoint on the card ----------
+    cfg = registry.reduced_config(registry.get_config("tinyllama-1.1b"))
+    model = api.build(cfg, device=dev)
+    opt_cfg = optim.OptConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    d = ROOT / "build" / f"fit-ckpt-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+
+    def fit(steps, ckpt_dir=None):
+        data = synthetic.iterator(cfg, 2, 64, prefetch=0, device=dev)
+        return loop.fit(model, data, steps=steps, opt_cfg=opt_cfg,
+                        ckpt_dir=ckpt_dir, ckpt_every=2, log_every=0,
+                        log_fn=lambda *_: None)
+
+    p_a, o_a, h_a = fit(4)
+    p_b, _, _ = fit(4)
+    fit(2, str(d))                                 # "crash" after step 2
+    p_r, o_r, h_r = fit(4, str(d))                 # resumes from step 2
+    same = all(torch.equal(a, b) for a, b in
+               zip(p_a.parameters(), p_r.parameters())) and all(
+        torch.equal(o_a[part][k], o_r[part][k])
+        for part in ("m", "v", "master") for k in o_a[part])
+    repeat = all(torch.equal(a, b) for a, b in
+                 zip(p_a.parameters(), p_b.parameters()))
+    say(f"fit resume (reduced tinyllama-1.1b, {cfg.n_layers} layers, "
+        f"bf16, 4 steps, ckpt_every 2): checkpoints {ckpt.all_steps(str(d))}"
+        f", resumed steps {[h['step'] for h in h_r]}, parameters and "
+        f"optimizer state bit-equal to the uninterrupted run: {same} (two "
+        f"uninterrupted runs bit-equal: {repeat})")
+    check(same and [h["loss"] for h in h_r] == [h["loss"] for h in h_a[2:]],
+          "fit resume: the resumed run differs from the uninterrupted one")
+    shutil.rmtree(d, ignore_errors=True)
+    del model, p_a, p_b, p_r, o_a, o_r
+    torch.cuda.empty_cache()
+    return forecast_launches
 
 
 def main() -> int:
@@ -2717,6 +3184,12 @@ def main() -> int:
 
     phase_done("phase 7 (LM training)")
 
+    # ---- 8. forecast serving ----------------------------------------------
+    forecast_launches = forecast_phase(torch, dev, check, results)
+    main_launches["slot_guard"] = forecast_launches["slot_guard"]
+
+    phase_done("phase 8 (forecast serving)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -2737,7 +3210,9 @@ def main() -> int:
                "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
                             "src/repro/kernels/lru_scan/lru_scan.py:41"),
                "xent": ("src/repro_torch/csrc/xent_tc.cu",
-                        "src/repro/kernels/xent/xent.py:68")}
+                        "src/repro/kernels/xent/xent.py:68"),
+               "slot_guard": ("src/repro_torch/csrc/slot_guard.cu",
+                              "src/repro/weather/program.py:263")}
     # the LM paths run flash attention and xent in bf16, the rest in fp32
     keys = {"flash_attn": ("flash_attn", "bfloat16"),
             "xent": (f"xent_{TRAIN_RUNS[1][0]}", "bfloat16")}
@@ -2760,10 +3235,21 @@ def main() -> int:
                         "library_ms": r.get("library_ms")})
         if name in designs:
             kernels[-1]["design"] = designs[name]
+        if name == "slot_guard":
+            kernels[-1]["note"] = ("replaces an XLA-fused jnp function, "
+                                   "not a pl.pallas_call; launches: the "
+                                   "forecast drain's, one a lane round")
+            kernels[-1]["bf16"] = {
+                key: results[("slot_guard", "bfloat16")][key]
+                for key in ("ms", "queued_ms", "plain_ms", "bound_ms")}
+        if name in ("dycore_fused", "dycore_kstep", "hdiff"):
+            # the forecast drain's own launches (phase 8)
+            kernels[-1].setdefault("paths", {})["forecast"] = {
+                "launches": forecast_launches[name]}
         if name in pipe_launches:
             # the flagship chain's own launches (one fp32 step)
-            kernels[-1]["paths"] = {"pipeline": {
-                "launches": pipe_launches[name]}}
+            kernels[-1].setdefault("paths", {})["pipeline"] = {
+                "launches": pipe_launches[name]}
         if name in ("flash_attn", "lru_scan", "xent"):
             # each serving and training path's own launches; flash also its
             # own times at that model's prefill shape, xent at that model's
@@ -2830,7 +3316,8 @@ def main() -> int:
         "flash_attn's is scaled_dot_product_attention (causal, enable_gqa) "
         "at recurrentgemma-9b's prefill shape; none computes the LRU sweep; "
         "xent's is a pair of calls, h @ head then F.cross_entropy, at "
-        "recurrentgemma-9b's training shape")
+        "recurrentgemma-9b's training shape; none computes the slot "
+        "guard's digest")
     if failures:
         raise SmokeFailure(f"{len(failures)} check(s) failed: "
                            + "; ".join(failures))

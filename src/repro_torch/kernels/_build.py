@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("hdiff.cu", "vadvc.cu", "dycore_fused.cu", "dycore_kstep.cu",
            "hadv.cu", "copy.cu", "flash_attn.cu", "flash_attn_tc.cu",
-           "lru_scan.cu", "xent.cu", "xent_tc.cu")
+           "lru_scan.cu", "xent.cu", "xent_tc.cu", "slot_guard.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 # built with -fmad=true in place of -fmad=false
@@ -68,12 +68,14 @@ _SIGNATURES = {
                   _LL, _LL, _LL, _F, _I, _I, _P),
     "nero_xent_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _LL, _LL, _LL, _F, _I, _I, _P),
+    "nero_slot_guard": (_P, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P,
+                        _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,
                              "dycore_kstep": 0, "hdiff_kstep": 0, "hadv": 0,
                              "copy": 0, "flash_attn": 0, "lru_scan": 0,
-                             "xent": 0}
+                             "xent": 0, "slot_guard": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, object] = {}

@@ -5,8 +5,10 @@
 
 Trains the architecture at its full published width and depth on the card
 (random weights from seed 0) unless `--smoke` asks for the reduced config;
-`--device cpu` runs the kernels' plain versions. The defaults are the JAX
-launcher's. Checkpointing (`--ckpt-dir`) and meshes are not ported.
+`--device cpu` runs the kernels' plain versions. `--ckpt-dir` checkpoints
+every `--ckpt-every` steps and at the end, and resumes from the latest
+checkpoint there. The defaults are the JAX launcher's. Meshes are not
+ported.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -40,7 +44,12 @@ def main(argv=None):
                               total_steps=args.steps)
     data = synthetic.iterator(cfg, args.batch, args.seq, device=model.device)
     _, _, hist = loop.fit(model, data, steps=args.steps, opt_cfg=opt_cfg,
-                          microbatches=args.microbatches)
+                          microbatches=args.microbatches,
+                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    if not hist:
+        print(f"[train] done: the checkpoint in {args.ckpt_dir} is at step "
+              f"{args.steps} already; nothing to run on {model.device}")
+        return
     print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f} over {len(hist)} steps on {model.device}")
 

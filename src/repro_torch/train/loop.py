@@ -5,7 +5,8 @@ A port of `repro.train.loop` for a single device: no mesh and no sharding
 without its sharding constraints — microbatch gradient accumulation
 (`acc += g.to(grad_dtype) / microbatches`), then one AdamW update. The
 step updates the parameters and the optimizer state in place. `fit`
-trains from a seed; checkpoint/restart is not ported (`ckpt_dir` raises).
+trains from a seed or resumes from the latest checkpoint in `ckpt_dir`
+(`ckpt/checkpoint.py`), saving every `ckpt_every` steps and at the end.
 """
 
 from __future__ import annotations
@@ -82,24 +83,38 @@ class WatchdogStats:
 def fit(model: Model, data_iter: Iterator[Dict[str, torch.Tensor]],
         steps: int, opt_cfg: Optional[opt_lib.OptConfig] = None,
         microbatches: int = 1, remat: str = "full",
-        ckpt_dir: Optional[str] = None, log_every: int = 10, seed: int = 0,
+        ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
+        log_every: int = 10, seed: int = 0,
         log_fn: Callable[[str], None] = print):
     """Train for `steps` from parameters drawn from `seed` on the model's
-    device. Returns (params, opt_state, history), a history entry per step
+    device, or resume from the latest checkpoint in `ckpt_dir` (the data
+    iterator, built at step 0, is fast-forwarded to the resumed step: a
+    batch is a function of (seed, step)). With `ckpt_dir`, an
+    `AsyncSaver` checkpoints every `ckpt_every` steps and at the end
+    (parameters under `params/`, the optimizer state under `opt/`).
+    Returns (params, opt_state, history), a history entry per step run
     with its host time (ending in a synchronise) and metrics."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "fit(ckpt_dir=...): checkpoint/restart is not ported yet "
-            "(ROADMAP.md, queue 1, item 7: ckpt/checkpoint.py)")
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+
     opt_cfg = opt_cfg or opt_lib.OptConfig(total_steps=steps)
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
                               remat=remat)
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(seed))
     opt_state = opt_lib.init_opt_state(params)
+    start_step = 0
+    if ckpt_dir:
+        latest = ckpt_lib.latest_step(ckpt_dir)
+        if latest is not None:
+            log_fn(f"[fit] resuming from step {latest}")
+            params, opt_state, start_step = ckpt_lib.restore(
+                ckpt_dir, latest, params, opt_state)
+            for _ in range(start_step):
+                next(data_iter)
     watch = WatchdogStats()
     history = []
-    for step in range(steps):
+    saver = ckpt_lib.AsyncSaver(ckpt_dir) if ckpt_dir else None
+    for step in range(start_step, steps):
         batch = next(data_iter)
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -112,4 +127,9 @@ def fit(model: Model, data_iter: Iterator[Dict[str, torch.Tensor]],
         if log_every and step % log_every == 0:
             log_fn(f"[fit] step {step} loss {metrics['loss']:.4f} "
                    f"gnorm {metrics['grad_norm']:.3f} {dt * 1e3:.0f}ms")
+        if saver and ckpt_every and (step + 1) % ckpt_every == 0:
+            saver.save(step + 1, params, opt_state)
+    if saver:
+        saver.save(steps, params, opt_state)
+        saver.wait()
     return params, opt_state, history

@@ -63,6 +63,16 @@ class WeatherState:
         return self.wcon.dtype
 
 
+def state_leaves(state: WeatherState) -> list:
+    """The state's leaves in the JAX package's flatten order: the sorted
+    fields, wcon, the sorted tens, the sorted stage_tens (each dict by the
+    sorted field names)."""
+    keys = sorted(state.fields)
+    return ([state.fields[k] for k in keys] + [state.wcon]
+            + [state.tens[k] for k in keys]
+            + [state.stage_tens[k] for k in keys])
+
+
 def field_views(stacked: torch.Tensor,
                 names: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
     """Per-name views of a field-stacked `(..., nf, nz, ny, nx)` tensor: the

@@ -26,8 +26,15 @@ A port of `repro.weather.program` for a single device:
 What runs is decided by the plan's device: on CUDA every kernelled variant
 launches the hand-written kernels (a k-step round is ONE launch of the
 k-step kernel; a chain's round one launch a stage); on the CPU the same
-lowering takes their plain versions. Not yet ported: meshes (ROADMAP
-queue 1, item 6), which raise `NotImplementedError`.
+lowering takes their plain versions. `compile_with_fallback` degrades an
+op that fails to compile to its `reference_program`, and says so; on the
+card it does so only for an injected fault.
+
+The serving engine's slot helpers sit here too, as in the JAX package:
+`ensemble_slot_view` / `_assign` / `_select` (in place, keeping a lane's
+field-stacked layout) and `slot_guard` / `slot_validity` (one launch of the
+slot-guard kernel on CUDA). Not yet ported: meshes (ROADMAP queue 1, item
+6), which raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -39,8 +46,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import autotune, hwspec, perfmodel, tiling
+from repro_torch.kernels.slot_guard import ops as _guard_ops
+from repro_torch.weather import dycore as _dycore
 from repro_torch.weather import stencil_ops as _sops
 from repro_torch.weather.fields import (PROGNOSTIC, WeatherState, dtype_name,
+                                        field_views, state_leaves,
                                         zeros_state)
 from repro_torch.weather.stencil_ops import (StencilOpDef, get_stencil_op,
                                              register_stencil_op,
@@ -52,8 +62,11 @@ VARIANTS = _sops.VARIANTS
 KNOWN_HARDWARE = hwspec.available_specs()
 
 __all__ = ["StencilProgram", "ExecutionPlan", "compile", "plan_cache_key",
-           "StencilOpDef", "get_stencil_op",
-           "register_stencil_op", "registered_stencil_ops", "VARIANTS"]
+           "compile_with_fallback", "reference_program", "StencilOpDef",
+           "get_stencil_op", "register_stencil_op",
+           "registered_stencil_ops", "VARIANTS", "ensemble_slot_view",
+           "ensemble_slot_assign", "ensemble_slot_select", "slot_validity",
+           "slot_guard", "state_leaves", "map_state"]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -165,6 +178,96 @@ def plan_cache_key(program: StencilProgram,
     if ensemble is not None and ensemble != program.ensemble:
         program = dataclasses.replace(program, ensemble=ensemble)
     return program
+
+
+# --- ensemble-slot views: requests <-> the (e, ...) batch axis -------------
+# Every WeatherState leaf is (E, nz, ny, nx); a serving slot is one member.
+# A lane keeps the field-stacked layout (each dict's leaves the planes of one
+# tensor, `fields.field_views`), so the whole-state kernel takes it without a
+# copy: the helpers below write in place, by index, into the lane's storage.
+
+
+def map_state(state: WeatherState, fn) -> WeatherState:
+    """`fn` applied to each of the state's tensors, keeping its layout: a
+    field-stacked dict goes through `fn` as its one stacked tensor and comes
+    back as views of the result, any other dict leaf by leaf."""
+    def group(d):
+        names = tuple(d)
+        base = _dycore._stacked_base([d[n] for n in names])
+        if base is None:
+            return {n: fn(t) for n, t in d.items()}
+        return field_views(fn(base), names)
+    return WeatherState(fields=group(state.fields), wcon=fn(state.wcon),
+                        tens=group(state.tens),
+                        stage_tens=group(state.stage_tens))
+
+
+def _tensor_pairs(a: WeatherState, b: WeatherState):
+    """[(a's tensor, b's tensor), ...] covering every leaf once: a dict's
+    stacked tensors when both states stack it (in the same order), else its
+    leaves pairwise."""
+    pairs = [(a.wcon, b.wcon)]
+    for part in ("fields", "tens", "stage_tens"):
+        da, db = getattr(a, part), getattr(b, part)
+        names = tuple(da)
+        ba = _dycore._stacked_base([da[n] for n in names])
+        bb = _dycore._stacked_base([db[n] for n in names])
+        if ba is not None and bb is not None:
+            pairs.append((ba, bb))
+        else:
+            pairs += [(da[n], db[n]) for n in names]
+    return pairs
+
+
+def ensemble_slot_view(state: WeatherState, e: int) -> WeatherState:
+    """Member `e` of a batched state as an ensemble-1 state of views."""
+    return map_state(state, lambda a: a[e:e + 1])
+
+
+def ensemble_slot_assign(batch: WeatherState, indices,
+                         sub: WeatherState) -> WeatherState:
+    """Write `sub` (leading dim = len(indices)) into the given ensemble
+    slots of `batch`, in place (the JAX package returns a new batch);
+    returns `batch`."""
+    idx = torch.as_tensor(list(indices), dtype=torch.long,
+                          device=batch.device)
+    for dst, src in _tensor_pairs(batch, sub):
+        dst.index_copy_(0, idx, src.to(dst.device, dst.dtype))
+    return batch
+
+
+def ensemble_slot_select(mask, new: WeatherState,
+                         old: WeatherState) -> WeatherState:
+    """Per-slot select, in place into `new`: slots where `mask` (shape
+    (E,)) is True keep `new`, the rest take `old` (the JAX package returns
+    a new state) — how a serving engine rolls back slots that sat out a
+    shorter-than-their-next-part round. Tensors the two states share (the
+    round did not write them) are left alone. Returns `new`."""
+    keep = [i for i, m in enumerate(torch.as_tensor(mask).tolist()) if not m]
+    if not keep:
+        return new
+    idx = torch.as_tensor(keep, dtype=torch.long, device=new.device)
+    for n, o in _tensor_pairs(new, old):
+        if n.data_ptr() == o.data_ptr() and n.stride() == o.stride():
+            continue
+        n.index_copy_(0, idx, o.index_select(0, idx))
+    return new
+
+
+def slot_guard(state: WeatherState, limit) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Per-slot validity and content fingerprint in one pass over the
+    state's leaves (in the JAX package's order): `(ok, fp)`, ok an (E,)
+    bool — every element finite and `|x| <= limit` — and fp an (E,) int64
+    holding the JAX package's uint32 digest of the slot's exact bits. On
+    CUDA one launch of the slot-guard kernel (`kernels/slot_guard`), on
+    the CPU its plain version; both give the JAX package's values."""
+    return _guard_ops.slot_guard(state_leaves(state), limit)
+
+
+def slot_validity(state: WeatherState, limit) -> torch.Tensor:
+    """Per-slot physics validity: `slot_guard`'s (E,) bool."""
+    return slot_guard(state, limit)[0]
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -465,6 +568,64 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
     if tune == "measure" and _tile is None:
         plan = _measured_retune(plan)
     return plan
+
+
+def reference_program(program: StencilProgram) -> StencilProgram:
+    """`program` rebound to its op's reference lowering: the unfused
+    (oracle) variant when the op declares one, one step a round, no wire
+    compression — the most conservative availability fallback. On the card
+    it runs the plain torch ops and launches no kernel; its numerics are
+    the same physics but not bit-equal to the kernelled variants, so a
+    caller that degrades this far must say so (`compile_with_fallback`)."""
+    opdef = get_stencil_op(program.op)
+    ref = "unfused" if "unfused" in opdef.variants else opdef.variants[0]
+    return dataclasses.replace(program, variant=ref, k_steps=1,
+                               exchange_dtype=None)
+
+
+def compile_with_fallback(program: StencilProgram, mesh=None, *,
+                          device="cuda", attempt_hook=None
+                          ) -> Tuple[ExecutionPlan, Optional[str], list]:
+    """`compile` with an explicit, counted degradation chain over
+
+      1. ``native``    — the program exactly as asked (the kernels);
+      2. ``reference`` — `reference_program(program)`: the op's unfused
+         plan, one step a round (availability over bit-identity — the last
+         resort, and the one place a plain version stands in for a kernel).
+
+    The JAX package's middle ``interpret`` stage (the same plan through the
+    Pallas interpreter) has no counterpart: the port has no interpreter.
+    Returns ``(plan, fallback, errors)``: `fallback` is None when the native
+    attempt won, else ``"reference"``; `errors` lists ``(stage,
+    repr(exc))`` for every failed attempt. Raises once both stages fail.
+    `attempt_hook(program, stage)` is the fault-injection seam
+    (`testing.faults.FaultInjector.on_compile`). `compile` itself never
+    falls back.
+
+    On the CPU, where every plan runs the plain versions, any failure
+    degrades, as in the JAX package. On the card only an injected fault
+    (`testing.faults.InjectedFault`, the rehearsal seam) degrades: a real
+    failure to compile the kernelled plan propagates, so no kernel is ever
+    silently replaced by the plain ops."""
+    from repro_torch.testing.faults import InjectedFault
+    on_card = torch.device(device).type != "cpu"
+    attempts = [("native", program), ("reference", reference_program(program))]
+    errors: list = []
+    last = None
+    for stage, prog in attempts:
+        try:
+            if attempt_hook is not None:
+                attempt_hook(prog, stage)
+            plan = compile(prog, mesh=mesh, device=device)
+            return plan, (None if stage == "native" else stage), errors
+        except Exception as e:  # noqa: BLE001 — see the rule above
+            if on_card and not isinstance(e, InjectedFault):
+                raise
+            errors.append((stage, repr(e)))
+            last = e
+    raise RuntimeError(
+        f"compile fallback chain exhausted for op={program.op!r}: "
+        f"{errors}") from last
 
 
 def _measured_retune(plan: ExecutionPlan) -> ExecutionPlan:

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "assert not bad, bad\n"
             "for m in ('repro_torch.weather.program', "
             "'repro_torch.train.loop', 'repro_torch.kernels.xent.ops', "
-            "'repro_torch.data.synthetic', 'repro_torch.launch.train'):\n"
+            "'repro_torch.data.synthetic', 'repro_torch.launch.train', "
+            "'repro_torch.serve.forecast', 'repro_torch.ckpt.checkpoint', "
+            "'repro_torch.testing.faults'):\n"
             "    assert m in sys.modules, m\n")
     res = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ,

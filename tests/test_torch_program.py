@@ -145,7 +145,7 @@ def test_cpu_plans_launch_no_kernel():
     assert set(_build.LAUNCHES) == {"hdiff", "vadvc", "dycore_fused",
                                     "dycore_kstep", "hdiff_kstep", "hadv",
                                     "copy", "flash_attn", "lru_scan",
-                                    "xent"}
+                                    "xent", "slot_guard"}
     assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
 
 

@@ -317,13 +317,6 @@ def test_loss_decreases():
     assert last < first, (first, last)
 
 
-def test_fit_refuses_checkpoints():
-    cfg = treg.reduced_config(treg.get_config("tinyllama-1.1b"), layers=1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        loop.fit(api.build(cfg, device="cpu"), iter(()), steps=1,
-                 ckpt_dir="/nonexistent")
-
-
 def test_watchdog_flags_stragglers():
     w = loop.WatchdogStats(threshold=2.0)
     for _ in range(10):
