@@ -73,7 +73,18 @@ ensemble-4 plan with the device's share of it under the profiler, a
 `poison_nan` fault quarantining one slot, an injected `compile_fail`
 reaching the reference plan, a mid-drain checkpoint and restore bit-equal
 to the uninterrupted drain, and reduced tinyllama `fit` with
-`ckpt_every=2` resumed bit-equal to an uninterrupted run; times every kernel,
+`ckpt_every=2` resumed bit-equal to an uninterrupted run; then the LM
+families (phase 9): the flash kernel at the prefill shapes of
+whisper-medium's encoder (non-causal, 1500 frames), granite-moe-3b (GQA
+group of 3), moonshot (head_dim 128) and qwen2-vl (group of 8) against
+its plain version and timed beside SDPA,
+`ServeEngine` over granite-moe-3b, moonshot-v1-16b, mamba2-1.3b,
+whisper-medium and qwen2-vl-72b at full width in bf16 (moonshot and
+qwen2-vl cut in depth to about 30 GB of weights) with the same requests as
+phase 6 (launches as planned, tokens equal to a stepwise loop, a profiler
+split with the MoE dispatch/combine and SSD scan ranges), `fit` over
+granite-moe-3b at full width and depth (3 steps), and each family's
+reduced fp32 step on the card against the CPU; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -142,6 +153,15 @@ PROMPT_LENS = (256, 1024)      # prompt lengths, drawn from a seed
 # LM training: (arch, layers kept (0: all), steps); full width, bf16
 TRAIN_RUNS = (("tinyllama-1.1b", 0, 5), ("recurrentgemma-9b", 3, 3))
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048      # tinyllama's published context
+# LM families (phase 9): the five configurations phases 6-7 do not run,
+# served at full width in bf16. A config whose bf16 weights (its
+# param_count) exceed FAMILY_WEIGHTS_GB keeps the most layers that fit,
+# at least FAMILY_MIN_LAYERS; FAMILY_TRAIN trains at full width and depth.
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+                "whisper-medium", "qwen2-vl-72b")
+FAMILY_WEIGHTS_GB = 30
+FAMILY_MIN_LAYERS = 8
+FAMILY_TRAIN = ("granite-moe-3b-a800m", 3)          # arch, steps
 # the planner phase's plans, each compiled with tune="measure":
 # (op, variant, k_steps, dtype)
 PLANNER_PLANS = (("dycore", "auto", "auto", "float32"),
@@ -480,6 +500,52 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def within(got, want, rtol):
+    """|got − want| ≤ 2e-5 + rtol·|want| everywhere (fp32: rtol 2e-5, the
+    JAX kernel tests' tolerance; bf16 adds one rounding of the output,
+    2^-8·|want|); returns (ok, max abs err)."""
+    d = (got.float() - want).abs()
+    return bool((d <= 2e-5 + rtol * want.abs()).all()), float(d.max())
+
+
+def time_flash(torch, results, key, label, q, k, v, err, causal):
+    """The flash kernel at q, k, v (bf16, as the models run) by call and
+    queued, beside its plain version and SDPA, the library yardstick,
+    which the port never calls; stored under `results[(key,
+    "bfloat16")]`."""
+    from repro_torch.kernels.flash_attention import flash as flash_k
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, t, h, hd = q.shape
+    ms = time_ms(lambda: flash_ops.flash_mha(q, k, v, causal=causal))
+    plain_ms = time_ms(lambda: flash_ref.mha(q, k, v, causal=causal))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                      enable_gqa=True))
+    # queued back to back: the wrapper's host path hides behind the
+    # kernels, so these are the device's times
+    queued_ms = stream_ms(lambda: flash_ops.flash_mha(q, k, v,
+                                                      causal=causal))
+    library_queued_ms = stream_ms(lambda: sdpa(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    flops = flash_k.attention_flops(b, t, k.shape[1], h, hd, causal=causal)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    results[(key, "bfloat16")] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=b_ms, bound_by=b_by, shape=[list(q.shape), list(k.shape)],
+        tflops=flops / ms * 1e-9, queued_ms=queued_ms,
+        library_queued_ms=library_queued_ms, causal=causal)
+    say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} bf16: "
+        f"{ms:.4f} ms = {flops / ms * 1e-9:.2f} TFLOP/s (plain "
+        f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by}); queued back to back {queued_ms:.4f} ms = "
+        f"{flops / queued_ms * 1e-9:.2f} TFLOP/s, SDPA "
+        f"{library_queued_ms:.4f} ms")
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -500,12 +566,26 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
+# the port's profiler ranges (`torch.profiler.record_function`): MoE routing
+# and dispatch, its combine, and the SSD scan; a kernel launched inside one
+# is reported under its name
+RANGES = ("moe_dispatch", "moe_combine", "ssd_scan")
+PORT_KERNELS = ("flash_attn", "lru_scan", "xent")    # kernel_category's
+
+
 def device_breakdown(fn, category=kernel_category):
     """Run `fn()` under `torch.profiler` and read its device kernels:
     the host window (ms, profiler on, ending in a synchronise), the union
     of kernel intervals (busy ms), the idle share of the window, and the
-    kernel time by `category` of the kernel's name. None when the
-    profiler saw no device kernel."""
+    kernel time by group: the `RANGES` range the kernel was launched in
+    (the range around its launching operator on that thread, or else the
+    range's device-side span), else `category` of its name; and the
+    seconds the profiler's events took to read. The raw events are read
+    (`kineto_results`), not `prof.events()`, whose tree of Python objects
+    takes tens of seconds at a training step's 10^5 kernels. None when
+    the profiler saw no device kernel."""
+    import bisect
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -516,26 +596,64 @@ def device_breakdown(fn, category=kernel_category):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    t0 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, dev_ranges, ops, cpu_ranges = [], [], {}, {}
+    no = lambda: False              # a method older releases lack
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", no)():
+            continue
+        name = e.name()
+        if e.device_type() == cuda:
+            if name in RANGES:
+                dev_ranges.append((e.start_ns(), e.end_ns(), name))
+            elif not getattr(e, "is_user_annotation", no)():
+                kernels.append((e.start_ns(), e.end_ns(), name,
+                                e.linked_correlation_id()))
+        elif name in RANGES:
+            cpu_ranges.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), name))
+        elif e.linked_correlation_id() == 0:      # an operator, not runtime
+            ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+    dev_ranges.sort()
+    for rs in cpu_ranges.values():
+        rs.sort()
+
+    def inside(rs, at):
+        """The name of the range of sorted, unnested `rs` holding `at`."""
+        i = bisect.bisect_right(rs, (at, float("inf"), "")) - 1
+        return rs[i][2] if i >= 0 and at <= rs[i][1] else None
+
+    def group(start, name, corr):
+        # the port's own kernels go by name: launched through ctypes, no
+        # operator encloses them, so their launcher's id is a stale one
+        cat = category(name)
+        if cat in PORT_KERNELS:
+            return cat
+        op = ops.get(corr)
+        found = (inside(cpu_ranges[op[1]], op[0])
+                 if op is not None and op[1] in cpu_ranges else None)
+        return found or inside(dev_ranges, start) or cat
+
+    spans = sorted((start, end, group(start, name, corr))
+                   for start, end, name, corr in kernels)
     if not spans:
         return None
-    busy, (lo, hi) = 0.0, spans[0][:2]
+    busy, (lo, hi) = 0, spans[0][:2]
     by = {}
-    for start, end, name in spans:
-        cat = category(name)
-        by[cat] = by.get(cat, 0.0) + (end - start) / 1e3
+    for start, end, cat in spans:
+        by[cat] = by.get(cat, 0.0) + (end - start) / 1e6
         if start > hi:
             busy += hi - lo
             lo, hi = start, end
         else:
             hi = max(hi, end)
-    busy_ms = (busy + hi - lo) / 1e3
+    busy_ms = (busy + hi - lo) / 1e6
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms, kernels=len(spans),
                 by_category_ms=dict(sorted(by.items(),
-                                           key=lambda kv: -kv[1])))
+                                           key=lambda kv: -kv[1])),
+                read_s=time.perf_counter() - t0)
 
 
 def pipeline_category(name: str) -> str:
@@ -554,6 +672,172 @@ def pipeline_category(name: str) -> str:
     return "other"
 
 
+def serve_prompts(cfg):
+    """SERVE_REQUESTS prompts of PROMPT_LENS tokens, from seed 0: every
+    model serves the same lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                  size=SERVE_REQUESTS)]
+
+
+def serve_model(torch, dev, check, results, model, params, n_attn, n_rec,
+                n_dec=8):
+    """`ServeEngine` over SERVE_REQUESTS requests on SERVE_SLOTS slots with
+    the planned launches (a wave's prefill launches flash `n_attn` times
+    and the LRU `n_rec` times, each decode step the LRU `n_rec` times),
+    its first wave equal to a hand-rolled prefill + decode loop, a
+    profiled prefill and `n_dec` decode steps, and the engine's times, under
+    `results[("serve_<name>", dtype)]` and `("profile_<name>", dtype)`.
+    Returns the run's flash and LRU launches."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    arch = cfg.name
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = serve_prompts(cfg)
+    plen = max(len(p) for p in prompts)
+    max_len = plen + SERVE_NEW
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(model, params, batch=SERVE_SLOTS, max_len=max_len)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    want = {k: 0 for k in counts}
+    want["flash_attn"] = waves * n_attn
+    want["lru_scan"] = waves * n_rec * SERVE_NEW   # prefill + 31 steps
+    label = f"serve {arch}"
+    say(f"{label}: {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}), {SERVE_REQUESTS} requests, "
+        f"{SERVE_SLOTS} slots, prompts {min(map(len, prompts))}-{plen} "
+        f"tokens (padded to {plen}), {SERVE_NEW} new each; launches "
+        f"{counts} (planned {want})")
+    check(counts == want, f"{label}: launched {counts}, planned {want}")
+    check(sorted(out) == list(range(SERVE_REQUESTS))
+          and all(len(v) == SERVE_NEW for v in out.values()),
+          f"{label}: not every request got {SERVE_NEW} tokens")
+    check(all(0 <= t < cfg.vocab_size for v in out.values() for t in v),
+          f"{label}: a token outside the vocab")
+
+    # The first wave again by hand: prefill + decode_step, greedy, the
+    # same left-padded batch; flash launches only in the prefill.
+    toks = np.zeros((SERVE_SLOTS, plen), np.int64)
+    for i, r in enumerate(reqs[:SERVE_SLOTS]):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    wave = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.encdec:                   # the engine's zero frames
+        wave["frames"] = torch.zeros(
+            (SERVE_SLOTS, cfg.encdec.encoder_len, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=dev)
+    with torch.inference_mode():
+        _build.reset_launches()
+        logits, cache = model.prefill(params, wave, max_len=max_len)
+        nxt = logits[:, -1].argmax(dim=-1)
+        finite = bool(torch.isfinite(logits[:, -1]).all())
+        del logits
+        torch.cuda.synchronize()
+        after_prefill = dict(_build.LAUNCHES)
+        hand = [nxt.cpu()]
+        for step in range(SERVE_NEW - 1):
+            lg, cache = model.decode_step(params, cache, nxt[:, None],
+                                          plen + step)
+            finite &= bool(torch.isfinite(lg).all())
+            nxt = lg[:, -1].argmax(dim=-1)
+            hand.append(nxt.cpu())
+        del cache, lg
+    torch.cuda.synchronize()
+    after_decode = dict(_build.LAUNCHES)
+    hand = torch.stack(hand, dim=1).tolist()
+    same = all(out[i] == hand[i] for i in range(SERVE_SLOTS))
+    say(f"{label}: engine vs hand-rolled loop, wave 1: "
+        f"{'equal token for token' if same else 'DIFFERENT'}; launches "
+        f"after prefill {after_prefill['flash_attn']} flash, "
+        f"{after_prefill['lru_scan']} lru; after {SERVE_NEW - 1} decode "
+        f"steps {after_decode['flash_attn']} flash, "
+        f"{after_decode['lru_scan']} lru; logits finite {finite}")
+    check(same, f"{label}: the engine differs from its stepwise loop")
+    check(finite, f"{label}: non-finite logits")
+    check(after_prefill["flash_attn"] == n_attn
+          and after_prefill["lru_scan"] == n_rec
+          and after_decode["flash_attn"] == n_attn
+          and after_decode["lru_scan"] == n_rec * SERVE_NEW,
+          f"{label}: stepwise launches {after_prefill} then "
+          f"{after_decode}")
+
+    # Where the device time goes: one wave's prefill, then n_dec decode
+    # steps (fewer if the cache would not hold them), each under the
+    # profiler.
+    n_dec = min(n_dec, SERVE_NEW - 1)
+    with torch.inference_mode():
+        holder = {}
+
+        def prefill():
+            holder["lg"], holder["cache"] = model.prefill(
+                params, wave, max_len=max_len)
+            holder["nxt"] = holder["lg"][:, -1:].argmax(dim=-1)
+
+        def decode():
+            for step in range(n_dec):
+                lg, holder["cache"] = model.decode_step(
+                    params, holder["cache"], holder["nxt"], plen + step)
+                holder["nxt"] = lg[:, -1:].argmax(dim=-1)
+
+        prof = {"prefill": device_breakdown(prefill)}
+        del holder["lg"]
+        prof[f"decode_{n_dec}_steps"] = device_breakdown(decode)
+        del holder
+    results[(f"profile_{arch}", cfg.dtype)] = prof
+    for part, br in prof.items():
+        if br is None:
+            say(f"{label} {part}: the profiler saw no device kernel "
+                f"(device breakdown not measured)")
+            continue
+        say(f"{label} {part} under torch.profiler: host window "
+            f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
+            f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
+            f"kernels (read in {br['read_s']:.1f} s); by kind (ms) "
+            + ", ".join(f"{k} {v:.2f}"
+                        for k, v in br["by_category_ms"].items()))
+
+    # ---- (c) times: the engine's host clock, which each wave's
+    # sampling synchronises
+    pre = eng.stats["prefill_s"]
+    dec = eng.stats["decode_s"]
+    # prompt tokens/s over every wave (padded tokens: what the device
+    # computes); the first wave also pays for the library's first calls
+    # at these shapes
+    prompt_tps = SERVE_SLOTS * plen * len(pre) / sum(pre)
+    decode_ms = statistics.median(dec) * 1e3
+    results[(f"serve_{arch}", cfg.dtype)] = dict(
+        params_b=n_params / 1e9, prompt_tokens=sum(map(len, prompts)),
+        padded_prompt_len=plen, waves=len(pre),
+        prefill_ms_per_wave=[x * 1e3 for x in pre],
+        prefill_tokens_per_s=prompt_tps,
+        decode_ms_per_step=decode_ms, decode_steps=len(dec),
+        decode_tokens_per_s=SERVE_SLOTS / statistics.median(dec),
+        latency_s=[r.latency_s for r in reqs],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"{label}: prefill {[round(x * 1e3, 2) for x in pre]} ms a wave "
+        f"({SERVE_SLOTS} x {plen} tokens: {prompt_tps:.0f} prompt "
+        f"tokens/s over the waves), decode {decode_ms:.3f} ms a "
+        f"step (median of {len(dec)}; "
+        f"{SERVE_SLOTS / statistics.median(dec):.1f} tokens/s); request "
+        f"latency {min(r.latency_s for r in reqs):.2f}-"
+        f"{max(r.latency_s for r in reqs):.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return {k: counts[k] for k in ("flash_attn", "lru_scan")}
+
+
 def serve_phase(torch, dev, check, results, main_launches):
     """The LM serving path on the card (phase 6): the flash-attention and
     LRU kernels against their plain versions, then `ServeEngine` over both
@@ -566,23 +850,14 @@ def serve_phase(torch, dev, check, results, main_launches):
     import numpy as np
 
     from repro_torch.configs import registry
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash as flash_k
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.lru_scan import ref as lru_ref
     from repro_torch.kernels.lru_scan.lru_scan import lru_scan_cuda
     from repro_torch.models import api, lm
-    from repro_torch.serve.engine import Request, ServeEngine
 
     gen = torch.Generator(device=dev).manual_seed(6)
-
-    def within(got, want, rtol):
-        """|got − want| ≤ 2e-5 + rtol·|want| everywhere (fp32: rtol 2e-5,
-        the JAX kernel tests' tolerance; bf16 adds one rounding of the
-        output, 2^-8·|want|); returns (ok, max abs err)."""
-        d = (got.float() - want).abs()
-        return bool((d <= 2e-5 + rtol * want.abs()).all()), float(d.max())
 
     # ---- (a) the kernels against their plain versions, white noise ------
     flash_cases = [
@@ -659,41 +934,11 @@ def serve_phase(torch, dev, check, results, main_launches):
         del a, bb, want
     torch.cuda.empty_cache()
 
-    # The flash kernel's times at both models' prefill shapes (bf16, as
-    # the models run) beside the plain version and SDPA, the library
-    # yardstick, which the port never calls.
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # The flash kernel's times at both models' prefill shapes.
     for label, name in FLASH_TIMES:
         q, k, v, err, causal = flash_shapes[label]
-        b, t, h, hd = q.shape
-        ms = time_ms(lambda: flash_ops.flash_mha(q, k, v, causal=causal))
-        plain_ms = time_ms(lambda: flash_ref.mha(q, k, v, causal=causal))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                          enable_gqa=True))
-        # queued back to back: the wrapper's host path hides behind the
-        # kernels, so these are the device's times
-        queued_ms = stream_ms(lambda: flash_ops.flash_mha(q, k, v,
-                                                          causal=causal))
-        library_queued_ms = stream_ms(lambda: sdpa(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
-        flops = flash_k.attention_flops(b, t, k.shape[1], h, hd,
-                                        causal=causal)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        results[(name, "bfloat16")] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=b_ms, bound_by=b_by, shape=[list(q.shape),
-                                                 list(k.shape)],
-            tflops=flops / ms * 1e-9, queued_ms=queued_ms,
-            library_queued_ms=library_queued_ms)
-        say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} bf16: "
-            f"{ms:.4f} ms = {flops / ms * 1e-9:.2f} TFLOP/s (plain "
-            f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} "
-            f"ms by {b_by}); queued back to back {queued_ms:.4f} ms = "
-            f"{flops / queued_ms * 1e-9:.2f} TFLOP/s, SDPA "
-            f"{library_queued_ms:.4f} ms")
-        del q, k, v, qt, kt, vt
+        time_flash(torch, results, name, label, q, k, v, err, causal)
+        del q, k, v
     flash_shapes.clear()
     torch.cuda.empty_cache()
 
@@ -703,151 +948,15 @@ def serve_phase(torch, dev, check, results, main_launches):
         cfg = registry.get_config(arch)
         kinds = lm.layer_kinds(cfg)
         n_attn = sum(kd != "rec" for kd in kinds)
-        n_rec = len(kinds) - n_attn
         torch.cuda.reset_peak_memory_stats()
         model = api.build(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
-        n_params = sum(p.numel() for p in params.parameters())
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(
-            np.int32) for n in rng.integers(PROMPT_LENS[0],
-                                            PROMPT_LENS[1] + 1,
-                                            size=SERVE_REQUESTS)]
-        plen = max(len(p) for p in prompts)
-        max_len = plen + SERVE_NEW
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
-                for i, p in enumerate(prompts)]
-        eng = ServeEngine(model, params, batch=SERVE_SLOTS, max_len=max_len)
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        out = eng.run(reqs)
-        torch.cuda.synchronize()
-        counts = dict(_build.LAUNCHES)
-        waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
-        want = {k: 0 for k in counts}
-        want["flash_attn"] = waves * n_attn
-        want["lru_scan"] = waves * n_rec * SERVE_NEW   # prefill + 31 steps
-        label = f"serve {arch}"
-        say(f"{label}: {n_params / 1e9:.3f} B parameters "
-            f"({cfg.param_dtype}), {SERVE_REQUESTS} requests, "
-            f"{SERVE_SLOTS} slots, prompts {min(map(len, prompts))}-{plen} "
-            f"tokens (padded to {plen}), {SERVE_NEW} new each; launches "
-            f"{counts} (planned {want})")
-        check(counts == want, f"{label}: launched {counts}, planned {want}")
-        path_launches[arch] = {k: counts[k] for k in ("flash_attn",
-                                                      "lru_scan")}
+        path_launches[arch] = serve_model(torch, dev, check, results, model,
+                                          params, n_attn,
+                                          len(kinds) - n_attn)
         if arch == SERVE_ARCHS[0]:
             main_launches.update(path_launches[arch])
-        check(sorted(out) == list(range(SERVE_REQUESTS))
-              and all(len(v) == SERVE_NEW for v in out.values()),
-              f"{label}: not every request got {SERVE_NEW} tokens")
-        check(all(0 <= t < cfg.vocab_size for v in out.values() for t in v),
-              f"{label}: a token outside the vocab")
-
-        # The first wave again by hand: prefill + decode_step, greedy, the
-        # same left-padded batch; flash launches only in the prefill.
-        toks = np.zeros((SERVE_SLOTS, plen), np.int64)
-        for i, r in enumerate(reqs[:SERVE_SLOTS]):
-            toks[i, plen - len(r.prompt):] = r.prompt
-        with torch.inference_mode():
-            _build.reset_launches()
-            logits, cache = model.prefill(
-                params, {"tokens": torch.from_numpy(toks).to(dev)},
-                max_len=max_len)
-            nxt = logits[:, -1].argmax(dim=-1)
-            finite = bool(torch.isfinite(logits[:, -1]).all())
-            del logits
-            torch.cuda.synchronize()
-            after_prefill = dict(_build.LAUNCHES)
-            hand = [nxt.cpu()]
-            for step in range(SERVE_NEW - 1):
-                lg, cache = model.decode_step(params, cache, nxt[:, None],
-                                              plen + step)
-                finite &= bool(torch.isfinite(lg).all())
-                nxt = lg[:, -1].argmax(dim=-1)
-                hand.append(nxt.cpu())
-            del cache, lg
-        torch.cuda.synchronize()
-        after_decode = dict(_build.LAUNCHES)
-        hand = torch.stack(hand, dim=1).tolist()
-        same = all(out[i] == hand[i] for i in range(SERVE_SLOTS))
-        say(f"{label}: engine vs hand-rolled loop, wave 1: "
-            f"{'equal token for token' if same else 'DIFFERENT'}; launches "
-            f"after prefill {after_prefill['flash_attn']} flash, "
-            f"{after_prefill['lru_scan']} lru; after {SERVE_NEW - 1} decode "
-            f"steps {after_decode['flash_attn']} flash, "
-            f"{after_decode['lru_scan']} lru; logits finite {finite}")
-        check(same, f"{label}: the engine differs from its stepwise loop")
-        check(finite, f"{label}: non-finite logits")
-        check(after_prefill["flash_attn"] == n_attn
-              and after_prefill["lru_scan"] == n_rec
-              and after_decode["flash_attn"] == n_attn
-              and after_decode["lru_scan"] == n_rec * SERVE_NEW,
-              f"{label}: stepwise launches {after_prefill} then "
-              f"{after_decode}")
-
-        # Where the device time goes: one wave's prefill, then 8 decode
-        # steps (fewer if the cache would not hold them), each under the
-        # profiler.
-        n_dec = min(8, SERVE_NEW - 1)
-        with torch.inference_mode():
-            tk = torch.from_numpy(toks).to(dev)
-            holder = {}
-
-            def prefill():
-                holder["lg"], holder["cache"] = model.prefill(
-                    params, {"tokens": tk}, max_len=max_len)
-                holder["nxt"] = holder["lg"][:, -1:].argmax(dim=-1)
-
-            def decode():
-                for step in range(n_dec):
-                    lg, holder["cache"] = model.decode_step(
-                        params, holder["cache"], holder["nxt"], plen + step)
-                    holder["nxt"] = lg[:, -1:].argmax(dim=-1)
-
-            prof = {"prefill": device_breakdown(prefill)}
-            del holder["lg"]
-            prof[f"decode_{n_dec}_steps"] = device_breakdown(decode)
-            del holder
-        results[(f"profile_{arch}", cfg.dtype)] = prof
-        for part, br in prof.items():
-            if br is None:
-                say(f"{label} {part}: the profiler saw no device kernel "
-                    f"(device breakdown not measured)")
-                continue
-            say(f"{label} {part} under torch.profiler: host window "
-                f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
-                f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
-                f"kernels; by kind (ms) " + ", ".join(
-                    f"{k} {v:.2f}" for k, v in br["by_category_ms"].items()))
-
-        # ---- (c) times: the engine's host clock, which each wave's
-        # sampling synchronises
-        pre = eng.stats["prefill_s"]
-        dec = eng.stats["decode_s"]
-        # prompt tokens/s over every wave (padded tokens: what the device
-        # computes); the first wave also pays for the library's first calls
-        # at these shapes
-        prompt_tps = SERVE_SLOTS * plen * len(pre) / sum(pre)
-        decode_ms = statistics.median(dec) * 1e3
-        results[(f"serve_{arch}", cfg.dtype)] = dict(
-            params_b=n_params / 1e9, prompt_tokens=sum(map(len, prompts)),
-            padded_prompt_len=plen, waves=len(pre),
-            prefill_ms_per_wave=[x * 1e3 for x in pre],
-            prefill_tokens_per_s=prompt_tps,
-            decode_ms_per_step=decode_ms, decode_steps=len(dec),
-            decode_tokens_per_s=SERVE_SLOTS / statistics.median(dec),
-            latency_s=[r.latency_s for r in reqs],
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        say(f"{label}: prefill {[round(x * 1e3, 2) for x in pre]} ms a wave "
-            f"({SERVE_SLOTS} x {plen} tokens: {prompt_tps:.0f} prompt "
-            f"tokens/s over the waves), decode {decode_ms:.3f} ms a "
-            f"step (median of {len(dec)}; "
-            f"{SERVE_SLOTS / statistics.median(dec):.1f} tokens/s); request "
-            f"latency {min(r.latency_s for r in reqs):.2f}-"
-            f"{max(r.latency_s for r in reqs):.2f} s; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-        del model, params, eng, out
+        del model, params
         torch.cuda.empty_cache()
 
     # Reduced configs, fp32: the same model on the card (kernels) and on
@@ -884,6 +993,219 @@ def serve_phase(torch, dev, check, results, main_launches):
     return path_launches
 
 
+def random_head(torch, gen, d, vp, tied, dtype):
+    """A (D, Vp) LM head from `gen`: `embed.T` (contiguous along D) when
+    tied."""
+    w = (torch.randn(vp, d, generator=gen, device=gen.device) * 0.02
+         ).to(dtype)
+    return w.T if tied else w.T.contiguous()
+
+
+def train_model(torch, dev, check, results, cfg, steps, gen):
+    """`train.loop.fit` over `cfg` at TRAIN_BATCH x TRAIN_SEQ in bf16 for
+    `steps` steps (remat="full") with the planned launches, a finite loss
+    and moved parameters, a profiled step, and the xent kernel at its
+    training shape against its plain version, timed (its inputs and head
+    from `gen`). Returns the run's flash, LRU and xent launches."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.xent import ops as xent_ops
+    from repro_torch.kernels.xent import ref as xent_ref
+    from repro_torch.kernels.xent import xent as xent_k
+    from repro_torch.models import api, lm
+    from repro_torch.train import loop, optim
+
+    arch = cfg.name
+    label = f"train {arch}"
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kinds = lm.layer_kinds(cfg)
+    period = len(cfg.pattern)
+    recomputed = kinds[:cfg.n_repeats * period]    # remat="full"
+    attn = [k not in ("rec", "ssd") for k in kinds]
+    plan = {"flash_attn": sum(attn) + sum(attn[:len(recomputed)]),
+            "lru_scan": 2 * kinds.count("rec") + recomputed.count("rec"),
+            "xent": 1}
+    torch.cuda.reset_peak_memory_stats()
+    model = api.build(cfg)
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=5,
+                              total_steps=steps)
+    data = synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                              device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    params, opt_state, hist = loop.fit(model, data, steps=steps,
+                                       opt_cfg=opt_cfg, remat="full",
+                                       log_every=0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {k: v * steps for k, v in plan.items() if v}
+    say(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{len(kinds)} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"remat full, {steps} steps; launches {counts} (planned "
+        f"{want}: {plan} a step)")
+    check(counts == want, f"{label}: launched {counts}, planned {want}")
+    launches = {k: counts.get(k, 0)
+                for k in ("flash_attn", "lru_scan", "xent")}
+    losses = [hh["loss"] for hh in hist]
+    finite = all(math.isfinite(hh["loss"])
+                 and math.isfinite(hh["grad_norm"]) for hh in hist)
+    init = model.init(torch.Generator(device=dev).manual_seed(0))
+    moved = all(not torch.equal(p0, p1) for p0, p1 in
+                zip(init.parameters(), params.parameters()))
+    del init
+    say(f"{label}: loss per step {[round(x, 4) for x in losses]}, grad "
+        f"norm {[round(hh['grad_norm'], 3) for hh in hist]}; finite "
+        f"{finite}; every parameter moved {moved}")
+    check(finite, f"{label}: a non-finite loss or gradient norm")
+    check(len(set(losses)) > 1, f"{label}: the loss did not move")
+    check(moved, f"{label}: a parameter did not move")
+    step_s = statistics.median(hh["time_s"] for hh in hist[1:])
+    mfu = 6 * cfg.param_count() * tokens / step_s / BF16_FLOPS_PER_S
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # one more step, profiled in two halves: loss + gradients, then the
+    # optimizer update (the step `fit` runs, split)
+    batch = next(data)
+    holder = {}
+
+    def fwd_bwd():
+        loss = model.loss(params, batch, remat="full")
+        holder["grads"] = torch.autograd.grad(
+            loss, list(params.parameters()))
+
+    def update():
+        optim.apply_updates(opt_cfg, params, opt_state,
+                            holder.pop("grads"))
+
+    prof = {"loss_and_grads": device_breakdown(fwd_bwd),
+            "optimizer": device_breakdown(update)}
+    results[(f"train_{arch}", cfg.dtype)] = dict(
+        layers=len(kinds), params_b=cfg.param_count() / 1e9,
+        steps=steps, losses=losses, step_ms=step_s * 1e3,
+        step_ms_each=[hh["time_s"] * 1e3 for hh in hist],
+        tokens_per_s=tokens / step_s, mfu=mfu, peak_gb=peak,
+        launches_per_step=plan, profile=prof)
+    say(f"{label}: step {step_s * 1e3:.1f} ms (median after the first; "
+        f"each {[round(hh['time_s'] * 1e3, 1) for hh in hist]}), "
+        f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
+        f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens a step over "
+        f"989 TFLOP/s), peak memory {peak:.1f} GB")
+    for part, br in prof.items():
+        if br is None:
+            say(f"{label} {part}: the profiler saw no device kernel "
+                f"(device breakdown not measured)")
+            continue
+        say(f"{label} {part} under torch.profiler: host window "
+            f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
+            f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
+            f"kernels (read in {br['read_s']:.1f} s); by kind (ms) "
+            + ", ".join(f"{k} {v:.2f}"
+                        for k, v in br["by_category_ms"].items()))
+    del model, params, opt_state, data, batch, holder
+    torch.cuda.empty_cache()
+
+    # the xent kernel at this training shape (bf16, as the model runs)
+    n, d, vp = TRAIN_BATCH * (TRAIN_SEQ - 1), cfg.d_model, cfg.padded_vocab
+    h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
+    w = random_head(torch, gen, d, vp, cfg.tie_embeddings, torch.bfloat16)
+    t = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev)
+    nll, lse = xent_ops.xent_rows(h, w, t, vocab=cfg.vocab_size)
+    want_nll, want_lse = xent_ref.xent_rows(h.float(), w.float(), t,
+                                            None, cfg.vocab_size)
+    err = float((nll - want_nll).abs().max())
+    sum_err = abs(float(nll.sum()) - float(want_nll.sum()))
+    ok = all(bool(((g - wt).abs() <= 1e-4 + 1e-4 * wt.abs()).all())
+             for g, wt in ((nll, want_nll), (lse, want_lse)))
+    ok &= sum_err <= 1e-4 * abs(float(want_nll.sum()))
+    say(f"xent {arch} training shape N={n} "
+        f"({xent_k.splits(n, vp, sms, torch.bfloat16)[0]}"
+        f" vocab splits): nll err {err:.3g}, lse err "
+        f"{float((lse - want_lse).abs().max()):.3g} (per row 1e-4 + "
+        f"1e-4|want|), sum err {sum_err:.3g} (rtol 1e-4)")
+    check(ok, f"xent {arch} training shape: disagrees with its plain "
+          f"version")
+    del nll, lse, want_nll, want_lse
+    reps = 5
+    # each call's time: a call is slower where the row blocks sharing a
+    # head tile drift apart and re-read it from device memory
+    each = times_ms(lambda: xent_ops.xent_rows(h, w, t,
+                                               vocab=cfg.vocab_size), reps)
+    ms = statistics.median(each)
+    plain_ms = time_ms(lambda: xent_ref.xent_rows(
+        h, w, t, None, cfg.vocab_size), reps)
+    library_ms = time_ms(lambda: F.cross_entropy(
+        h @ w, t.long(), reduction="none"), reps)
+    flops = 2.0 * n * d * vp           # the logits' products
+    nbytes = (n * d + d * vp) * 2 + n * (4 + 4 + 4)
+    # bf16 inputs: their products are exact in fp32, so the card's
+    # rate for this function is the bf16 tensor cores' (fp32
+    # accumulation), the route bf16 takes; the fp32 cores' bound, the
+    # fp32 route's at this shape, is kept beside it
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    fp32_ms, _ = bound(nbytes, flops)
+    results[(f"xent_{arch}", "bfloat16")] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_cores_ms=fp32_ms,
+        shape=[n, d, vp], tied=cfg.tie_embeddings,
+        tflops=flops / ms * 1e-9, ms_each=each)
+    say(f"xent {arch} training shape N={n} D={d} Vp={vp} bf16"
+        f"{' (embed.T)' if cfg.tie_embeddings else ''}: {ms:.3f} ms = "
+        f"{flops / ms * 1e-9:.2f} TFLOP/s (calls "
+        f"{[round(x, 3) for x in each]} ms; err {err:.3g}; plain "
+        f"{plain_ms:.3f} ms; library pair h @ head + F.cross_entropy, "
+        f"two calls, {library_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
+        f"at 989 TFLOP/s bf16; on the fp32 cores' 67 TFLOP/s "
+        f"{fp32_ms:.3f} ms)")
+    del h, w, t
+    torch.cuda.empty_cache()
+    return launches
+
+
+def reduced_train_step(torch, dev, check, arch):
+    """One AdamW step of `arch`'s reduced config in fp32 on the card
+    (kernels) against the same step on the CPU (plain versions): loss,
+    grad norm and updated parameters within 1e-4."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    cfg = dataclasses.replace(
+        registry.reduced_config(registry.get_config(arch)),
+        dtype="float32", param_dtype="float32")
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic.lm_batch(cfg, 0, 0, 2, 33).items()}
+    params = api.build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = []
+    for where in ("cpu", dev):
+        model = api.build(cfg, device=where)
+        p = copy.deepcopy(params).to(where)
+        step = loop.make_train_step(model, optim.OptConfig(lr=1e-3),
+                                    remat="full")
+        p, _, m = step(p, optim.init_opt_state(p),
+                       {k: v.to(where) for k, v in batch.items()})
+        out.append(({k: float(v) for k, v in m.items()},
+                    [x.detach().cpu() for x in p.parameters()]))
+    (mc, pc), (mg, pg) = out
+    err_m = max(abs(mg[k] - mc[k]) / abs(mc[k])
+                for k in ("loss", "grad_norm"))
+    err_p = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    say(f"reduced {arch} fp32 train step: card vs CPU loss/grad-norm "
+        f"relative err {err_m:.3g}, updated params err {err_p:.3g} "
+        f"(limit 1e-4)")
+    check(err_m <= 1e-4 and err_p <= 1e-4,
+          f"reduced {arch} train step: the card disagrees with the CPU")
+
+
 def train_phase(torch, dev, check, results):
     """The LM training path on the card (phase 7): the cross-entropy
     kernel against its plain version, the gradients of the three kernels'
@@ -893,16 +1215,9 @@ def train_phase(torch, dev, check, results):
     card against the CPU, and the times of a step (with a profiler split)
     and of the xent kernel at each training shape. Returns each training
     path's launch counts of the three kernels, by arch."""
-    import copy
     import dataclasses
-    import math
-
-    import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.configs import registry
-    from repro_torch.data import synthetic
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.lru_scan import ops as lru_ops
@@ -911,16 +1226,9 @@ def train_phase(torch, dev, check, results):
     from repro_torch.kernels.xent import ops as xent_ops
     from repro_torch.kernels.xent import ref as xent_ref
     from repro_torch.kernels.xent import xent as xent_k
-    from repro_torch.models import api, lm
-    from repro_torch.train import loop, optim
 
     gen = torch.Generator(device=dev).manual_seed(7)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def head_of(d, vp, tied, dtype):
-        """A (D, Vp) head: `embed.T` (contiguous along D) when tied."""
-        w = (torch.randn(vp, d, generator=gen, device=dev) * 0.02).to(dtype)
-        return w.T if tied else w.T.contiguous()
 
     # ---- (a) the xent kernel against its plain version ------------------
     # label, n, d, vp, vocab, softcap, valid_frac, tied
@@ -933,7 +1241,7 @@ def train_phase(torch, dev, check, results):
     for label, n, d, vp, vocab, softcap, vfrac, tied in xent_cases:
         for dtype in (torch.float32, torch.bfloat16):
             h = torch.randn(n, d, generator=gen, device=dev).to(dtype)
-            w = head_of(d, vp, tied, dtype)
+            w = random_head(torch, gen, d, vp, tied, dtype)
             t = torch.randint(0, vocab, (n,), generator=gen, device=dev)
             v = (None if vfrac is None else
                  (torch.rand(n, generator=gen, device=dev) < vfrac).float())
@@ -993,7 +1301,7 @@ def train_phase(torch, dev, check, results):
 
     for tied in (False, True):
         h = torch.randn(700, 256, generator=gen, device=dev)
-        w = head_of(256, 32000, tied, torch.float32)
+        w = random_head(torch, gen, 256, 32000, tied, torch.float32)
         t = torch.randint(0, 31900, (700,), generator=gen, device=dev)
         cot = torch.randn(700, generator=gen, device=dev)
         xs = [x.detach().requires_grad_() for x in (h, w)]
@@ -1067,7 +1375,6 @@ def train_phase(torch, dev, check, results):
 
     # ---- (c) training at full width through fit --------------------------
     path_launches = {}
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     for arch, layers, steps in TRAIN_RUNS:
         full = registry.get_config(arch)
         cfg = dataclasses.replace(full, n_layers=layers) if layers else full
@@ -1080,173 +1387,12 @@ def train_phase(torch, dev, check, results):
                 f"{full.param_count() * 16 / 1e9:.0f} GB for bf16 weights "
                 f"and gradients and fp32 m, v and master, more than the "
                 f"card's 80 GB")
-        kinds = lm.layer_kinds(cfg)
-        period = len(cfg.pattern)
-        recomputed = kinds[:cfg.n_repeats * period]    # remat="full"
-        n_rec = kinds.count("rec")
-        plan = {"flash_attn": len(kinds) - n_rec + sum(
-                    k != "rec" for k in recomputed),
-                "lru_scan": 2 * n_rec + recomputed.count("rec"),
-                "xent": 1}
-        torch.cuda.reset_peak_memory_stats()
-        model = api.build(cfg)
-        opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=5,
-                                  total_steps=steps)
-        data = synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
-                                  device=dev)
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        params, opt_state, hist = loop.fit(model, data, steps=steps,
-                                           opt_cfg=opt_cfg, remat="full",
-                                           log_every=0)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-        want = {k: v * steps for k, v in plan.items() if v}
-        say(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
-            f"{len(kinds)} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-            f"remat full, {steps} steps; launches {counts} (planned "
-            f"{want}: {plan} a step)")
-        check(counts == want, f"{label}: launched {counts}, planned {want}")
-        path_launches[arch] = {k: counts.get(k, 0)
-                               for k in ("flash_attn", "lru_scan", "xent")}
-        losses = [hh["loss"] for hh in hist]
-        finite = all(math.isfinite(hh["loss"])
-                     and math.isfinite(hh["grad_norm"]) for hh in hist)
-        init = model.init(torch.Generator(device=dev).manual_seed(0))
-        moved = all(not torch.equal(p0, p1) for p0, p1 in
-                    zip(init.parameters(), params.parameters()))
-        del init
-        say(f"{label}: loss per step {[round(x, 4) for x in losses]}, grad "
-            f"norm {[round(hh['grad_norm'], 3) for hh in hist]}; finite "
-            f"{finite}; every parameter moved {moved}")
-        check(finite, f"{label}: a non-finite loss or gradient norm")
-        check(moved, f"{label}: a parameter did not move")
-        step_s = statistics.median(hh["time_s"] for hh in hist[1:])
-        mfu = 6 * cfg.param_count() * tokens / step_s / BF16_FLOPS_PER_S
-        peak = torch.cuda.max_memory_allocated() / 1e9
-
-        # one more step, profiled in two halves: loss + gradients, then the
-        # optimizer update (the step `fit` runs, split)
-        batch = next(data)
-        holder = {}
-
-        def fwd_bwd():
-            loss = model.loss(params, batch, remat="full")
-            holder["grads"] = torch.autograd.grad(
-                loss, list(params.parameters()))
-
-        def update():
-            optim.apply_updates(opt_cfg, params, opt_state,
-                                holder.pop("grads"))
-
-        prof = {"loss_and_grads": device_breakdown(fwd_bwd),
-                "optimizer": device_breakdown(update)}
-        results[(f"train_{arch}", cfg.dtype)] = dict(
-            layers=len(kinds), params_b=cfg.param_count() / 1e9,
-            steps=steps, losses=losses, step_ms=step_s * 1e3,
-            step_ms_each=[hh["time_s"] * 1e3 for hh in hist],
-            tokens_per_s=tokens / step_s, mfu=mfu, peak_gb=peak,
-            launches_per_step=plan, profile=prof)
-        say(f"{label}: step {step_s * 1e3:.1f} ms (median after the first; "
-            f"each {[round(hh['time_s'] * 1e3, 1) for hh in hist]}), "
-            f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
-            f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens a step over "
-            f"989 TFLOP/s), peak memory {peak:.1f} GB")
-        for part, br in prof.items():
-            if br is None:
-                say(f"{label} {part}: the profiler saw no device kernel "
-                    f"(device breakdown not measured)")
-                continue
-            say(f"{label} {part} under torch.profiler: host window "
-                f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
-                f"(idle share {br['idle_share']:.3f}), {br['kernels']} "
-                f"kernels; by kind (ms) " + ", ".join(
-                    f"{k} {v:.2f}" for k, v in br["by_category_ms"].items()))
-        del model, params, opt_state, data, batch, holder
-        torch.cuda.empty_cache()
-
-        # the xent kernel at this training shape (bf16, as the model runs)
-        n, d, vp = TRAIN_BATCH * (TRAIN_SEQ - 1), cfg.d_model, cfg.padded_vocab
-        h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
-        w = head_of(d, vp, cfg.tie_embeddings, torch.bfloat16)
-        t = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev)
-        nll, lse = xent_ops.xent_rows(h, w, t, vocab=cfg.vocab_size)
-        want_nll, want_lse = xent_ref.xent_rows(h.float(), w.float(), t,
-                                                None, cfg.vocab_size)
-        err = float((nll - want_nll).abs().max())
-        sum_err = abs(float(nll.sum()) - float(want_nll.sum()))
-        ok = all(bool(((g - wt).abs() <= 1e-4 + 1e-4 * wt.abs()).all())
-                 for g, wt in ((nll, want_nll), (lse, want_lse)))
-        ok &= sum_err <= 1e-4 * abs(float(want_nll.sum()))
-        say(f"xent {arch} training shape N={n} "
-            f"({xent_k.splits(n, vp, sms, torch.bfloat16)[0]}"
-            f" vocab splits): nll err {err:.3g}, lse err "
-            f"{float((lse - want_lse).abs().max()):.3g} (per row 1e-4 + "
-            f"1e-4|want|), sum err {sum_err:.3g} (rtol 1e-4)")
-        check(ok, f"xent {arch} training shape: disagrees with its plain "
-              f"version")
-        del nll, lse, want_nll, want_lse
-        reps = 5
-        # each call's time: a call is slower where the row blocks sharing a
-        # head tile drift apart and re-read it from device memory
-        each = times_ms(lambda: xent_ops.xent_rows(h, w, t,
-                                                   vocab=cfg.vocab_size), reps)
-        ms = statistics.median(each)
-        plain_ms = time_ms(lambda: xent_ref.xent_rows(
-            h, w, t, None, cfg.vocab_size), reps)
-        library_ms = time_ms(lambda: F.cross_entropy(
-            h @ w, t.long(), reduction="none"), reps)
-        flops = 2.0 * n * d * vp           # the logits' products
-        nbytes = (n * d + d * vp) * 2 + n * (4 + 4 + 4)
-        # bf16 inputs: their products are exact in fp32, so the card's
-        # rate for this function is the bf16 tensor cores' (fp32
-        # accumulation), the route bf16 takes; the fp32 cores' bound, the
-        # fp32 route's at this shape, is kept beside it
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        fp32_ms, _ = bound(nbytes, flops)
-        results[(f"xent_{arch}", "bfloat16")] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=b_ms, bound_by=b_by, bound_fp32_cores_ms=fp32_ms,
-            shape=[n, d, vp], tied=cfg.tie_embeddings,
-            tflops=flops / ms * 1e-9, ms_each=each)
-        say(f"xent {arch} training shape N={n} D={d} Vp={vp} bf16"
-            f"{' (embed.T)' if cfg.tie_embeddings else ''}: {ms:.3f} ms = "
-            f"{flops / ms * 1e-9:.2f} TFLOP/s (calls "
-            f"{[round(x, 3) for x in each]} ms; err {err:.3g}; plain "
-            f"{plain_ms:.3f} ms; library pair h @ head + F.cross_entropy, "
-            f"two calls, {library_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
-            f"at 989 TFLOP/s bf16; on the fp32 cores' 67 TFLOP/s "
-            f"{fp32_ms:.3f} ms)")
-        del h, w, t
-        torch.cuda.empty_cache()
+        path_launches[arch] = train_model(torch, dev, check, results, cfg,
+                                          steps, gen)
 
     # ---- (d) reduced configs, fp32: one step on the card vs the CPU ------
     for arch in ("tinyllama-1.1b", "recurrentgemma-9b"):
-        cfg = dataclasses.replace(
-            registry.reduced_config(registry.get_config(arch)),
-            dtype="float32", param_dtype="float32")
-        toks = torch.from_numpy(synthetic.lm_batch(cfg, 0, 0, 2, 33)["tokens"])
-        params = api.build(cfg, device="cpu").init(
-            torch.Generator().manual_seed(0))
-        out = []
-        for where in ("cpu", dev):
-            model = api.build(cfg, device=where)
-            p = copy.deepcopy(params).to(where)
-            step = loop.make_train_step(model, optim.OptConfig(lr=1e-3),
-                                        remat="full")
-            p, _, m = step(p, optim.init_opt_state(p),
-                           {"tokens": toks.to(where)})
-            out.append(({k: float(v) for k, v in m.items()},
-                        [x.detach().cpu() for x in p.parameters()]))
-        (mc, pc), (mg, pg) = out
-        err_m = max(abs(mg[k] - mc[k]) / abs(mc[k])
-                    for k in ("loss", "grad_norm"))
-        err_p = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
-        say(f"reduced {arch} fp32 train step: card vs CPU loss/grad-norm "
-            f"relative err {err_m:.3g}, updated params err {err_p:.3g} "
-            f"(limit 1e-4)")
-        check(err_m <= 1e-4 and err_p <= 1e-4,
-              f"reduced {arch} train step: the card disagrees with the CPU")
+        reduced_train_step(torch, dev, check, arch)
     torch.cuda.empty_cache()
     return path_launches
 
@@ -1693,6 +1839,119 @@ def forecast_phase(torch, dev, check, results):
     del model, p_a, p_b, p_r, o_a, o_r
     torch.cuda.empty_cache()
     return forecast_launches
+
+
+def family_config(arch):
+    """`arch`'s published config at full width, and its depth cut (None
+    where every layer fits): the most layers whose bf16 weights fit
+    FAMILY_WEIGHTS_GB, at least FAMILY_MIN_LAYERS."""
+    from repro_torch.configs import registry
+
+    full = registry.get_config(arch)
+    gb = lambda c: 2 * c.param_count() / 1e9
+    if gb(full) <= FAMILY_WEIGHTS_GB:
+        return full, None
+    layers = max([FAMILY_MIN_LAYERS] + [
+        n for n in range(1, full.n_layers)
+        if gb(dataclasses.replace(full, n_layers=n)) <= FAMILY_WEIGHTS_GB])
+    cfg = dataclasses.replace(full, n_layers=layers)
+    return cfg, (f"{arch}: depth cut to {layers} of {full.n_layers} layers "
+                 f"at full width: {gb(cfg):.2f} GB of bf16 weights "
+                 f"({cfg.param_count() / 1e9:.2f} B parameters) of "
+                 f"{gb(full):.2f} GB in all, which would not fit the card's "
+                 f"80 GB beside the cache")
+
+
+def family_phase(torch, dev, check, results):
+    """The five LM configurations phases 6 and 7 do not run (phase 9): the
+    flash kernel at their prefill shapes against its plain version and
+    timed beside SDPA (whisper's non-causal encoder, granite's GQA group
+    of 3, moonshot at head_dim 128, qwen2-vl's group of 8); `ServeEngine`
+    over each at full width in bf16 (`serve_model`: planned launches, the
+    stepwise loop, a profiler split with the MoE and SSD ranges, the
+    engine's times); granite-moe-3b trained at full width and depth
+    (`train_model`); and each family's reduced fp32 train step on the card
+    against the CPU. Returns the serving and training paths' launches, by
+    arch."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_attention.flash import flash_mha_cuda
+    from repro_torch.models import api, lm
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    plen = max(map(len, serve_prompts(family_config(FAMILY_ARCHS[0])[0])))
+
+    # ---- (a) the flash kernel at the families' prefill shapes ------------
+    # whisper's is its encoder's (non-causal, T = S = the frames); mamba2
+    # runs no attention
+    for arch in ("whisper-medium", "granite-moe-3b-a800m",
+                 "moonshot-v1-16b-a3b", "qwen2-vl-72b"):
+        cfg = family_config(arch)[0]
+        t = cfg.encdec.encoder_len if cfg.encdec else plen
+        causal = not cfg.encdec
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        label = (f"{arch} {'encoder' if cfg.encdec else 'prefill'} (H {h}, "
+                 f"KH {kh}, hd {hd}{'' if causal else ', non-causal'})")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((SERVE_SLOTS, t, h, hd),
+                                     (SERVE_SLOTS, t, kh, hd),
+                                     (SERVE_SLOTS, t, kh, hd)))
+            want = flash_ref.mha(q.float(), k.float(), v.float(),
+                                 causal=causal)
+            rtol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+            ok, err = within(flash_mha_cuda(q, k, v, causal=causal), want,
+                             rtol)
+            say(f"flash {label} {tuple(q.shape)}/{tuple(k.shape)} "
+                f"{str(dtype)[6:]}: err {err:.3g} (atol 2e-5 + "
+                f"{rtol:.3g}|want|)")
+            check(ok, f"flash {label} {dtype}: disagrees with its plain "
+                  f"version")
+            del want
+        time_flash(torch, results, f"flash_attn_{arch}", label, q, k, v,
+                   err, causal)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- (b) serving at full width ----------------------------------------
+    serve_launches = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg, cut = family_config(arch)
+        if cut:
+            say(cut)
+        n_attn = sum(kd not in ("rec", "ssd") for kd in lm.layer_kinds(cfg))
+        if cfg.encdec:
+            n_attn += cfg.encdec.encoder_layers
+        torch.cuda.reset_peak_memory_stats()
+        model = api.build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        t1 = time.perf_counter()
+        serve_launches[arch] = serve_model(torch, dev, check, results, model,
+                                           params, n_attn, 0, n_dec=2)
+        results[(f"serve_{cfg.name}", cfg.dtype)].update(
+            layers=cfg.n_layers,
+            published_layers=registry.get_config(arch).n_layers)
+        del model, params
+        torch.cuda.empty_cache()
+        say(f"serve {arch}: {time.perf_counter() - t0:.1f} s in all (init "
+            f"{t1 - t0:.1f} s)")
+
+    # ---- (c) training at full width and depth -----------------------------
+    t0 = time.perf_counter()
+    arch, steps = FAMILY_TRAIN
+    train_launches = {arch: train_model(torch, dev, check, results,
+                                        family_config(arch)[0], steps, gen)}
+    torch.cuda.empty_cache()
+    say(f"train {arch}: {time.perf_counter() - t0:.1f} s in all")
+
+    # ---- (d) reduced configs, fp32: one step on the card vs the CPU -------
+    t0 = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        reduced_train_step(torch, dev, check, arch)
+    torch.cuda.empty_cache()
+    say(f"reduced train steps: {time.perf_counter() - t0:.1f} s")
+    return serve_launches, train_launches
 
 
 def main() -> int:
@@ -3190,6 +3449,11 @@ def main() -> int:
 
     phase_done("phase 8 (forecast serving)")
 
+    # ---- 9. LM families ---------------------------------------------------
+    family_serve, family_train = family_phase(torch, dev, check, results)
+
+    phase_done("phase 9 (LM families)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -3252,20 +3516,28 @@ def main() -> int:
                 "launches": pipe_launches[name]}
         if name in ("flash_attn", "lru_scan", "xent"):
             # each serving and training path's own launches; flash also its
-            # own times at that model's prefill shape, xent at that model's
-            # training shape
+            # own times at that model's prefill shape (whisper's: its
+            # encoder's), xent at that model's training shape; phase 9's
+            # paths run no LRU
+            serving = dict(path_launches)
+            training = dict(train_launches)
+            if name != "lru_scan":
+                serving.update(family_serve)
+                training.update(family_train)
             paths = {} if name == "xent" else {
-                arch: {"launches": n[name]}
-                for arch, n in path_launches.items()}
+                arch: {"launches": n[name]} for arch, n in serving.items()}
             paths.update({f"train {arch}": {"launches": n[name]}
-                          for arch, n in train_launches.items()})
+                          for arch, n in training.items()})
             timed = []
             if name == "flash_attn":
                 timed = [(arch, (key, "bfloat16")) for (_, key), arch in
                          zip(FLASH_TIMES, SERVE_ARCHS)]
+                timed += [(arch, (f"flash_attn_{arch}", "bfloat16"))
+                          for arch in FAMILY_ARCHS
+                          if (f"flash_attn_{arch}", "bfloat16") in results]
             elif name == "xent":
                 timed = [(f"train {arch}", (f"xent_{arch}", "bfloat16"))
-                         for arch, _, _ in TRAIN_RUNS]
+                         for arch in training]
             for path, key in timed:
                 r = results[key]
                 paths[path].update(
@@ -3313,8 +3585,9 @@ def main() -> int:
         "or its k-step round, the limited compound hdiff or its k-step "
         "round, or the vadvc Thomas sweep; hadv's is one conv2d over the "
         "wrap-padded stack; copy's is Tensor.copy_ into a preallocated tensor; "
-        "flash_attn's is scaled_dot_product_attention (causal, enable_gqa) "
-        "at recurrentgemma-9b's prefill shape; none computes the LRU sweep; "
+        "flash_attn's is scaled_dot_product_attention (enable_gqa; causal, "
+        "but non-causal at whisper's encoder) at recurrentgemma-9b's "
+        "prefill shape and at each path's own; none computes the LRU sweep; "
         "xent's is a pair of calls, h @ head then F.cross_entropy, at "
         "recurrentgemma-9b's training shape; none computes the slot "
         "guard's digest")

@@ -4,8 +4,10 @@ A port of `repro.data.synthetic` (its numpy code copied). Batches are a
 pure function of (seed, step), so a run replays the exact stream from any
 step. A one-deep prefetch thread makes the next batch on the host while
 the device computes; on CUDA it stages the batch in pinned host memory and
-the copy to the card is asynchronous. (Encoder-decoder `frames` are not
-ported: `models/api.py::build` refuses those configs.)
+the copy to the card is asynchronous. An encoder-decoder config's batch
+also carries `frames`, (B, encoder_len, d_model) float32 from the same
+generator after the tokens, and the iterator copies them as it copies the
+tokens.
 """
 
 from __future__ import annotations
@@ -34,7 +36,12 @@ def lm_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int,
         stride = rng.integers(1, 9, size=(batch, 1))
         idx = np.arange(seq)[None, :]
         tokens = ((start + stride * idx) % cfg.vocab_size).astype(np.int32)
-    return {"tokens": tokens}
+    out = {"tokens": tokens}
+    if cfg.encdec:
+        out["frames"] = rng.normal(
+            0, 1, size=(batch, cfg.encdec.encoder_len, cfg.d_model)
+        ).astype(np.float32)
+    return out
 
 
 def iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

@@ -2,35 +2,31 @@
 
     model = build(cfg)                                  # device="cuda"
     params = model.init(torch.Generator("cuda").manual_seed(0))
-    loss   = model.loss(params, {"tokens": tokens})
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    loss   = model.loss(params, batch)
+    logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-A port of `repro.models.api` for the decoder-only LMs. It runs on the card
-unless the caller asks for the CPU: `build(cfg)` raises where no GPU is
-present, and `build(cfg, device="cpu")` runs the plain versions of the
-kernels. MoE, SSD, encoder-decoder and M-RoPE configurations raise
-`NotImplementedError` (ROADMAP.md, queue 1, item 9).
+A port of `repro.models.api` for all ten configurations: the decoder-only
+LMs (dense, MoE, RG-LRU, Mamba2 SSD, M-RoPE; `models/lm.py`) and the
+encoder-decoder (`models/encdec.py`, `family == "encdec"`), whose batches
+carry `frames` beside `tokens` and whose cache carries the encoder's
+states as `enc`. It runs on the card unless the caller asks for the CPU:
+`build(cfg)` raises where no GPU is present, and `build(cfg,
+device="cpu")` runs the plain versions of the kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
-from repro_torch.models.blocks import UNPORTED
+from repro_torch.models import encdec, lm
+from repro_torch.models.common import torch_dtype
 
-
-def unported_features(cfg: ModelConfig):
-    """The features of `cfg` the port does not run yet."""
-    return [name for name, on in (
-        ("moe", cfg.moe), ("ssd", cfg.ssd or "ssd" in cfg.pattern),
-        ("encdec", cfg.encdec), ("mrope_sections", cfg.mrope_sections))
-        if on]
+Params = Union[lm.LM, encdec.EncDec]
 
 
 def device_of(device) -> torch.device:
@@ -48,33 +44,74 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, generator: torch.Generator) -> lm.LM:
+    @property
+    def family(self) -> str:
+        return "encdec" if self.cfg.encdec else "lm"
+
+    # ---- params -----------------------------------------------------------
+    def init(self, generator: torch.Generator) -> Params:
         """Random parameters from `generator`, which must live on the
         model's device."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}; the model "
                              f"runs on {self.device}")
+        if self.family == "encdec":
+            return encdec.init_params(self.cfg, generator)
         return lm.init_params(self.cfg, generator)
 
-    def loss(self, params: lm.LM, batch: Dict[str, torch.Tensor],
+    # ---- training ---------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              remat: str = "full") -> torch.Tensor:
+        if self.family == "encdec":
+            return encdec.loss_fn(self.cfg, params, batch, remat=remat)
         return lm.loss_fn(self.cfg, params, batch, remat=remat)
 
-    def init_cache(self, batch: int, max_len: int) -> list:
+    def batch_spec(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+        """One training batch's shapes and dtypes, as tensors on the meta
+        device (the JAX package's ShapeDtypeStructs)."""
+        spec = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                      device="meta")}
+        if self.family == "encdec":
+            spec["frames"] = torch.empty(
+                (batch, self.cfg.encdec.encoder_len, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device="meta")
+        return spec
+
+    # ---- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int):
+        if self.family == "encdec":
+            cache = encdec.init_cache(self.cfg, batch, max_len, self.device)
+            cache["enc"] = torch.zeros(
+                (batch, self.cfg.encdec.encoder_len, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
+            return cache
         return lm.init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, params: lm.LM, batch: Dict[str, torch.Tensor],
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
-        return lm.prefill(self.cfg, params, batch["tokens"], max_len)
+        tokens = batch["tokens"]
+        if self.family == "encdec":
+            enc = encdec.encode(self.cfg, params, batch["frames"])
+            cache = encdec.init_cache(self.cfg, tokens.shape[0],
+                                      max_len or tokens.shape[1],
+                                      tokens.device)
+            logits, cache = encdec.decode(self.cfg, params, tokens, enc,
+                                          mode="prefill", cache=cache)
+            return logits, {"dec": cache["dec"], "enc": enc}
+        return lm.prefill(self.cfg, params, tokens, max_len)
 
-    def decode_step(self, params: lm.LM, cache: list, token: torch.Tensor,
+    def decode_step(self, params: Params, cache, token: torch.Tensor,
                     pos: int):
+        """token: (B, 1) -> (logits (B, 1, V), cache). Writes the token's
+        K/V into `cache` in place; an encoder-decoder's `enc` is read,
+        never written."""
+        if self.family == "encdec":
+            logits, new = encdec.decode(self.cfg, params, token,
+                                        cache["enc"], mode="decode",
+                                        cache={"dec": cache["dec"]}, pos=pos)
+            return logits, {"dec": new["dec"], "enc": cache["enc"]}
         return lm.decode_step(self.cfg, params, cache, token, pos)
 
 
 def build(cfg: ModelConfig, device="cuda") -> Model:
-    missing = unported_features(cfg)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
-                                  f"{UNPORTED}")
     return Model(cfg, device_of(device))

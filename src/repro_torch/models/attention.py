@@ -5,8 +5,9 @@ attention layer runs in prefill: on a CPU tensor it is the JAX package's
 chunked online-softmax body in plain PyTorch (q scaled in its own dtype, as
 the model scales it); on a CUDA tensor it launches the hand-written flash
 kernel (`kernels/flash_attention`, the twin of the TPU serving path's
-Pallas kernel, which scales q in fp32) or raises. `decode_attention` has no
-kernel in the reference and stays plain PyTorch.
+Pallas kernel, which scales q in fp32) or raises. `decode_attention` and
+`dense_attention` (the encoder-decoder's cross-attention) have no kernel in
+the reference and stay plain PyTorch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,25 @@ def _mask(qpos, kpos, causal: bool, window: int):
     if window:
         m &= d < window
     return m
+
+
+def dense_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, softcap: float = 0.0):
+    """q: (B, T, H, hd); k, v: (B, S, K, hd). Materializes the scores: for
+    short T·S (decode, cross-attention over the encoder's frames)."""
+    b, t, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qs = (q * (hd ** -0.5)).reshape(b, t, kh, g, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qs.float(), k.float())
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    qpos = q_offset + torch.arange(t, device=q.device)
+    kpos = torch.arange(s, device=q.device)
+    scores = torch.where(_mask(qpos, kpos, causal, window), scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", p, v.float())
+    return out.reshape(b, t, h, hd).to(q.dtype)
 
 
 def _divisor_chunk(t: int, chunk: int) -> int:

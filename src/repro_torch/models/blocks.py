@@ -2,11 +2,13 @@
 the module that holds one block's parameters.
 
 A port of `repro.models.blocks`. Kinds: "attn"/"global" (full causal
-attention + FFN), "local" (sliding window + FFN), "rec" (RG-LRU + FFN).
-"ssd" (Mamba2) and MoE FFNs are not ported and raise. Every apply has the
-signature
-    apply(cfg, params, x, *, positions, mode, cache, pos) -> (x, cache')
-where mode ∈ {"train", "prefill", "decode"}.
+attention + FFN), "local" (sliding window + FFN), "rec" (RG-LRU + FFN),
+"ssd" (Mamba2 mixer, no FFN). The FFN is a MoE layer where the config has
+`moe`. Every apply has the signature
+    apply(cfg, params, x, *, positions, mode, cache, pos) -> (x, cache', aux)
+where mode ∈ {"train", "prefill", "decode"} and `aux` is the MoE layer's
+load-balancing term (the number 0.0 without one). A recurrent or SSD block's state is
+its cache in decode.
 
 Unlike the JAX package, decode writes the new token's K/V into the cache
 in place and returns that same cache (the JAX package returns an updated
@@ -26,10 +28,10 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (ParamTree, dense_init, norm_apply,
                                        norm_init, qk_norm_apply, rope_apply)
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import (rglru_block_apply, rglru_init,
                                       rglru_init_state)
-
-UNPORTED = "not ported yet (ROADMAP.md, queue 1, item 9: the LM side)"
+from repro_torch.models.ssd import ssd_apply, ssd_init, ssd_init_state
 
 
 # ---------------------------------------------------------------------------
@@ -52,22 +54,23 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
     """One block's parameters as a nested dict of tensors on the
     generator's device, named and shaped as the JAX package's."""
-    if kind == "ssd":
-        raise NotImplementedError(f"block kind 'ssd' (Mamba2): {UNPORTED}")
-    if cfg.moe:
-        raise NotImplementedError(f"MoE FFN: {UNPORTED}")
     p = {"norm1": norm_init(cfg, cfg.d_model, gen.device)}
     if kind in ("attn", "global", "local"):
         p["attn"] = attn_init(gen, cfg, dtype)
     elif kind == "rec":
         p["rec"] = rglru_init(gen, cfg, dtype)
+    elif kind == "ssd":
+        p["ssd"] = ssd_init(gen, cfg, dtype)
     else:
         raise ValueError(kind)
-    p["norm2"] = norm_init(cfg, cfg.d_model, gen.device)
-    p["ffn"] = mlp_init(gen, cfg, dtype)
+    if kind != "ssd":
+        p["norm2"] = norm_init(cfg, cfg.d_model, gen.device)
+        p["ffn"] = (moe_init(gen, cfg, dtype) if cfg.moe
+                    else mlp_init(gen, cfg, dtype))
     if cfg.sandwich_norm:
         p["post1"] = norm_init(cfg, cfg.d_model, gen.device)
-        p["post2"] = norm_init(cfg, cfg.d_model, gen.device)
+        if kind != "ssd":
+            p["post2"] = norm_init(cfg, cfg.d_model, gen.device)
     return p
 
 
@@ -80,7 +83,7 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     elif kind == "rec":
         return rglru_init_state(cfg, batch, dtype, device)
     elif kind == "ssd":
-        raise NotImplementedError(f"block kind 'ssd' (Mamba2): {UNPORTED}")
+        return ssd_init_state(cfg, batch, dtype, device)
     else:
         raise ValueError(kind)
     shape = (batch, s, cfg.n_kv_heads, cfg.hd)
@@ -111,7 +114,7 @@ def _kv_dequant(q, scale, dtype):
 # ---------------------------------------------------------------------------
 
 def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
-                     cache, pos):
+                     cache, pos, causal: bool = True):
     b, t, d = h.shape
     hd = cfg.hd
     q = (h @ params["wq"]).reshape(b, t, cfg.n_heads, hd)
@@ -124,8 +127,8 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
     if kind == "local" and cfg.rope_theta_local:
         theta = cfg.rope_theta_local
     if theta:                      # theta == 0 -> no rope (whisper backbone)
-        q = rope_apply(q, positions, theta)
-        k = rope_apply(k, positions, theta)
+        q = rope_apply(q, positions, theta, cfg.mrope_sections)
+        k = rope_apply(k, positions, theta, cfg.mrope_sections)
     window = cfg.window if kind == "local" else 0
 
     quant = cfg.kv_dtype == "int8"
@@ -151,7 +154,8 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
         out = attn_lib.decode_attention(
             q, ck, cv, pos, window=(s if kind == "local" else 0))
     else:
-        out = attn_lib.flash_attention(q, k, v, window=window)
+        out = attn_lib.flash_attention(q, k, v, causal=causal,
+                                       window=window)
         if mode == "prefill":
             s = cache["k"].shape[1]
             if kind == "local" and t > s:
@@ -179,35 +183,40 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
 
 
 def block_apply(kind: str, cfg: ModelConfig, params, x, *, positions, mode,
-                cache=None, pos=None):
+                cache=None, pos=None, causal: bool = True):
+    aux = 0.0          # a tensor only where a MoE layer computes one
     h = norm_apply(cfg, params["norm1"], x)
     if kind in ("attn", "global", "local"):
         mix, new_cache = _attention_mixer(kind, cfg, params["attn"], h,
                                           positions=positions, mode=mode,
-                                          cache=cache, pos=pos)
-    elif kind == "rec":
+                                          cache=cache, pos=pos, causal=causal)
+    elif kind in ("rec", "ssd"):
         state = cache if mode == "decode" else None
-        mix, new_state = rglru_block_apply(cfg, params["rec"], h, state)
+        apply = rglru_block_apply if kind == "rec" else ssd_apply
+        mix, new_state = apply(cfg, params[kind], h, state)
         new_cache = new_state if mode != "train" else cache
-    elif kind == "ssd":
-        raise NotImplementedError(f"block kind 'ssd' (Mamba2): {UNPORTED}")
     else:
         raise ValueError(kind)
     if cfg.sandwich_norm:
         mix = norm_apply(cfg, params["post1"], mix)
     x = x + mix
 
-    h = norm_apply(cfg, params["norm2"], x)
-    ff = mlp_apply(cfg, params["ffn"], h)
-    if cfg.sandwich_norm:
-        ff = norm_apply(cfg, params["post2"], ff)
-    x = x + ff
-    return x, new_cache
+    if kind != "ssd":
+        h = norm_apply(cfg, params["norm2"], x)
+        if cfg.moe:
+            ff, aux = moe_apply(cfg, params["ffn"], h)
+        else:
+            ff = mlp_apply(cfg, params["ffn"], h)
+        if cfg.sandwich_norm:
+            ff = norm_apply(cfg, params["post2"], ff)
+        x = x + ff
+    return x, new_cache, aux
 
 
 class Block(nn.Module):
     """One decoder block: its kind and its parameters (a `ParamTree` named
-    as the JAX package's block params)."""
+    as the JAX package's block params; an encoder-decoder's decoder block
+    also holds its cross-attention's `xattn` and `norm_x`)."""
 
     def __init__(self, kind: str, cfg: ModelConfig,
                  params: Mapping[str, object]):
@@ -216,7 +225,8 @@ class Block(nn.Module):
         self.cfg = cfg
         self.params = ParamTree(params)
 
-    def forward(self, x, *, positions, mode, cache=None, pos=None):
+    def forward(self, x, *, positions, mode, cache=None, pos=None,
+                causal: bool = True):
         return block_apply(self.kind, self.cfg, self.params, x,
                            positions=positions, mode=mode, cache=cache,
-                           pos=pos)
+                           pos=pos, causal=causal)

@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, RoPE, init helpers and the parameter tree.
+"""Shared model primitives: norms, RoPE (with M-RoPE), init helpers and
+the parameter tree.
 
 A port of `repro.models.common`. Parameters keep the JAX package's names,
 shapes, layouts and dtypes: a dense weight is `(d_in, d_out)` and a layer
@@ -10,7 +11,7 @@ are not the JAX package's (`models/convert.py` carries those across).
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -93,19 +94,31 @@ def qk_norm_apply(q: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
-def rope_apply(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, T, H, hd); positions: (B, T) int. Half-split (llama-style)
-    rotation in float32. M-RoPE (`positions` of (B, T, 3)) is not ported:
-    `models/api.py::build` refuses its configs."""
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) int or (B, T, 3) for M-RoPE.
+
+    Half-split (llama-style) rotation in float32. With `mrope_sections`
+    (a, b, c), a + b + c == hd/2, frequency i uses position component
+    0/1/2 by section (Qwen2-VL M-RoPE; for text inputs the three
+    components coincide)."""
     b, t, h, hd = x.shape
     half = hd // 2
     inv_freq = 1.0 / (theta ** (torch.arange(
         0, half, dtype=torch.float32, device=x.device) / half))
-    angles = positions[..., None].float() * inv_freq          # (B, T, half)
+    if positions.dim() == 2:
+        angles = positions[..., None].float() * inv_freq      # (B, T, half)
+    else:
+        if mrope_sections is None:
+            raise ValueError("(B, T, 3) positions need mrope_sections")
+        sel = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                    device=x.device)
+                         for i, s in enumerate(mrope_sections)])  # (half,)
+        angles = positions.float()[..., sel] * inv_freq       # (B, T, half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -1,16 +1,20 @@
-"""Carry an LM's parameters across between the JAX package and the port,
-via numpy.
+"""Carry a model's parameters across between the JAX package and the
+port, via numpy.
 
 `params_from_numpy` takes the JAX package's param pytree
 (`repro.models.api.build(cfg).init(key)`) with every leaf as a numpy array
-and returns the port's `LM`. The stacked `superblocks` are unstacked along
-their leading `n_repeats` axis into one block per layer, in the order the
-forward pass runs them; every leaf keeps its layout (`(d_in, d_out)`
-weights, so the port's `x @ w` has the JAX package's shapes) and its dtype
-(norm scales and `lam` stay float32). bfloat16 crosses as a `uint16` view
-of its bits (or as numpy's `bfloat16`), as in `weather/convert.py`.
-`params_to_numpy` is the way back: the port's `LM` as the JAX package's
-tree, the blocks stacked again into `superblocks`.
+and returns the port's `LM`, or its `EncDec` for an encoder-decoder
+config. The stacked `superblocks` are unstacked along their leading
+`n_repeats` axis into one block per layer, in the order the forward pass
+runs them (an encoder-decoder's `enc_blocks` and `dec_blocks` along their
+layer axis); every leaf keeps its layout (`(d_in, d_out)` weights, so the
+port's `x @ w` has the JAX package's shapes; a MoE layer's `wi`/`wg`/`wo`
+stacked over experts) and its dtype (norm scales, `lam`, the MoE router
+and the SSD's `A_log`, `D`, `dt_bias` and `norm_scale` stay float32).
+bfloat16 crosses as a `uint16` view of its bits (or as numpy's
+`bfloat16`), as in `weather/convert.py`. `params_to_numpy` is the way
+back: the port's parameters as the JAX package's tree, the blocks stacked
+again.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.weather.convert import tensor_from_numpy, tensor_to_numpy
 
 
@@ -40,9 +44,18 @@ def _tree(tree: Mapping, device, index=None):
             for k, v in tree.items()}
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping, device) -> lm.LM:
-    """The JAX package's LM params (numpy leaves) as the port's `LM` on
-    `device`."""
+def params_from_numpy(cfg: ModelConfig, tree: Mapping, device):
+    """The JAX package's params (numpy leaves) as the port's `LM` (or
+    `EncDec`) on `device`."""
+    if cfg.encdec:
+        return encdec.EncDec(
+            cfg, _tensor(tree["embed"], device),
+            [_tree(tree["enc_blocks"], device, i)
+             for i in range(cfg.encdec.encoder_layers)],
+            _tree(tree["enc_norm"], device),
+            [_tree(tree["dec_blocks"], device, i)
+             for i in range(cfg.n_layers)],
+            _tree(tree["final_norm"], device), _tensor(tree["head"], device))
     blocks = []
     for rep in range(cfg.n_repeats):
         for i in range(len(cfg.pattern)):
@@ -64,20 +77,32 @@ def _as_numpy(module) -> dict:
     return out
 
 
-def params_to_numpy(cfg: ModelConfig, params: lm.LM) -> dict:
-    """The port's `LM` as the JAX package's param tree with numpy leaves
-    (bf16 as `uint16` bits): the way back of `params_from_numpy`."""
+def _stack(trees):
+    """Dicts of equal structure -> one dict, each leaf stacked on a new
+    leading axis."""
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else np.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def params_to_numpy(cfg: ModelConfig, params) -> dict:
+    """The port's `LM` (or `EncDec`) as the JAX package's param tree with
+    numpy leaves (bf16 as `uint16` bits): the way back of
+    `params_from_numpy`."""
+    if cfg.encdec:
+        return {"embed": tensor_to_numpy(params.embed),
+                "enc_blocks": _stack([_as_numpy(b.params)
+                                      for b in params.enc_blocks]),
+                "enc_norm": _as_numpy(params.enc_norm),
+                "dec_blocks": _stack([_as_numpy(b.params)
+                                      for b in params.dec_blocks]),
+                "final_norm": _as_numpy(params.final_norm),
+                "head": tensor_to_numpy(params.head)}
     blocks = [_as_numpy(b.params) for b in params.blocks]
     period = len(cfg.pattern)
-
-    def stack(trees):
-        return {k: (stack([t[k] for t in trees]) if isinstance(v, dict)
-                    else np.stack([t[k] for t in trees]))
-                for k, v in trees[0].items()}
-
     tree = {"embed": tensor_to_numpy(params.embed),
-            "superblocks": {f"b{i}": stack(blocks[i:cfg.n_repeats * period:
-                                                  period])
+            "superblocks": {f"b{i}": _stack(blocks[i:cfg.n_repeats * period:
+                                                   period])
                             for i in range(period)},
             "final_norm": _as_numpy(params.final_norm)}
     for r in range(cfg.n_remainder):

@@ -90,66 +90,84 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
 # forward
 # ---------------------------------------------------------------------------
 
-def _positions(b: int, t: int, offset: int, device) -> torch.Tensor:
-    pos = offset + torch.arange(t, device=device)
-    return pos.expand(b, t)
+def _positions(cfg: ModelConfig, b: int, t: int, offset: int,
+               device) -> torch.Tensor:
+    """(B, T) positions from `offset`; (B, T, 3), the three M-RoPE
+    components equal, for an M-RoPE config."""
+    pos = (offset + torch.arange(t, device=device)).expand(b, t)
+    if cfg.mrope_sections:
+        pos = pos[..., None].expand(b, t, 3)
+    return pos
 
 
 REMATS = ("none", "full")
 
 
 def _train_blocks(blocks, x, positions):
+    aux = 0.0
     for block in blocks:
-        x, _ = block(x, positions=positions, mode="train")
-    return x
+        x, _, a = block(x, positions=positions, mode="train")
+        aux = aux + a
+    return x, aux
 
 
-def apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor, *,
-          mode: str = "train", cache: Optional[list] = None, pos: int = 0,
-          remat: str = "full", return_hidden: bool = False):
+def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
+          *, mode: str = "train", cache: Optional[list] = None, pos: int = 0,
+          embeddings: Optional[torch.Tensor] = None, remat: str = "full",
+          return_hidden: bool = False):
     """Forward pass.
 
-    tokens: (B, T) integer. mode "train": logits only. "prefill": logits +
-    filled cache. "decode": T == 1, reads/writes cache at `pos`.
-    `remat` ("full" or "none") applies in train mode with grad enabled:
-    each pattern period's activations are recomputed in the backward. The
-    JAX package's "dots" policy is not ported (ROADMAP queue 1 item 9).
+    tokens: (B, T) integer, or `embeddings`: (B, T, D) (the modality
+    stubs' input). mode "train": logits only. "prefill": logits + filled
+    cache. "decode": T == 1, reads/writes cache at `pos`. `remat` ("full"
+    or "none") applies in train mode with grad enabled: each pattern
+    period's activations are recomputed in the backward. The JAX
+    package's "dots" policy is not ported (ROADMAP queue 1 item 9 step 5).
     `return_hidden` skips the LM head (the loss computes it chunk by chunk).
-    Returns (logits or hidden, new_cache).
+    Returns (logits or hidden, new_cache, aux), aux the sum of the MoE
+    layers' load-balancing terms (the number 0.0 without MoE).
     """
     if remat == "dots":
         raise NotImplementedError(
-            'remat="dots" is not ported yet (ROADMAP queue 1 item 9)')
+            'remat="dots" is not ported yet (ROADMAP queue 1 item 9 step 5)')
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r}; expected one of {REMATS}")
-    x = params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    if embeddings is None:
+        x = params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+    else:
+        x = embeddings.to(torch_dtype(cfg.dtype))
     b, t = x.shape[:2]
-    positions = _positions(b, t, pos if mode == "decode" else 0, x.device)
+    positions = _positions(cfg, b, t, pos if mode == "decode" else 0,
+                           x.device)
     new_cache = [] if cache is not None else None
+    aux = 0.0
     if mode == "train" and remat != "none" and torch.is_grad_enabled():
         period = len(cfg.pattern)
         for r in range(cfg.n_repeats):
-            x = checkpoint(_train_blocks,
-                           params.blocks[r * period:(r + 1) * period], x,
-                           positions, use_reentrant=False)
-        x = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
-                          positions)
+            x, a = checkpoint(_train_blocks,
+                              params.blocks[r * period:(r + 1) * period], x,
+                              positions, use_reentrant=False)
+            aux = aux + a
+        x, a = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
+                             positions)
+        aux = aux + a
     else:
         for i, block in enumerate(params.blocks):
             c = cache[i] if cache is not None else None
-            x, nc = block(x, positions=positions, mode=mode, cache=c,
-                          pos=pos)
+            x, nc, a = block(x, positions=positions, mode=mode, cache=c,
+                             pos=pos)
+            aux = aux + a
             if cache is not None:
                 new_cache.append(nc)
     x = norm_apply(cfg, params.final_norm, x)
     if return_hidden:
-        return x, new_cache
+        return x, new_cache, aux
     head = params.embed.T if cfg.tie_embeddings else params.head
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     logits = mask_padded_vocab(logits, cfg.vocab_size)
-    return logits, new_cache
+    return logits, new_cache, aux
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -195,15 +213,18 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: LM, batch, remat: str = "full",
             xent_chunk: int = 512) -> torch.Tensor:
-    """Next-token cross-entropy. batch: {"tokens": (B, T)}. (MoE configs,
-    whose loss adds an aux term, are refused by `api.build`.)"""
+    """Next-token cross-entropy (+ the MoE aux term, weighted by
+    `cfg.moe.aux_loss_weight`). batch: {"tokens": (B, T)}."""
     tokens = batch["tokens"]
-    hidden, _ = apply(cfg, params, tokens, mode="train", remat=remat,
-                      return_hidden=True)
+    hidden, _, aux = apply(cfg, params, tokens, mode="train", remat=remat,
+                           return_hidden=True)
     head = params.embed.T if cfg.tie_embeddings else params.head
-    return chunked_xent(hidden[:, :-1], head, tokens[:, 1:],
-                        chunk=xent_chunk, softcap=cfg.logit_softcap,
-                        vocab=cfg.vocab_size)
+    nll = chunked_xent(hidden[:, :-1], head, tokens[:, 1:],
+                       chunk=xent_chunk, softcap=cfg.logit_softcap,
+                       vocab=cfg.vocab_size)
+    if cfg.moe:
+        nll = nll + cfg.moe.aux_loss_weight * aux
+    return nll
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
@@ -211,7 +232,8 @@ def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     """Run the prompt, return (logits, cache ready for decode at pos=T)."""
     b, t = tokens.shape
     cache = init_cache(cfg, b, max_len or t, tokens.device)
-    logits, cache = apply(cfg, params, tokens, mode="prefill", cache=cache)
+    logits, cache, _ = apply(cfg, params, tokens, mode="prefill",
+                             cache=cache)
     return logits, cache
 
 
@@ -219,6 +241,6 @@ def decode_step(cfg: ModelConfig, params: LM, cache: list,
                 token: torch.Tensor, pos: int):
     """token: (B, 1) -> (logits (B,1,V), cache). Writes the new token's K/V
     into `cache` in place."""
-    logits, cache = apply(cfg, params, token, mode="decode", cache=cache,
-                          pos=pos)
+    logits, cache, _ = apply(cfg, params, token, mode="decode", cache=cache,
+                             pos=pos)
     return logits, cache

@@ -1,5 +1,5 @@
 """Feed-forward: gated (SwiGLU/GeGLU) or plain. A port of
-`repro.models.mlp` (MoE is not ported: `models/api.py::build` refuses it).
+`repro.models.mlp` (the MoE FFN is `models/moe.py`).
 
 `jax.nn.gelu` defaults to the tanh approximation, so the port's gelu is
 `F.gelu(..., approximate="tanh")`; exact gelu would be a different model.
@@ -18,7 +18,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-_ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
+ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -31,7 +31,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    act = _ACTS[cfg.act]
+    act = ACTS[cfg.act]
     h = x @ params["wi"]
     if cfg.gated_mlp:
         h = act(x @ params["wg"]) * h

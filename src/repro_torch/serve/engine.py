@@ -6,8 +6,11 @@ longest prompt of the whole queue (one common prefill length), then decoded
 one token a step until the wave's longest request is done. Each request's
 latency clock runs from its wave's start to its own last token. Greedy is
 `argmax`; temperature sampling draws from a `torch.Generator` on the
-device seeded with `seed` (its stream is not JAX's). Runs under
-`torch.inference_mode()`, on the card unless `device="cpu"`.
+device seeded with `seed` (its stream is not JAX's). An encoder-decoder
+wave's batch carries zero `frames` (the audio stub), as the JAX engine's
+does; the encoder's states ride in the cache, which decode reads and never
+writes. Runs under `torch.inference_mode()`, on the card unless
+`device="cpu"`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model, device_of
+from repro_torch.models.common import torch_dtype
 
 
 @dataclasses.dataclass
@@ -81,9 +85,14 @@ class ServeEngine:
             toks = np.zeros((self.batch, plen), np.int32)
             for i, r in enumerate(active):
                 toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
-            logits, cache = self.model.prefill(
-                self.params, {"tokens": self._tokens(toks)},
-                max_len=self.max_len)
+            batch = {"tokens": self._tokens(toks)}
+            cfg = self.model.cfg
+            if cfg.encdec:
+                batch["frames"] = torch.zeros(
+                    (self.batch, cfg.encdec.encoder_len, cfg.d_model),
+                    dtype=torch_dtype(cfg.dtype), device=self.device)
+            logits, cache = self.model.prefill(self.params, batch,
+                                               max_len=self.max_len)
             nxt = self._sample(logits)
             del logits
             self.stats["prefill_s"].append(time.perf_counter() - t0)

@@ -3,8 +3,10 @@
 A port of `repro.train.loop` for a single device: no mesh and no sharding
 (`parallel/*` is not ported), so `make_train_step` is the JAX `step_fn`
 without its sharding constraints — microbatch gradient accumulation
-(`acc += g.to(grad_dtype) / microbatches`), then one AdamW update. The
-step updates the parameters and the optimizer state in place. `fit`
+(`acc += g.to(grad_dtype) / microbatches`), then one AdamW update. A
+batch is a dict of tensors (`tokens`, and an encoder-decoder's `frames`),
+each split along its batch axis into microbatches. The step updates the
+parameters and the optimizer state in place. `fit`
 trains from a seed or resumes from the latest checkpoint in `ckpt_dir`
 (`ckpt/checkpoint.py`), saving every `ckpt_every` steps and at the end.
 """

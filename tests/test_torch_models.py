@@ -1,4 +1,4 @@
-"""PyTorch port of the decoder LMs against the JAX package.
+"""PyTorch port of the LMs against the JAX package.
 
 The JAX package's parameters (`model.init(PRNGKey(0))`) cross into the
 port through `models.convert.params_from_numpy`; the same seeded tokens go
@@ -10,6 +10,10 @@ JAX package's own prefill/decode equivalence tolerance, 3e-4
 (`tests/test_models_equivalence.py`). In bf16 the two frameworks round at
 other places (the JAX CPU backend keeps some fused chains in fp32), so the
 bound is 0.05: about 13 bf16 ulps at the logits' scale of ~0.65.
+
+The other five configurations (`FAMILIES`: granite and moonshot (MoE),
+mamba2 (SSD), whisper (encoder-decoder, with its frames) and qwen2-vl
+(M-RoPE)) are held in fp32 within 1e-5 of the logits' largest magnitude.
 """
 
 import dataclasses
@@ -26,17 +30,22 @@ from repro.models import api as japi
 from repro.models import attention as jattn
 from repro.models import blocks as jblocks
 from repro.models import common as jcommon
+from repro.models import lm as jlm
 from repro.models import mlp as jmlp
 from repro.models import rglru as jrglru
 from repro_torch.configs import registry as treg
+from repro_torch.data import synthetic
 from repro_torch.kernels import _build
-from repro_torch.models import (api, attention, blocks, common, convert, lm,
-                                mlp, rglru)
+from repro_torch.models import (api, attention, blocks, common, convert,
+                                encdec, lm, mlp, rglru)
 
 ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b", "gemma3-27b", "olmo-1b"]
+FAMILIES = ["granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+            "whisper-medium", "qwen2-vl-72b"]
 T = 24
 FP32_TOL = 3e-4
 BF16_TOL = 0.05
+FAMILY_TOL = 1e-5                 # of the logits' largest magnitude
 
 
 @pytest.fixture
@@ -76,20 +85,39 @@ def _f32(x):
                       np.float32)
 
 
-def _jax_logits(jm, jp, toks):
-    lp, cache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :T])},
-                           max_len=T + 8)
+def _frames(cfg, seed=2):
+    """An encoder-decoder's seeded frames, else None."""
+    if not cfg.encdec:
+        return None
+    return np.random.default_rng(seed).normal(
+        size=(2, cfg.encdec.encoder_len, cfg.d_model)).astype(np.float32)
+
+
+def _jax_logits(jm, jp, toks, frames=None):
+    batch = {"tokens": jnp.asarray(toks[:, :T])}
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames)
+    lp, cache = jm.prefill(jp, batch, max_len=T + 8)
     ld, _ = jm.decode_step(jp, cache, jnp.asarray(toks[:, T:]), T)
     return _f32(lp), _f32(ld)
 
 
-def _port_logits(tm, tp, toks, device="cpu"):
+def _port_logits(tm, tp, toks, device="cpu", frames=None):
+    batch = {"tokens": torch.from_numpy(toks[:, :T]).to(device)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).to(device)
     with torch.inference_mode():
-        lp, cache = tm.prefill(tp, {"tokens": torch.from_numpy(
-            toks[:, :T]).to(device)}, max_len=T + 8)
+        lp, cache = tm.prefill(tp, batch, max_len=T + 8)
         ld, _ = tm.decode_step(tp, cache, torch.from_numpy(
             toks[:, T:]).to(device), T)
     return _f32(lp.cpu()), _f32(ld.cpu())
+
+
+def _close(got, want, tol=FAMILY_TOL):
+    """|got − want| within `tol` of want's largest magnitude."""
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= tol * float(np.abs(want).max()), err
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -115,7 +143,8 @@ def test_prefill_decode_matches_full_forward(arch):
     tp = tm.init(torch.Generator().manual_seed(0))
     toks = _tokens(tcfg.vocab_size)
     with torch.inference_mode():
-        full, _ = lm.apply(tcfg, tp, torch.from_numpy(toks), mode="train")
+        full, _, _ = lm.apply(tcfg, tp, torch.from_numpy(toks),
+                              mode="train")
     got_p, got_d = _port_logits(tm, tp, toks)
     np.testing.assert_allclose(got_p[:, -1], _f32(full)[:, T - 1],
                                atol=FP32_TOL, rtol=FP32_TOL)
@@ -182,13 +211,66 @@ def test_untied_head_and_init_shapes():
     assert sorted(jshapes) == sorted(tshapes)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-1.3b",
-                                  "whisper-medium", "qwen2-vl-72b",
-                                  "moonshot-v1-16b-a3b"])
-def test_build_refuses_unported_families(arch):
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_match_jax(arch):
+    jm, jp, tm, tp = _pair(arch)
+    toks = _tokens(tm.cfg.vocab_size)
+    frames = _frames(tm.cfg)
+    want_p, want_d = _jax_logits(jm, jp, toks, frames)
+    got_p, got_d = _port_logits(tm, tp, toks, frames=frames)
+    _close(got_p, want_p)
+    _close(got_d, want_d)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_decode_matches_full_forward(arch):
+    """The port against itself, as `test_models_equivalence.py:118` holds
+    the JAX package (MoE with a capacity no token overflows, so that the
+    routing is the same in every path)."""
+    kw = {}
+    moe = treg.reduced_config(treg.get_config(arch)).moe
+    if moe:
+        kw["moe"] = dataclasses.replace(moe, capacity_factor=4.0)
+    tcfg = _configs(arch, **kw)[1]
+    tm = api.build(tcfg, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(0))
+    toks = _tokens(tcfg.vocab_size)
+    frames = _frames(tcfg)
+    with torch.inference_mode():
+        if tcfg.encdec:
+            enc = encdec.encode(tcfg, tp, torch.from_numpy(frames))
+            full, _ = encdec.decode(tcfg, tp, torch.from_numpy(toks), enc)
+        else:
+            full, _, _ = lm.apply(tcfg, tp, torch.from_numpy(toks),
+                                  mode="train")
+    got_p, got_d = _port_logits(tm, tp, toks, frames=frames)
+    np.testing.assert_allclose(got_p[:, -1], _f32(full)[:, T - 1],
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_allclose(got_d[:, 0], _f32(full)[:, T],
+                               atol=FP32_TOL, rtol=FP32_TOL)
+
+
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
+def test_every_config_builds_and_its_loss_runs(arch):
+    """Every one of the ten reduced configurations builds on the CPU, and
+    its loss is finite and near log(vocab) at a random init."""
     cfg = treg.reduced_config(treg.get_config(arch))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        api.build(cfg, device="cpu")
+    model = api.build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic.lm_batch(cfg, 0, 0, 2, 9).items()}
+    assert ("frames" in batch) == (model.family == "encdec")
+    loss = float(model.loss(params, batch))
+    assert abs(loss - np.log(cfg.vocab_size)) < 1.0, loss
+
+
+def test_remat_dots_still_raises():
+    cfg = treg.reduced_config(treg.get_config("granite-moe-3b-a800m"))
+    model = api.build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 9 step 5"):
+        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                   remat="dots")
 
 
 def test_build_defaults_to_the_card():
@@ -234,6 +316,43 @@ def test_norms_match_jax(norm, rng):
         common.qk_norm_apply(torch.from_numpy(q), tp["scale"][:16]).numpy(),
         np.asarray(jcommon.qk_norm_apply(jnp.asarray(q), jp["scale"][:16])),
         atol=1e-5, rtol=1e-5)
+
+
+def test_mrope_matches_jax(rng):
+    """M-RoPE with three position components that differ (an image
+    token's time, height and width), and with text positions, where the
+    three coincide and M-RoPE is the standard rotation."""
+    x = rng.normal(size=(2, 9, 3, 16)).astype(np.float32)
+    pos3 = rng.integers(0, 500, size=(2, 9, 3))
+    sections = (2, 3, 3)
+    want = np.asarray(jcommon.rope_apply(jnp.asarray(x), jnp.asarray(pos3),
+                                         1e6, sections))
+    got = common.rope_apply(torch.from_numpy(x), torch.from_numpy(pos3),
+                            1e6, sections).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    text = np.broadcast_to(np.arange(9), (2, 9))
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(
+        common.rope_apply(tx, torch.from_numpy(
+            np.repeat(text[..., None], 3, axis=-1)), 1e6, sections).numpy(),
+        common.rope_apply(tx, torch.from_numpy(text.copy()), 1e6).numpy(),
+        atol=1e-6, rtol=1e-6)
+    tcfg = _configs("qwen2-vl-72b")[1]
+    assert tuple(lm._positions(tcfg, 2, 5, 7, "cpu").shape) == (2, 5, 3)
+
+
+def test_embeddings_input_matches_jax(rng):
+    """`lm.apply(embeddings=...)`, the modality stubs' input, with M-RoPE:
+    the hidden states and the aux term against the JAX package's."""
+    jm, jp, tm, tp = _pair("qwen2-vl-72b")
+    emb = rng.normal(size=(2, 11, tm.cfg.d_model)).astype(np.float32)
+    want, _, want_aux = jlm.apply(jm.cfg, jp, embeddings=jnp.asarray(emb),
+                                  return_hidden=True)
+    with torch.inference_mode():
+        got, _, aux = lm.apply(tm.cfg, tp, embeddings=torch.from_numpy(emb),
+                               return_hidden=True)
+    _close(_f32(got), _f32(want))
+    assert float(aux) == float(want_aux) == 0.0
 
 
 def test_rope_matches_jax(rng):
@@ -361,5 +480,26 @@ def test_cuda_model_matches_cpu_model(arch, cuda):
     n_rec = len(kinds) - n_attn
     assert _build.LAUNCHES["flash_attn"] == n_attn
     assert _build.LAUNCHES["lru_scan"] == 2 * n_rec
+    np.testing.assert_allclose(got_p, want_p, atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_allclose(got_d, want_d, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_family_matches_cpu_model(arch, cuda):
+    """The same reduced fp32 model on the card (the flash kernel in every
+    attention prefill, the encoder's non-causal) and on the CPU."""
+    _, tcfg = _configs(arch)
+    tp = api.build(tcfg, device="cpu").init(torch.Generator().manual_seed(0))
+    toks = _tokens(tcfg.vocab_size)
+    frames = _frames(tcfg)
+    want_p, want_d = _port_logits(api.build(tcfg, device="cpu"), tp, toks,
+                                  frames=frames)
+    _build.reset_launches()
+    got_p, got_d = _port_logits(api.build(tcfg, device=cuda), tp.to(cuda),
+                                toks, device=cuda, frames=frames)
+    n_attn = 0 if tcfg.is_attention_free else tcfg.n_layers + (
+        tcfg.encdec.encoder_layers if tcfg.encdec else 0)
+    assert _build.LAUNCHES["flash_attn"] == n_attn
     np.testing.assert_allclose(got_p, want_p, atol=FP32_TOL, rtol=FP32_TOL)
     np.testing.assert_allclose(got_d, want_d, atol=FP32_TOL, rtol=FP32_TOL)

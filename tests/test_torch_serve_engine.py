@@ -9,7 +9,8 @@ fp32 parameters (reduced tinyllama and recurrentgemma): the tokens must be
 equal wherever the choice is clear, that is up to a request's first step
 whose top-2 logit gap in the JAX model is at most 10× the fp32 logit
 tolerance (3e-4), so a near-tie, which the two packages may break
-differently, does not decide the test.
+differently, does not decide the test. The same holds for the five other
+families (MoE, SSD, the encoder-decoder with its zero frames, M-RoPE).
 """
 
 import dataclasses
@@ -31,6 +32,8 @@ from repro_torch.models import api, convert
 from repro_torch.serve.engine import Request, ServeEngine
 
 GAP = 10 * 3e-4
+FAMILIES = ["granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+            "whisper-medium", "qwen2-vl-72b"]
 
 
 @pytest.fixture(scope="module")
@@ -140,8 +143,12 @@ def _jax_waves(model, params, reqs, batch, max_len):
         for i, r in enumerate(active):
             toks[i, plen - len(r.prompt):] = r.prompt
             toks_out[r.rid], gaps[r.rid] = [], []
-        logits, cache = model.prefill(params, {"tokens": jnp.asarray(toks)},
-                                      max_len=max_len)
+        inputs = {"tokens": jnp.asarray(toks)}
+        if model.cfg.encdec:      # the JAX engine's zero frames
+            inputs["frames"] = jnp.zeros(
+                (batch, model.cfg.encdec.encoder_len, model.cfg.d_model),
+                jnp.float32)
+        logits, cache = model.prefill(params, inputs, max_len=max_len)
         steps = max(r.max_new_tokens for r in active)
         for step in range(steps):
             last = np.asarray(logits[:, -1], np.float32)
@@ -158,7 +165,8 @@ def _jax_waves(model, params, reqs, batch, max_len):
     return toks_out, gaps
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b"]
+                         + FAMILIES)
 def test_greedy_tokens_equal_the_jax_engine(arch):
     jcfg = dataclasses.replace(jreg.reduced_config(jreg.get_config(arch)),
                                dtype="float32", param_dtype="float32")
@@ -193,7 +201,8 @@ def test_greedy_tokens_equal_the_jax_engine(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b"]
+                         + FAMILIES)
 def test_cuda_engine_matches_its_stepwise_loop(arch, cuda):
     cfg = registry.reduced_config(registry.get_config(arch))
     model = api.build(cfg)
@@ -202,13 +211,17 @@ def test_cuda_engine_matches_its_stepwise_loop(arch, cuda):
     _build.reset_launches()
     got = ServeEngine(model, params, batch=1, max_len=32).run(
         [Request(rid=0, prompt=prompt, max_new_tokens=5)])[0]
-    n_attn = sum(k != "rec" for k in cfg.pattern * cfg.n_repeats) + sum(
-        cfg.pattern[r] != "rec" for r in range(cfg.n_remainder))
+    kinds = cfg.pattern * cfg.n_repeats + cfg.pattern[:cfg.n_remainder]
+    n_attn = sum(k not in ("rec", "ssd") for k in kinds) + (
+        cfg.encdec.encoder_layers if cfg.encdec else 0)
     assert _build.LAUNCHES["flash_attn"] == n_attn
+    batch = {"tokens": torch.from_numpy(prompt[None]).to(cuda)}
+    if cfg.encdec:
+        batch["frames"] = torch.zeros((1, cfg.encdec.encoder_len,
+                                       cfg.d_model), device=cuda,
+                                      dtype=torch.bfloat16)
     with torch.inference_mode():
-        logits, cache = model.prefill(
-            params, {"tokens": torch.from_numpy(prompt[None]).to(cuda)},
-            max_len=32)
+        logits, cache = model.prefill(params, batch, max_len=32)
         want = [int(torch.argmax(logits[0, -1]))]
         for i in range(4):
             lg, cache = model.decode_step(

@@ -2,14 +2,20 @@
 
 The JAX package's parameters (`model.init(PRNGKey(0))`) cross into the
 port through `models.convert.params_from_numpy` and come back through
-`params_to_numpy`; the same seeded tokens (`data.synthetic.lm_batch`, equal
-element for element) go through both packages. In fp32 the loss and every
-gradient of reduced tinyllama (untied head) and recurrentgemma (tied head,
-RG-LRU) agree with `jax.value_and_grad(lm.loss_fn)` within 1e-5 of each
-leaf's largest gradient, with and without rematerialisation, and one
+`params_to_numpy`; the same seeded batches (`data.synthetic.lm_batch`,
+equal element for element, an encoder-decoder's frames too) go through
+both packages. In fp32 the loss and every gradient of reduced tinyllama
+(untied head), recurrentgemma (tied head, RG-LRU), gemma3 (qk-norm,
+sandwich norms, local and global layers with two RoPE thetas) and olmo
+(`ln_nonparam`) agree with `jax.value_and_grad(lm.loss_fn)` within 1e-5 of
+each leaf's largest gradient, with and without rematerialisation, and one
 `make_train_step` step agrees with the JAX `step_fn` (`remat="none"`, mesh
-(1, 1)) in loss, grad norm and updated parameters within 1e-5. The
-schedule and AdamW update are held against the JAX ones on the same trees.
+(1, 1)) in loss, grad norm and updated parameters within 1e-5. The five
+other families (`FAMILIES`: MoE with its aux term, SSD, the
+encoder-decoder, M-RoPE) are held tighter, the loss within 1e-6 and each
+gradient within 5e-6 of its leaf's largest, as their parameters round-trip
+bit for bit. The schedule and AdamW update are held against the JAX ones
+on the same trees.
 The `cuda` cases run a step on the card against the same step on the CPU
 and count the kernel launches a step makes.
 """
@@ -41,8 +47,20 @@ from repro_torch.models import api, convert, lm
 from repro_torch.train import loop, optim
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b"]      # untied, tied
+# untied, tied, qk-norm + sandwich norms + two thetas, ln_nonparam
+ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b", "gemma3-27b", "olmo-1b"]
+FAMILIES = ["granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mamba2-1.3b",
+            "whisper-medium", "qwen2-vl-72b"]
 TOL = 1e-5
+FAMILY_LOSS_TOL = 1e-6
+FAMILY_GRAD_TOL = 5e-6
+# mamba2's per-head decay `A_log`: its gradient sums exp(cs_i - cs_j) of
+# within-chunk cumulative sums of dt·A of about -180 at the reduced
+# config, where float32 rounds each exponent by ~1e-5. The JAX package's
+# own gradient of this leaf is 4-6e-6 of its largest away from the same
+# function evaluated in float64, so 5e-6 is below the reference's own
+# accuracy there; that one leaf is held at 1e-5.
+SSD_DECAY_TOL = {"A_log": 1e-5}
 
 
 @pytest.fixture
@@ -71,6 +89,13 @@ def _pair(arch, layers=0):
     return jcfg, jm, jp, tcfg, tm, tp
 
 
+def _batches(jcfg, seed, b, t, kind="arith"):
+    """One `lm_batch` in both packages' form: jnp arrays and tensors."""
+    batch = jsynthetic.lm_batch(jcfg, seed, 0, b, t, kind=kind)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
 def _as_tree(cfg, params, tensors):
     """Tensors in `named_parameters()` order as the JAX param tree."""
     holder = copy.deepcopy(params)
@@ -80,12 +105,14 @@ def _as_tree(cfg, params, tensors):
     return convert.params_to_numpy(cfg, holder)
 
 
-def _assert_trees_close(got, want, tol=TOL):
-    """Every leaf within `tol` of the leaf's largest magnitude."""
-    flat_w, tree_w = jax.tree.flatten(want)
+def _assert_trees_close(got, want, tol=TOL, leaf_tols=None):
+    """Every leaf within `tol` (or `leaf_tols[name]`, by the leaf's last
+    key) of the leaf's largest magnitude."""
+    flat_w, tree_w = jax.tree_util.tree_flatten_with_path(want)
     flat_g, tree_g = jax.tree.flatten(got)
     assert tree_w == tree_g
-    for g, w in zip(flat_g, flat_w):
+    for (path, w), g in zip(flat_w, flat_g):
+        tol = (leaf_tols or {}).get(path[-1].key, tol)
         w = np.asarray(w, np.float32)
         assert g.shape == w.shape
         scale = max(float(np.abs(w).max()), 1e-30)
@@ -167,41 +194,72 @@ def test_apply_updates_is_the_jax_packages(clip_norm):
 # the loss and its gradients
 # ---------------------------------------------------------------------------
 
+def _loss_and_grads(arch, remat):
+    """(port loss, port grads as the JAX tree, JAX loss, JAX grads) on one
+    uniform batch."""
+    jcfg, jm, jp, tcfg, tm, tp = _pair(arch)
+    jb, tb = _batches(jcfg, 0, 2, 17, kind="uniform")
+    want, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, jb, remat=remat)))(jp)
+    tp.requires_grad_(True)
+    loss = tm.loss(tp, tb, remat=remat)
+    grads = torch.autograd.grad(loss, list(tp.parameters()))
+    return (float(loss.detach()), _as_tree(tcfg, tp, grads), float(want),
+            jax.tree.map(np.asarray, jgrads))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("remat", ["none", "full"])
 def test_loss_and_grads_match_jax(arch, remat):
-    jcfg, jm, jp, tcfg, tm, tp = _pair(arch)
-    toks = jsynthetic.lm_batch(jcfg, 0, 0, 2, 17, kind="uniform")["tokens"]
-    want, jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)}, remat=remat)))(jp)
-    tp.requires_grad_(True)
-    loss = tm.loss(tp, {"tokens": torch.from_numpy(toks)}, remat=remat)
-    grads = torch.autograd.grad(loss, list(tp.parameters()))
-    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=TOL)
-    _assert_trees_close(_as_tree(tcfg, tp, grads),
-                        jax.tree.map(np.asarray, jgrads))
+    loss, grads, want, jgrads = _loss_and_grads(arch, remat)
+    np.testing.assert_allclose(loss, want, rtol=TOL)
+    _assert_trees_close(grads, jgrads)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_loss_and_grads_match_jax(arch):
+    """The loss (a MoE config's with its aux term) and every gradient
+    through `remat="full"`, the training default."""
+    loss, grads, want, jgrads = _loss_and_grads(arch, "full")
+    np.testing.assert_allclose(loss, want, rtol=FAMILY_LOSS_TOL)
+    _assert_trees_close(grads, jgrads, tol=FAMILY_GRAD_TOL,
+                        leaf_tols=SSD_DECAY_TOL)
+
+
+def test_moe_loss_adds_the_weighted_aux_term():
+    """The MoE loss is the cross-entropy plus `aux_loss_weight` times the
+    layers' summed aux terms."""
+    _, _, _, tcfg, tm, tp = _pair("granite-moe-3b-a800m")
+    _, tb = _batches(tcfg, 0, 2, 17)
+    hidden, _, aux = lm.apply(tcfg, tp, tb["tokens"], return_hidden=True)
+    nll = lm.chunked_xent(hidden[:, :-1], tp.embed.T, tb["tokens"][:, 1:],
+                          vocab=tcfg.vocab_size)
+    assert float(aux) > 0
+    torch.testing.assert_close(
+        tm.loss(tp, tb), nll + tcfg.moe.aux_loss_weight * aux)
+
+
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_remat_modes_agree(arch):
     """"full" recomputes; loss and gradients equal "none". "dots" is not
     ported and raises."""
-    _, _, _, _, tm, tp = _pair(arch)
+    jcfg, _, _, _, tm, tp = _pair(arch)
     tp.requires_grad_(True)
-    toks = torch.from_numpy(np.random.default_rng(4).integers(
-        0, 256, size=(2, 12)))
+    _, batch = _batches(jcfg, 4, 2, 12, kind="uniform")
     out = []
     for remat in ("none", "full"):
-        loss = tm.loss(tp, {"tokens": toks}, remat=remat)
+        loss = tm.loss(tp, batch, remat=remat)
         out.append([loss.detach()] + list(torch.autograd.grad(
             loss, list(tp.parameters()))))
     for other in out[1:]:
         for a, b in zip(out[0], other):
             torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
+    if tm.family == "encdec":       # nothing recomputed, as in JAX
+        return
     with pytest.raises(ValueError, match="remat"):
-        tm.loss(tp, {"tokens": toks}, remat="some")
+        tm.loss(tp, batch, remat="some")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss(tp, {"tokens": toks}, remat="dots")
+        tm.loss(tp, batch, remat="dots")
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
@@ -210,6 +268,23 @@ def test_params_to_numpy_inverts_params_from_numpy():
     assert jax.tree.structure(back) == jax.tree.structure(jp)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_params_round_trip_bit_for_bit(arch):
+    """`params_to_numpy(params_from_numpy(x)) == x` bit for bit in bf16
+    (the leaves that stay float32 too: the router, the SSD's scalars)."""
+    jcfg, tcfg = [dataclasses.replace(cfg, dtype="bfloat16",
+                                      param_dtype="bfloat16")
+                  for cfg in _configs(arch)]
+    jp = jax.tree.map(np.asarray, japi.build(jcfg).init(
+        jax.random.PRNGKey(0)))
+    back = convert.params_to_numpy(tcfg, convert.params_from_numpy(
+        tcfg, jp, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +312,11 @@ def test_train_step_matches_jax(arch):
     update on small gradients still fails."""
     jcfg, jm, jp, tcfg, tm, tp = _pair(arch)
     batch = jsynthetic.lm_batch(jcfg, 0, 0, 4, 16)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     cfg = dict(lr=3e-3, warmup_steps=5, total_steps=20)
     probe = copy.deepcopy(tp).requires_grad_(True)
     grads = torch.autograd.grad(
-        tm.loss(probe, {"tokens": torch.from_numpy(batch["tokens"])},
-                remat="none"), list(probe.parameters()))
+        tm.loss(probe, tbatch, remat="none"), list(probe.parameters()))
     grads = _as_tree(tcfg, tp, grads)
     own, _, _ = jax.jit(joptim.apply_updates, static_argnums=0)(
         joptim.OptConfig(**cfg), jp, joptim.init_opt_state(jp),
@@ -254,8 +329,7 @@ def test_train_step_matches_jax(arch):
     jp1, _, jmet = jax.jit(jstep)(jp, joptim.init_opt_state(jp),
                                   jax.tree.map(jnp.asarray, batch))
     tstep = loop.make_train_step(tm, optim.OptConfig(**cfg), remat="none")
-    tp1, tstate, tmet = tstep(tp, optim.init_opt_state(tp),
-                              {"tokens": torch.from_numpy(batch["tokens"])})
+    tp1, tstate, tmet = tstep(tp, optim.init_opt_state(tp), tbatch)
     assert int(tstate["step"]) == 1
     for k in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=TOL)
@@ -350,7 +424,7 @@ def test_cpu_training_launches_nothing():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_cuda_train_step_matches_the_cpu(arch, cuda):
     """One fp32 step of the reduced model on the card (flash, LRU and xent
     kernels, remat "full") against the same step on the CPU (plain
@@ -367,7 +441,8 @@ def test_cuda_train_step_matches_the_cpu(arch, cuda):
                                     remat="full")
         _build.reset_launches()
         p, _, m = step(copy.deepcopy(params), optim.init_opt_state(params),
-                       {"tokens": torch.from_numpy(batch["tokens"]).to(dev)})
+                       {k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()})
         if dev != "cpu":
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
@@ -379,12 +454,16 @@ def test_cuda_train_step_matches_the_cpu(arch, cuda):
         assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k])
     for a, b in zip(pc, pg):
         assert float((a - b).abs().max()) <= 1e-4
+    assert launches["xent"] == 1
+    if tcfg.encdec:             # every encoder and decoder layer, once
+        assert launches["flash_attn"] == (tcfg.encdec.encoder_layers
+                                          + tcfg.n_layers)
+        return
     kinds = lm.layer_kinds(tcfg)
     period = len(tcfg.pattern)
     recomputed = kinds[:tcfg.n_repeats * period]
-    n_attn = sum(k != "rec" for k in kinds)
-    assert launches["xent"] == 1
-    assert launches["flash_attn"] == n_attn + sum(k != "rec"
-                                                  for k in recomputed)
-    assert launches["lru_scan"] == 2 * (len(kinds) - n_attn) + sum(
+    attn = [k not in ("rec", "ssd") for k in kinds]
+    assert launches["flash_attn"] == sum(attn) + sum(
+        k not in ("rec", "ssd") for k in recomputed)
+    assert launches["lru_scan"] == 2 * kinds.count("rec") + sum(
         k == "rec" for k in recomputed)
