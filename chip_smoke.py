@@ -59,8 +59,10 @@ gradients of the xent (float32 and bfloat16), LRU and flash autograd
 Functions against autograd of their plain versions, `train.loop.fit` over tinyllama-1.1b (full width
 and depth, 5 steps) and recurrentgemma-9b (full width, 3 layers, 3 steps)
 at batch 4 x 2048 in bf16 with `remat="full"` (launches as planned, finite
-losses, moved parameters), a reduced fp32 step on the card against the
-CPU, each step's time, tokens/s, mfu, peak memory and a profiler split,
+losses, moved parameters), tinyllama's step under `remat="none"`,
+`"dots"` and `"full"` (time, peak memory: dots between the other two), a
+reduced fp32 step on the card against the CPU, each step's time,
+tokens/s, mfu, peak memory and a profiler split,
 and the xent kernel's time at each training shape; then forecast
 serving (phase 8): the slot-guard kernel against its plain version (a
 lane-sized batch, clean and poisoned, fp32 and bf16, and each served
@@ -84,7 +86,20 @@ qwen2-vl cut in depth to about 30 GB of weights) with the same requests as
 phase 6 (launches as planned, tokens equal to a stepwise loop, a profiler
 split with the MoE dispatch/combine and SSD scan ranges), `fit` over
 granite-moe-3b at full width and depth (3 steps), and each family's
-reduced fp32 step on the card against the CPU; times every kernel,
+reduced fp32 step on the card against the CPU; then the weather plans on
+a mesh (phase 10): `make_mesh((2, 2), ("data", "model"), devices=[cuda:0]
+* 4)`, four shards on this ONE card (so no interconnect is measured), the
+main path's `run(state, 10)` in fp32, bf16 and with a bf16 exchange wire,
+each against the single-device plan's (the reference's distributed
+tolerance; the wire run within its halo-confined bound), one whole-state
+launch a shard a round and the report's rides, the resolved k's round (or
+a pinned k=2) against k whole-state mesh rounds, one round of the hdiff,
+vadvc, hadv_upwind, vadvc_update, asselin and flagship-chain mesh plans
+against their single-device plans (the chain also bit for bit against its
+stages' own mesh plans in sequence, and timed beside them), the mesh
+round beside the
+single-device step (by call and queued) and the exchange's device and
+host share under `torch.profiler`; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -137,6 +152,17 @@ VADVC_DEPTHS = (2, 3, 1500)    # nz of the vadvc kernel's depth checks
 PATH_STEPS = 5                 # k-step path: full rounds and a ragged tail
 # the flagship stage chain of phase 4c (pipelines)
 PIPELINE = ("hadv_upwind", "vadvc_update", "hdiff")
+# phase 10 (mesh): a ("data", "model") mesh of this shape, every shard on
+# the one card; the op plans run a round there beside the main path, each
+# held to its single-device plan at its kernel's tolerance (the flagship
+# chain: at most 2 points a tensor over it, where a limiter may flip)
+MESH_SHAPE = (2, 2)
+MESH_OPS = ("hdiff", "vadvc", "hadv_upwind", "vadvc_update", "asselin")
+MESH_TOL = {"hdiff": 1e-5, "vadvc": 2e-4, "hadv_upwind": 1e-5,
+            "vadvc_update": 2e-4, "asselin": 1e-5, "flagship": 2e-4}
+# phase 7: a tinyllama step under each remat mode, REMAT_STEPS timed
+REMATS = ("none", "dots", "full")
+REMAT_STEPS = 3
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
 COPY_SIZES = (("paper domain", GRID[0] * GRID[1]),
@@ -569,8 +595,11 @@ def kernel_category(name: str) -> str:
 # the port's profiler ranges (`torch.profiler.record_function`): MoE routing
 # and dispatch, its combine, and the SSD scan; a kernel launched inside one
 # is reported under its name
-RANGES = ("moe_dispatch", "moe_combine", "ssd_scan")
-PORT_KERNELS = ("flash_attn", "lru_scan", "xent")    # kernel_category's
+RANGES = ("moe_dispatch", "moe_combine", "ssd_scan", "halo_exchange")
+# the port's own kernels (`kernel_category`'s, `mesh_category`'s and
+# `pipeline_category`'s groups): launched through ctypes, so they go by name
+PORT_KERNELS = ("flash_attn", "lru_scan", "xent", "dycore_fused",
+                "dycore_kstep", "hdiff", "vadvc", "hadv")
 
 
 def device_breakdown(fn, category=kernel_category):
@@ -579,8 +608,9 @@ def device_breakdown(fn, category=kernel_category):
     of kernel intervals (busy ms), the idle share of the window, and the
     kernel time by group: the `RANGES` range the kernel was launched in
     (the range around its launching operator on that thread, or else the
-    range's device-side span), else `category` of its name; and the
-    seconds the profiler's events took to read. The raw events are read
+    range's device-side span), else `category` of its name; the host time
+    spent inside each range (`host_range_ms`); and the seconds the
+    profiler's events took to read. The raw events are read
     (`kineto_results`), not `prof.events()`, whose tree of Python objects
     takes tens of seconds at a training step's 10^5 kernels. None when
     the profiler saw no device kernel."""
@@ -616,8 +646,12 @@ def device_breakdown(fn, category=kernel_category):
         elif e.linked_correlation_id() == 0:      # an operator, not runtime
             ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
     dev_ranges.sort()
+    host_range_ms = {}
     for rs in cpu_ranges.values():
         rs.sort()
+        for start, end, name in rs:
+            host_range_ms[name] = host_range_ms.get(name, 0.0) + \
+                (end - start) / 1e6
 
     def inside(rs, at):
         """The name of the range of sorted, unnested `rs` holding `at`."""
@@ -651,6 +685,7 @@ def device_breakdown(fn, category=kernel_category):
     busy_ms = (busy + hi - lo) / 1e6
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms, kernels=len(spans),
+                host_range_ms=host_range_ms,
                 by_category_ms=dict(sorted(by.items(),
                                            key=lambda kv: -kv[1])),
                 read_s=time.perf_counter() - t0)
@@ -1389,6 +1424,8 @@ def train_phase(torch, dev, check, results):
                 f"card's 80 GB")
         path_launches[arch] = train_model(torch, dev, check, results, cfg,
                                           steps, gen)
+        if arch == TRAIN_RUNS[0][0]:
+            remat_steps(torch, dev, check, results, cfg)
 
     # ---- (d) reduced configs, fp32: one step on the card vs the CPU ------
     for arch in ("tinyllama-1.1b", "recurrentgemma-9b"):
@@ -1952,6 +1989,352 @@ def family_phase(torch, dev, check, results):
     torch.cuda.empty_cache()
     say(f"reduced train steps: {time.perf_counter() - t0:.1f} s")
     return serve_launches, train_launches
+
+
+def mesh_category(name: str) -> str:
+    """The group a device kernel of a mesh round is reported under (a
+    kernel launched inside the exchange's `halo_exchange` range goes under
+    that range instead): each stencil kernel, a copy (the crop), the
+    point-wise work (the staggered sum, an update)."""
+    n = name.lower()
+    for kernel, cat in (("dycore_fused", "dycore_fused"),
+                        ("dycore_kstep", "dycore_kstep"),
+                        ("hdiff_stream", "hdiff"), ("vadvc_stream", "vadvc"),
+                        ("hadv_stream", "hadv")):
+        if kernel in n:
+            return cat
+    if "memcpy" in n or "cat" in n or "copy" in n:
+        return "copy"
+    if "mul" in n or "add" in n:
+        return "pointwise"
+    return "other"
+
+
+def remat_steps(torch, dev, check, results, cfg):
+    """One training step (loss, gradients, AdamW) of `cfg` at TRAIN_BATCH x
+    TRAIN_SEQ in bf16 under each of REMATS: the step's time (host clock to
+    a synchronise, median of REMAT_STEPS after a warm-up step), its peak
+    device memory above what was resident before it (weights, gradients'
+    home, optimizer state), its launches and loss. "dots" keeps the 2-D
+    products' outputs for the backward and recomputes the rest, so its
+    peak should fall between "full"'s and "none"'s."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    model = api.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=5, total_steps=100)
+    opt_state = optim.init_opt_state(params)
+    batch = next(synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                    device=dev))
+    out = {}
+    for remat in REMATS:
+        step = loop.make_train_step(model, opt_cfg, remat=remat)
+        params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        each = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v // REMAT_STEPS for k, v in _build.LAUNCHES.items()
+                    if v}
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        out[remat] = dict(step_ms=statistics.median(each), step_ms_each=each,
+                          peak_gb=peak, launches_per_step=launches,
+                          loss=float(m["loss"]))
+        say(f"remat {cfg.name} {remat}: step {out[remat]['step_ms']:.1f} ms "
+            f"(each {[round(x, 1) for x in each]}), peak {peak:.2f} GB above "
+            f"the {resident / 1e9:.2f} GB resident, launches a step "
+            f"{launches}, loss {out[remat]['loss']:.4f}")
+    peaks = [out[r]["peak_gb"] for r in ("full", "dots", "none")]
+    check(peaks[0] < peaks[1] < peaks[2],
+          f"remat {cfg.name}: peaks full/dots/none {peaks} GB are not in "
+          f"that order")
+    results[(f"remat_{cfg.name}", "bfloat16")] = out
+    del model, params, opt_state, batch
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(torch, dev, check, results, make_state):
+    """Phase 10: the weather plans on a mesh of MESH_SHAPE shards, all on
+    this one card. The main path's domain, `run(state, STEPS)` in fp32, bf16
+    and with a bf16 wire, each against the single-device plan's; the
+    resolved k's round against k whole-state rounds; one round of each
+    MESH_OPS plan and of the flagship chain against its single-device
+    plan. Launches and rides counted against the reports; the mesh round
+    timed beside the single-device step, and the exchange's device and
+    host share read under the profiler. Returns the launches of each
+    kernel on the mesh paths, by plan."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.weather import domain
+    from repro_torch.weather.pipeline import PipelineProgram
+    from repro_torch.weather.program import StencilProgram, compile
+
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=[dev] * 4)
+    shards = mesh.size
+    say(f"mesh: {mesh}: four shards on ONE card "
+        f"({torch.cuda.get_device_name(0)}); every ride is a copy within its "
+        f"memory, so nothing in this phase measures an interconnect")
+    by_plan = {}
+
+    def count(label, counts):
+        for name, n in counts.items():
+            by_plan.setdefault(name, {})[label] = n
+
+    def held(label, got, want, tol, allow=None):
+        """Gathered `got` against `want` (either device): each field and
+        stage tendency within `tol`, or with `allow` at most that many
+        points a tensor over `tol` and every point within LOOSE. Returns
+        (largest error, bit for bit)."""
+        worst, bitwise, ok = 0.0, True, True
+        for part in ("fields", "stage_tens"):
+            for n in getattr(want, part):
+                a = getattr(got, part)[n].cpu()
+                b = getattr(want, part)[n].cpu()
+                bitwise &= torch.equal(a, b)
+                err = (a.float() - b.float()).abs()
+                m = float(err.max())
+                worst = max(worst, m)
+                if allow is None:
+                    ok &= m <= tol
+                else:
+                    ok &= int((err > tol).sum()) <= allow and m < LOOSE
+        rule = (f"atol {tol}" if allow is None else
+                f"at most {allow} points a tensor over {tol}, all < {LOOSE}")
+        say(f"{label}: err {worst:.3g} ({rule}); bit for bit {bitwise}")
+        check(ok, f"{label}: disagrees with the single-device plan")
+        return worst, bitwise
+
+    def timed(fn):
+        return dict(ms=time_ms(fn), queued_ms=stream_ms(fn, n=20))
+
+    def profiled(fn):
+        br = device_breakdown(fn, mesh_category)
+        if br is None:
+            say("mesh: the profiler saw no device kernel (not measured)")
+            return None
+        ex_dev = br["by_category_ms"].get("halo_exchange", 0.0)
+        ex_host = br["host_range_ms"].get("halo_exchange", 0.0)
+        br.update(exchange_device_ms=ex_dev, exchange_host_ms=ex_host,
+                  exchange_device_share=ex_dev / br["busy_ms"],
+                  exchange_host_share=ex_host / br["wall_ms"])
+        return br
+
+    # ---- the main path's domain, run(state, STEPS) -----------------------
+    fp32_out = None
+    for dtype, wire in (("float32", None), ("bfloat16", None),
+                        ("float32", "bfloat16")):
+        key = dtype if wire is None else f"{dtype}_wire_{wire}"
+        label = f"mesh dycore {key}"
+        st = make_state(dtype, seed=12)
+        prog = StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE, dtype=dtype,
+                              k_steps=1, exchange_dtype=wire)
+        plan = compile(prog, mesh=mesh)
+        rep = plan.report()
+        check(plan.variant == "whole_state" and plan.k_steps == 1,
+              f"{label}: resolved to {plan.variant}/k={plan.k_steps}")
+        sharded = domain.shard_state(st, mesh, plan.state_spec)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        domain.reset_rides()
+        out = plan.run(sharded, STEPS)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        rides = dict(domain.RIDES)
+        want = {"dycore_fused": STEPS * shards * plan.pallas_calls_per_round}
+        say(f"{label}: run({STEPS}) on {shards} shards of "
+            f"{list(plan.local_grid)} (kernel on {list(plan.compute_grid)}, "
+            f"tile {plan.tile.ty}x{plan.tile.tx}): launches {counts} "
+            f"(expect {want}: one a shard a round), rides {rides['rides']} "
+            f"moving {rides['bytes']} bytes (expect {STEPS} x "
+            f"{plan.collectives_per_round}); exchange {rep['exchange']}")
+        check(counts == want, f"{label}: launched {counts}, expected {want}")
+        check(rides["rides"] == STEPS * plan.collectives_per_round,
+              f"{label}: {rides['rides']} rides, report says "
+              f"{plan.collectives_per_round} a round")
+        count(f"dycore {key} run({STEPS})", counts)
+        got = domain.gather_state(out)
+        check(all(tuple(got.fields[n].shape) == (ENSEMBLE,) + GRID
+                  and bool(torch.isfinite(got.fields[n]).all())
+                  for n in got.fields), f"{label}: bad shape or not finite")
+        single = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                        dtype=dtype, k_steps=1))
+        if wire is None:
+            err, bitwise = held(f"{label} run({STEPS}) vs the single-device "
+                                f"plan's", got, single.run(st, STEPS), 1e-5,
+                                allow=2)
+        else:
+            err = max(float((got.fields[n] - fp32_out.fields[n]).abs().max())
+                      for n in got.fields)
+            bitwise = False
+            say(f"{label} run({STEPS}) vs the fp32 wire's: field err "
+                f"{err:.3g} (the cast stays in the halo: 0 < err < 0.1)")
+            check(0.0 < err < 0.1, f"{label}: the bf16 wire moved the "
+                  f"result by {err}")
+        if dtype == "float32" and wire is None:
+            fp32_out = got
+        mesh_t = timed(lambda: plan.step(sharded))
+        single_t = timed(lambda: single.step(st))
+        br = profiled(lambda: [plan.step(sharded) for _ in range(5)])
+        results[("mesh_dycore", key)] = dict(
+            err=err, bitwise=bitwise, launches=counts, rides=rides,
+            round_ms=mesh_t["ms"], round_queued_ms=mesh_t["queued_ms"],
+            single_ms=single_t["ms"], single_queued_ms=single_t["queued_ms"],
+            wire_bytes_per_round=rides["bytes"] // STEPS,
+            exchange_model=rep["exchange_model"], profile=br)
+        say(f"{label}: mesh round {mesh_t['ms']:.4f} ms by call, "
+            f"{mesh_t['queued_ms']:.4f} ms queued; single-device step "
+            f"{single_t['ms']:.4f} ms by call, {single_t['queued_ms']:.4f} ms "
+            f"queued")
+        if br is not None:
+            say(f"{label} under torch.profiler (5 rounds): host window "
+                f"{br['wall_ms']:.2f} ms, device busy {br['busy_ms']:.2f} ms "
+                f"(idle share {br['idle_share']:.3f}); exchange device "
+                f"{br['exchange_device_ms']:.3f} ms (share of busy "
+                f"{br['exchange_device_share']:.3f}), exchange host "
+                f"{br['exchange_host_ms']:.2f} ms (share of the window "
+                f"{br['exchange_host_share']:.3f}); by kind (ms) "
+                + ", ".join(f"{k} {v:.3f}"
+                            for k, v in br["by_category_ms"].items()))
+        del st, sharded, out, got
+        torch.cuda.empty_cache()
+
+    # ---- the resolved k: its round against k whole-state rounds ---------
+    auto = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE),
+                   mesh=mesh)
+    say(f"mesh dycore k_steps='auto' resolves to k={auto.k_steps} "
+        f"({auto.variant}) on {shards} shards (the exchange model under "
+        f"the default spec, walked down to what the CUDA k-step kernel "
+        f"takes)")
+    kplan = auto if auto.k_steps > 1 else compile(
+        StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE, variant="kstep",
+                       k_steps=2), mesh=mesh)
+    k = kplan.k_steps
+    one = compile(StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                 k_steps=1), mesh=mesh)
+    st = make_state("float32", seed=13)
+    sharded = domain.shard_state(st, mesh, kplan.state_spec)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    domain.reset_rides()
+    out = kplan.step(sharded)
+    torch.cuda.synchronize()
+    counts = {n: v for n, v in _build.LAUNCHES.items() if v}
+    rides = domain.RIDES["rides"]
+    check(counts == {"dycore_kstep": shards},
+          f"mesh dycore k={k}: launched {counts}")
+    check(rides == kplan.collectives_per_round,
+          f"mesh dycore k={k}: {rides} rides, report "
+          f"{kplan.collectives_per_round}")
+    count(f"dycore k={k} round", counts)
+
+    def k_rounds():
+        s = sharded
+        for _ in range(k):
+            s = one.step(s)
+        return s
+    err, bitwise = held(f"mesh dycore k={k} round vs {k} whole-state mesh "
+                        f"rounds", domain.gather_state(out),
+                        domain.gather_state(k_rounds()), 1e-5, allow=2)
+    kt, seq_t = timed(lambda: kplan.step(sharded)), timed(k_rounds)
+    results[("mesh_dycore_kstep", "float32")] = dict(
+        k=k, auto_k=auto.k_steps, err=err, bitwise=bitwise,
+        round_ms=kt["ms"], round_queued_ms=kt["queued_ms"],
+        whole_state_rounds_ms=seq_t["ms"],
+        whole_state_rounds_queued_ms=seq_t["queued_ms"],
+        rides_per_round=rides, launches=counts)
+    say(f"mesh dycore k={k} round: {kt['ms']:.4f} ms by call "
+        f"({kt['queued_ms']:.4f} queued) against {k} whole-state mesh rounds "
+        f"{seq_t['ms']:.4f} ms ({seq_t['queued_ms']:.4f} queued); rides "
+        f"{rides} a round")
+    del st, sharded, out
+    torch.cuda.empty_cache()
+
+    # ---- one round of each op's mesh plan and of the flagship chain -----
+    st = make_state("float32", seed=14)
+    for op in MESH_OPS + ("flagship",):
+        if op == "flagship":
+            prog = PipelineProgram(grid_shape=GRID, ensemble=ENSEMBLE,
+                                   stages=PIPELINE, variant="whole_state",
+                                   k_steps=1)
+        else:
+            prog = StencilProgram(grid_shape=GRID, ensemble=ENSEMBLE, op=op,
+                                  k_steps=1)
+        plan = compile(prog, mesh=mesh)
+        sharded = domain.shard_state(st, mesh, plan.state_spec)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        domain.reset_rides()
+        out = plan.step(sharded)
+        torch.cuda.synchronize()
+        counts = {n: v for n, v in _build.LAUNCHES.items() if v}
+        rides = domain.RIDES["rides"]
+        label = f"mesh {op}"
+        say(f"{label}: launches {counts} ({plan.pallas_calls_per_round} a "
+            f"shard), rides {rides} (report {plan.collectives_per_round})")
+        check(sum(counts.values()) == shards * plan.pallas_calls_per_round,
+              f"{label}: launched {counts}")
+        check(rides == plan.collectives_per_round,
+              f"{label}: {rides} rides, report {plan.collectives_per_round}")
+        count(f"{op} round", counts)
+        single = compile(prog)
+        err, bitwise = held(f"{label} round vs the single-device plan's",
+                            domain.gather_state(out), single.step(st),
+                            MESH_TOL[op],
+                            allow=2 if op == "flagship" else None)
+        mt, stt = timed(lambda: plan.step(sharded)), timed(
+            lambda: single.step(st))
+        results[(f"mesh_{op}", "float32")] = dict(
+            err=err, bitwise=bitwise, launches=counts, rides=rides,
+            round_ms=mt["ms"], round_queued_ms=mt["queued_ms"],
+            single_ms=stt["ms"], single_queued_ms=stt["queued_ms"])
+        say(f"{label}: mesh round {mt['ms']:.4f} ms by call "
+            f"({mt['queued_ms']:.4f} queued), single-device step "
+            f"{stt['ms']:.4f} ms ({stt['queued_ms']:.4f} queued)")
+        if op == "flagship":
+            # the chain's one exchange a round against its stages' own
+            # mesh plans, each with its exchange: bit for bit, and timed
+            solos = [compile(StencilProgram(grid_shape=GRID,
+                                            ensemble=ENSEMBLE, op=o,
+                                            k_steps=1), mesh=mesh)
+                     for o in PIPELINE]
+
+            def solo_rounds():
+                s = sharded
+                for p in solos:
+                    s = p.step(s)
+                return s
+            domain.reset_rides()
+            seq = domain.gather_state(solo_rounds())
+            solo_rides = domain.RIDES["rides"]
+            got = domain.gather_state(out)
+            same = all(torch.equal(getattr(got, part)[n],
+                                   getattr(seq, part)[n])
+                       for part in ("fields", "stage_tens")
+                       for n in got.fields)
+            check(same, f"{label}: the chain's mesh round differs from its "
+                  f"stages' mesh plans in sequence")
+            solo_t = timed(solo_rounds)
+            results[(f"mesh_{op}", "float32")].update(
+                solo_mesh_ms=solo_t["ms"],
+                solo_mesh_queued_ms=solo_t["queued_ms"],
+                solo_mesh_rides=solo_rides)
+            say(f"{label}: its stages' own mesh plans in sequence "
+                f"{solo_t['ms']:.4f} ms by call ({solo_t['queued_ms']:.4f} "
+                f"queued), {solo_rides} rides against the chain's {rides}; "
+                f"fields and stage tendencies bit for bit {same}")
+        del sharded, out
+    del st
+    torch.cuda.empty_cache()
+    return by_plan
 
 
 def main() -> int:
@@ -3454,6 +3837,11 @@ def main() -> int:
 
     phase_done("phase 9 (LM families)")
 
+    # ---- 10. the weather plans on a mesh ----------------------------------
+    mesh_launches = mesh_phase(torch, dev, check, results, make_state)
+
+    phase_done("phase 10 (mesh)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -3569,6 +3957,11 @@ def main() -> int:
                       "passthrough_ms", "passthrough_queued_ms"):
             if extra in r and name not in ("flash_attn", "xent"):
                 kernels[-1][extra] = r[extra]
+        if name in mesh_launches:
+            # the mesh phase's launches, every shard's, by plan (phase 10)
+            by = mesh_launches[name]
+            kernels[-1].setdefault("paths", {})["mesh"] = {
+                "launches": sum(by.values()), "by_plan": by}
         if name == "dycore_kstep":
             r3 = results[(f"dycore_kstep_k{KSTEPS[1]}", "float32")]
             kernels[-1][f"k{KSTEPS[1]}"] = {

@@ -142,7 +142,33 @@ def fused_step_kstep(fs: torch.Tensor, wcon: torch.Tensor,
     `fused_step_whole_state`. `w` is summed in the storage dtype, as the
     JAX package sums it, on either device. Returns `(f_new, stage)` after
     `k_steps` steps."""
-    w = staggered_w(wcon)
+    return fused_kstep_summed(fs, staggered_w(wcon), utens, utens_stage,
+                              k_steps=k_steps, coeff=coeff, dt=dt, tile=tile)
+
+
+def fused_step_summed(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
+                      utens_stage: torch.Tensor,
+                      coeff: float = DEFAULT_COEFF, dt: float = DEFAULT_DT,
+                      tile: Optional[tiling.CudaTile] = None):
+    """`fused_step_whole_state` from the staggered sum `w`, `(..., nz, ny,
+    nx)`, already built: a mesh round builds it on the padded slab from
+    the neighbour's wcon column (`stencil_ops._dycore_shard_local`), where
+    the periodic next column would be wrong at the slab's edge. The CPU
+    takes `ref.fused_step_ref_summed`."""
+    if fs.device.type == "cpu":
+        return _ref.fused_step_ref_summed(fs, w.unsqueeze(-4), utens,
+                                          utens_stage, coeff=coeff, dt=dt)
+    return fused_dycore_cuda(fs, w, utens, utens_stage, coeff=coeff, dt=dt,
+                             tile=tile)
+
+
+def fused_kstep_summed(fs: torch.Tensor, w: torch.Tensor,
+                       utens: torch.Tensor, utens_stage: torch.Tensor,
+                       k_steps: int = 2, coeff: float = DEFAULT_COEFF,
+                       dt: float = DEFAULT_DT,
+                       tile: Optional[tiling.CudaTile] = None):
+    """`fused_step_kstep` from the staggered sum `w` (see
+    `fused_step_summed`)."""
     if fs.device.type == "cpu":
         return _ref.fused_kstep_ref(fs, w.unsqueeze(-4), utens, utens_stage,
                                     k_steps, coeff=coeff, dt=dt)

@@ -1,0 +1,132 @@
+"""Meshes of devices in one process.
+
+A port of `repro.launch.mesh`. The JAX package runs its mesh from a single
+controller: one process steps a state sharded over a `jax.sharding.Mesh`.
+The port keeps that model. Its `Mesh` is a named grid of `torch.device`s,
+and a plan on it (`weather/program.py::compile(mesh=...)`) runs every
+shard's round from this process, moving each halo ride with a copy into the
+neighbour shard's device (`weather/domain.py`). Several shards may sit on
+one device, but only when the caller lists that device more than once:
+nothing here repeats a device on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "data_axes"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """`devices`, an object array of `torch.device` shaped like the mesh,
+    and one name an axis. `shape` maps each axis to its size, in axis
+    order, as `jax.sharding.Mesh.shape` does. Shards are numbered in the
+    C order of `devices`."""
+
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got "
+                             f"{self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh axis names {self.axis_names} repeat")
+        kinds = {d.type for d in self.devices.flat}
+        if len(kinds) != 1:
+            raise ValueError(f"a mesh spans one kind of device, got "
+                             f"{sorted(kinds)}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def device_list(self) -> list:
+        """The shards' devices in shard order."""
+        return list(self.devices.flat)
+
+    @property
+    def device_type(self) -> str:
+        return self.devices.flat[0].type
+
+    def axis_size(self, name: Optional[str]) -> int:
+        """The size of axis `name`; 1 for None or an axis the mesh lacks."""
+        return self.shape.get(name, 1) if name is not None else 1
+
+    def coords(self, shard: int) -> Tuple[int, ...]:
+        return tuple(int(c) for c in np.unravel_index(shard,
+                                                      self.devices.shape))
+
+    def neighbor(self, shard: int, axis: str, offset: int) -> int:
+        """The shard `offset` steps along `axis` from `shard`, around the
+        ring."""
+        c = list(self.coords(shard))
+        a = self.axis_names.index(axis)
+        c[a] = (c[a] + offset) % self.devices.shape[a]
+        return int(np.ravel_multi_index(c, self.devices.shape))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Mesh)
+                and self.axis_names == other.axis_names
+                and self.devices.shape == other.devices.shape
+                and all(a == b for a, b in zip(self.devices.flat,
+                                               other.devices.flat)))
+
+    def __repr__(self) -> str:
+        devs = ", ".join(str(d) for d in self.devices.flat)
+        return f"Mesh({self.shape}, devices=[{devs}])"
+
+
+def make_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of `shape` named `axes` over the first prod(shape) of
+    `devices`, by default the card's devices (`cuda:0`, `cuda:1`, ...).
+    Asking for more shards than there are devices raises, as the JAX
+    package's `make_mesh` does; to put several shards on one device, list
+    it that many times in `devices` (e.g. `["cuda:0"] * 4`, or `["cpu"] *
+    4` for the plain versions)."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is available; pass "
+                               "devices= (e.g. ['cpu'] * n) to run the plain "
+                               "PyTorch versions")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(d) for d in devices]
+    if len(devs) < n:
+        raise RuntimeError(
+            f"need {n} devices for mesh {shape}, have {len(devs)}; list a "
+            f"device more than once in devices= to put several shards on it")
+    arr = np.empty(n, dtype=object)
+    for i, d in enumerate(devs[:n]):
+        arr[i] = d
+    return Mesh(arr.reshape(shape), tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (16, 16) = ("data", "model"), 256 devices. Multi-pod:
+    (2, 16, 16) = ("pod", "data", "model"), 512. The "pod" axis carries
+    the ensemble (data parallel across pods)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def data_axes(mesh: Mesh) -> tuple:
+    """Mesh axes that carry batch/data parallelism."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

@@ -11,7 +11,12 @@ left-padded, exactly as in the JAX package.
 Training: `apply(..., mode="train", remat=...)` recomputes each pattern
 period in the backward (`torch.utils.checkpoint`, as the JAX package wraps
 `superblock_body` in `jax.checkpoint`; the remainder is not recomputed,
-there as here), and `loss_fn` is the next-token cross-entropy through
+there as here). `remat="dots"` recomputes all but the products with no
+batch dimension, as `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
+does: a selective checkpoint that saves the outputs of `aten.mm` and
+`aten.addmm` (the projections, a `(B, T, D) @ (D, F)` product folded to
+2-D) and recomputes the rest, `aten.bmm` and the kernels' autograd
+Functions among it. `loss_fn` is the next-token cross-entropy through
 `chunked_xent`: on a CUDA tensor the fused cross-entropy kernel
 (`kernels/xent`), on a CPU tensor the JAX package's chunked body.
 """
@@ -22,7 +27,10 @@ from typing import List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from functools import partial
+
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.xent import ops as xent_ops
@@ -100,7 +108,15 @@ def _positions(cfg: ModelConfig, b: int, t: int, offset: int,
     return pos
 
 
-REMATS = ("none", "full")
+REMATS = ("none", "full", "dots")
+
+# the products with no batch dimension, which remat="dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _train_blocks(blocks, x, positions):
@@ -119,17 +135,14 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
 
     tokens: (B, T) integer, or `embeddings`: (B, T, D) (the modality
     stubs' input). mode "train": logits only. "prefill": logits + filled
-    cache. "decode": T == 1, reads/writes cache at `pos`. `remat` ("full"
-    or "none") applies in train mode with grad enabled: each pattern
-    period's activations are recomputed in the backward. The JAX
-    package's "dots" policy is not ported (ROADMAP queue 1 item 9 step 5).
+    cache. "decode": T == 1, reads/writes cache at `pos`. `remat`
+    ("full", "dots" or "none") applies in train mode with grad enabled:
+    each pattern period's activations are recomputed in the backward, all
+    of them ("full") or all but the 2-D products' outputs ("dots").
     `return_hidden` skips the LM head (the loss computes it chunk by chunk).
     Returns (logits or hidden, new_cache, aux), aux the sum of the MoE
     layers' load-balancing terms (the number 0.0 without MoE).
     """
-    if remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" is not ported yet (ROADMAP queue 1 item 9 step 5)')
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r}; expected one of {REMATS}")
     if embeddings is None:
@@ -143,10 +156,12 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
     aux = 0.0
     if mode == "train" and remat != "none" and torch.is_grad_enabled():
         period = len(cfg.pattern)
+        kw = ({} if remat == "full" else {"context_fn": partial(
+            create_selective_checkpoint_contexts, _dots_policy)})
         for r in range(cfg.n_repeats):
             x, a = checkpoint(_train_blocks,
                               params.blocks[r * period:(r + 1) * period], x,
-                              positions, use_reentrant=False)
+                              positions, use_reentrant=False, **kw)
             aux = aux + a
         x, a = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
                              positions)

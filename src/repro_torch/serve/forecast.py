@@ -55,13 +55,14 @@ engine is that service layer over the plan API (`weather/program.py`):
   real compile error propagates), counted in `stats()`. Every path is driven by
   `testing.faults.FaultInjector`.
 
-Differences from the JAX package: one device (`mesh=` raises; failover is
-ROADMAP queue 1, item 6), so there is no failover and the compile chain
-has no interpreter stage; when retries run out a lane fails, as the
-JAX package's does on its interpreter. A retiring slot is zeroed at once
-(the JAX package leaves its last state to step along idle, and its next
-round's fingerprint check then counts a divergence and scrubs it), so a
-fault-free drain scrubs nothing.
+Differences from the JAX package: one device (`mesh=` raises; the sharded
+lanes, mesh failover and elastic restore are ROADMAP queue 1, item 6b,
+though `program.compile(mesh=)` runs mesh rounds), so there is no
+failover and the compile chain has no interpreter stage; when retries run
+out a lane fails, as the JAX package's does on its interpreter. A
+retiring slot is zeroed at once (the JAX package leaves its last state to
+step along idle, and its next round's fingerprint check then counts a
+divergence and scrubs it), so a fault-free drain scrubs nothing.
 """
 
 from __future__ import annotations
@@ -231,8 +232,12 @@ class ForecastEngine:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None "
                              f"for unbounded)")
         if mesh is not None:
-            raise _wprog._not_ported("ForecastEngine(mesh=...) (sharded "
-                                     "lanes and mesh failover)", "item 6")
+            # compile(mesh=) runs mesh rounds; the engine's sharded lanes,
+            # its mesh failover and elastic restore are not ported yet
+            raise NotImplementedError(
+                "ForecastEngine(mesh=...) (sharded lanes, mesh failover and "
+                "elastic restore) is not ported to PyTorch yet (ROADMAP.md "
+                "queue 1, item 6b)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ForecastEngine(device='cuda'): no CUDA "
@@ -486,7 +491,7 @@ class ForecastEngine:
         prev = lane.batch if len(participants) < len(parts) else None
         new_batch = self._step_with_retry(lane, plan, kk, rnd)
         if new_batch is None:                    # escalation exhausted
-            # one device: no mesh to fail over to (item 6), so the lane
+            # one device: no mesh to fail over to (item 6b), so the lane
             # fails, as the JAX package's does without a mesh
             self._fail_lane(lane, rnd)
             return

@@ -1,6 +1,6 @@
 """Pipeline programs: a chain of registered stages compiled as one plan.
 
-A port of `repro.weather.pipeline` for one device.
+A port of `repro.weather.pipeline`.
 
 * `PipelineProgram` is a `StencilProgram` whose op is an ordered list of
   registered stages (`PipelineStage`: an op name and an optional field
@@ -23,11 +23,14 @@ A port of `repro.weather.pipeline` for one device.
   chain runs their plain versions.
 * **What runs.** Stage i's output goes through device memory before stage
   i+1 reads it, and each stage pads and crops as its solo step does (of
-  the chainable ops only hdiff pads). The JAX package's round instead
-  wrap-pads every operand once to a common slab, which buys one packed
-  exchange a round across a mesh; on one device that only adds padding
-  (PERF.md §6), so that round comes with the meshes (ROADMAP queue 1,
-  item 6).
+  the chainable ops only hdiff pads).
+* **The mesh round** (`_pipeline_shard_local`, the JAX package's): ONE
+  packed exchange per direction of every operand at its merged depth,
+  each shard's operands edge-padded to the common slab, the stages in
+  order on the resident slabs through their `apply_stage` lowerings (k
+  times for a k-step round), and one crop. That is what buys one exchange
+  a round across a mesh, whatever the chain's length; on one device it
+  only adds padding (PERF.md §6), so one device keeps `ChainRound`.
 * **The model.** `core/memmodel.pipeline_step_traffic` prices the chain
   as one pass whose intermediates stay on chip (`chained_per_round`)
   against the sum of the solo stages (`sequential_per_round`, nearer
@@ -48,9 +51,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.core import autotune, memmodel, tiling
+from repro_torch.weather import domain as _domain
+from repro_torch.weather import dycore as _dycore
 from repro_torch.weather import stencil_ops as _sops
-from repro_torch.weather.fields import WeatherState, dtype_name
+from repro_torch.weather.fields import WeatherState, dtype_name, field_views
 from repro_torch.weather.program import StencilProgram, compile
 from repro_torch.weather.stencil_ops import (OperandRide, StencilOpDef,
                                              get_stencil_op,
@@ -291,6 +298,105 @@ class ChainRound:
         return state
 
 
+def _edge_pad(a: torch.Tensor, d_lo: int, d_hi: int, dim: int):
+    """`a` extended along `dim` by copies of its first row (`d_lo` times)
+    and its last (`d_hi`): finite values the validity analysis keeps away
+    from the interior (zeros or a NaN could reach a stencil window that
+    straddles the pad)."""
+    if d_lo == 0 and d_hi == 0:
+        return a
+    n = a.shape[dim]
+    lo = a.narrow(dim, 0, 1).expand(*[d_lo if i == dim % a.dim() else -1
+                                      for i in range(a.dim())])
+    hi = a.narrow(dim, n - 1, 1).expand(*[d_hi if i == dim % a.dim() else -1
+                                          for i in range(a.dim())])
+    return torch.cat([lo, a, hi], dim=dim)
+
+
+def _pipeline_shard_local(stages):
+    """The chain's round on a mesh: ONE packed exchange per direction at the
+    merged ragged depths, every operand edge-padded to the common slab,
+    the stages in order on each shard's resident slabs, one crop."""
+
+    def build(plan):
+        prog = plan.program
+        names = prog.fields
+        mesh = plan.mesh
+        _, ax_y, ax_x = plan.mesh_axes
+        k, wire = plan.k_steps, prog.exchange_dtype
+        use_ref = plan.variant == "unfused"
+        rides = {name: (dy, dx) for name, dy, dx in plan.rides}
+        depth = lambda o: rides.get(o, _ZERO)
+        reads, writes = set(), set()
+        for st in stages:
+            reads.update(get_stencil_op(st.op).reads)
+            writes.update(get_stencil_op(st.op).writes)
+        # per-field operands every stage sees on the slab, in canonical order
+        slab_ops = tuple(o for o in _PER_FIELD if o in reads)
+        wcon_read = "wcon" in reads
+        # the common slab: per side the deepest per-field operand's depth
+        t_lo_y = max([depth(o)[0][0] for o in slab_ops] or [0])
+        t_hi_y = max([depth(o)[0][1] for o in slab_ops] or [0])
+        t_lo_x = max([depth(o)[1][0] for o in slab_ops] or [0])
+        t_hi_x = max([depth(o)[1][1] for o in slab_ops] or [0])
+        stage_fns = [get_stencil_op(st.op).apply_stage(
+            prog, st.fields if st.fields is not None else names, use_ref)
+            for st in stages]
+
+        def pad_to(a, have, want_lo, want_hi, dim):
+            return _edge_pad(a, want_lo - have[0], want_hi - have[1], dim)
+
+        def local(fields, wcon, tens, stage_tens):
+            ly, lx = wcon[0].shape[-2:]
+            src = {"fields": fields, "tens": tens, "stage_tens": stage_tens}
+            ops = slab_ops + (("wcon",) if wcon_read else ())
+            shards = {o: [_dycore.stack_state(d, names) for d in src[o]]
+                      for o in slab_ops}
+            if wcon_read:
+                shards["wcon"] = list(wcon)
+            # ONE packed ride pair per direction for the whole chain
+            parts = _domain._exchange_packed(
+                [(shards[o], depth(o)[0]) for o in ops], mesh, ax_y, dim=-2,
+                wire_dtype=wire)
+            parts = _domain._exchange_packed(
+                [(p, depth(o)[1]) for p, o in zip(parts, ops)], mesh, ax_x,
+                dim=-1, wire_dtype=wire)
+            slabs = dict(zip(ops, parts))
+            new_fields, new_stage = [], []
+            for s in range(mesh.size):
+                views = {}
+                for o in slab_ops:
+                    dy, dx = depth(o)
+                    a = pad_to(slabs[o][s], dy, t_lo_y, t_hi_y, dim=-2)
+                    a = pad_to(a, dx, t_lo_x, t_hi_x, dim=-1)
+                    views[o] = field_views(a, names)
+                if wcon_read:
+                    # one column wider on the high-x side: the staggering
+                    dy, dx = depth("wcon")
+                    wconp = pad_to(slabs["wcon"][s], dy, t_lo_y, t_hi_y, -2)
+                    wconp = pad_to(wconp, dx, t_lo_x, t_hi_x + 1, -1)
+                else:
+                    wconp = wcon[s]
+                fd = views.get("fields", dict(fields[s]))
+                td = views.get("tens", dict(tens[s]))
+                sd = views.get("stage_tens", dict(stage_tens[s]))
+                # the chain on the resident slabs, k repetitions on one deep
+                # exchange (validity shrinks as the rides account for)
+                for _ in range(k):
+                    for fn in stage_fns:
+                        fd, sd = fn(fd, wconp, td, sd)
+                crop = lambda d: field_views(torch.stack(
+                    [d[n][..., t_lo_y:t_lo_y + ly, t_lo_x:t_lo_x + lx]
+                     for n in names], dim=1), names)
+                new_fields.append(crop(fd) if "fields" in writes
+                                  else dict(fields[s]))
+                new_stage.append(crop(sd) if "stage_tens" in writes
+                                 else dict(stage_tens[s]))
+            return new_fields, new_stage
+        return local
+    return build
+
+
 def _ensure_registered(name: str, stages: Tuple[PipelineStage, ...],
                        field_names: Tuple[str, ...]) -> StencilOpDef:
     """Synthesize and register the chain's StencilOpDef and tile space
@@ -330,6 +436,7 @@ def _ensure_registered(name: str, stages: Tuple[PipelineStage, ...],
         resolve_tile=lambda variant, compute_grid, dtype, nf, e, k,
         request=None: None,
         build_local_step=lambda plan: ChainRound(stages, plan),
+        build_shard_local=_pipeline_shard_local(stages),
         pallas_calls=_pipeline_pallas_calls(stages),
         model_tile=_pipeline_model_tile(spec),
         traffic=_pipeline_traffic(spec, stages),

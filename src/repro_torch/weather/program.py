@@ -1,6 +1,7 @@
-"""Declarative stencil programs on one device: spec -> plan -> launch.
+"""Declarative stencil programs: spec -> plan -> launch, on one device or
+a mesh.
 
-A port of `repro.weather.program` for a single device:
+A port of `repro.weather.program`:
 
 * `StencilProgram` is the *what*: the registered op (`"dycore"`, `"hdiff"`,
   `"vadvc"`, `"vadvc_update"`, `"hadv_upwind"`, `"asselin"`, or a stage
@@ -9,12 +10,16 @@ A port of `repro.weather.program` for a single device:
   JAX package's checks, and `to_json` / `from_json` round-trip with the JAX
   package's JSON; a program with `stages` comes back as a
   `weather/pipeline.py::PipelineProgram`.
-* `compile(program, device="cuda", tune=None)` is the planner: it resolves
-  the execution variant, the kernel tile and the launch count per round
-  once. The tile is the kernel's own rule (`core/tiling.py`); with
-  `tune="measure"` it is the candidate tile (the op's
-  `cuda_tile_candidates`) that ran the round fastest on the plan's device,
-  measured once and kept in a disk cache (`core/autotune.py`).
+* `compile(program, mesh=None, device="cuda", tune=None)` is the planner:
+  it resolves the execution variant, the kernel tile and the launch count
+  per round once, and on a mesh the steps-per-round k (`k_steps="auto"`:
+  the exchange model's pick, walked down to what the CUDA k-step kernel
+  takes), the packed-exchange schedule (`ExchangeSchedule`, from the op's
+  declared rides) and the rides a round. The tile is the kernel's own
+  rule (`core/tiling.py`); with `tune="measure"` it is the candidate tile
+  (the op's `cuda_tile_candidates`) that ran the round fastest on the
+  plan's device or mesh, measured once and kept in a disk cache
+  (`core/autotune.py`).
 * `ExecutionPlan` is the *how*: `step(state)` advances one round of
   `k_steps` timesteps, `run(state, steps)` runs `steps // k_steps` rounds and
   one shorter tail round (`round_plan(steps % k_steps)`), `report()` returns
@@ -26,15 +31,26 @@ A port of `repro.weather.program` for a single device:
 What runs is decided by the plan's device: on CUDA every kernelled variant
 launches the hand-written kernels (a k-step round is ONE launch of the
 k-step kernel; a chain's round one launch a stage); on the CPU the same
-lowering takes their plain versions. `compile_with_fallback` degrades an
+lowering takes their plain versions.
+
+A mesh (`launch/mesh.py::Mesh`, a grid of devices driven from this one
+process) shards y over `ax_y`, x over `ax_x` and the ensemble over `ax_e`
+when the mesh has it; z is never split. A mesh plan's `step` / `run` take
+a state placed by `domain.shard_state(state, plan.mesh, plan.state_spec)`
+and return one (a plain `WeatherState` is placed first);
+`domain.gather_state` brings it back whole. Its round is the op's
+shard-local round (`StencilOpDef.build_shard_local`) over every shard: the
+packed halo exchange of `weather/domain.py`, each shard's launches on its
+padded slab, the crop. `report()["pallas_calls_per_round"]` counts one
+shard's launches, as the JAX package's traced shard program does; a round
+launches that many on every shard. `compile_with_fallback` degrades an
 op that fails to compile to its `reference_program`, and says so; on the
 card it does so only for an injected fault.
 
 The serving engine's slot helpers sit here too, as in the JAX package:
 `ensemble_slot_view` / `_assign` / `_select` (in place, keeping a lane's
 field-stacked layout) and `slot_guard` / `slot_validity` (one launch of the
-slot-guard kernel on CUDA). Not yet ported: meshes (ROADMAP queue 1, item
-6), which raise `NotImplementedError`.
+slot-guard kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -45,8 +61,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import autotune, hwspec, perfmodel, tiling
+from repro_torch.core import autotune, hwspec, memmodel, perfmodel, tiling
 from repro_torch.kernels.slot_guard import ops as _guard_ops
+from repro_torch.launch.mesh import Mesh
+from repro_torch.weather import domain as _domain
 from repro_torch.weather import dycore as _dycore
 from repro_torch.weather import stencil_ops as _sops
 from repro_torch.weather.fields import (PROGNOSTIC, WeatherState, dtype_name,
@@ -61,17 +79,13 @@ VARIANTS = _sops.VARIANTS
 # program's `hardware` names the one its modelled numbers target.
 KNOWN_HARDWARE = hwspec.available_specs()
 
-__all__ = ["StencilProgram", "ExecutionPlan", "compile", "plan_cache_key",
+__all__ = ["StencilProgram", "ExchangeSchedule", "ExecutionPlan", "compile",
+           "plan_cache_key",
            "compile_with_fallback", "reference_program", "StencilOpDef",
            "get_stencil_op", "register_stencil_op",
            "registered_stencil_ops", "VARIANTS", "ensemble_slot_view",
            "ensemble_slot_assign", "ensemble_slot_select", "slot_validity",
            "slot_guard", "state_leaves", "map_state"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md queue 1, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,8 +291,60 @@ def same_device(a: torch.device, b: torch.device) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExchangeSchedule:
+    """The resolved halo exchange of a mesh plan (the JAX package's).
+
+    `mode="packed"` is the stacked ragged exchange: every operand shares
+    one flattened wire buffer per direction (at most one ride pair each; a
+    side nothing rides is elided). `rides` are the resolved per-operand
+    `(lo, hi)` depths from the op's declaration, e.g. the dycore's `wcon`
+    at `(k·2, k·2 + 1)` in x (the staggering column from the right
+    neighbour only) or vadvc's lone `("wcon", (0, 0), (0, 1))`.
+    `mode="per_operand"` is the per-field exchange of the dycore's
+    per_field and unfused variants."""
+
+    mode: str                                   # "packed" | "per_operand"
+    shards: Tuple[int, int]                     # (py, px)
+    rides: Tuple[Tuple[str, Tuple[int, int], Tuple[int, int]], ...]
+    wire_dtype: Optional[str]
+
+    def _ride(self, operand: str):
+        for name, dy, dx in self.rides:
+            if name == operand:
+                return dy, dx
+        return None
+
+    @property
+    def depth_y(self) -> int:
+        r = self._ride("fields")
+        return r[0][1] if r else 0
+
+    @property
+    def depth_x(self) -> int:
+        r = self._ride("fields")
+        return r[1][0] if r else 0
+
+    @property
+    def wcon_depth_x(self) -> Optional[Tuple[int, int]]:
+        r = self._ride("wcon")
+        return r[1] if r else None
+
+    def describe(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "mode": self.mode, "shards": list(self.shards),
+            "rides": {name: {"depth_y": list(dy), "depth_x": list(dx)}
+                      for name, dy, dx in self.rides},
+            "depth_y": self.depth_y, "depth_x": self.depth_x,
+            "wire_dtype": self.wire_dtype}
+        if self.wcon_depth_x is not None:
+            d["wcon_depth_x"] = list(self.wcon_depth_x)
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """The *how*: an immutable, fully resolved single-device strategy."""
+    """The *how*: an immutable, fully resolved strategy on one device or a
+    mesh (`mesh`; `device` is then the mesh's first device)."""
 
     program: StencilProgram
     variant: str                                # resolved, never "auto"
@@ -289,9 +355,33 @@ class ExecutionPlan:
     compute_grid: Tuple[int, int, int]          # grid the kernel tiles over
     device: torch.device
     pallas_calls_per_round: int                 # kernel launches per round
-    collectives_per_round: int
+    collectives_per_round: int                  # exchange rides per round
+    rides: Tuple[Tuple[str, Tuple[int, int], Tuple[int, int]], ...] = ()
+    exchange: Optional[ExchangeSchedule] = None  # None on one device
+    mesh: Optional[Mesh] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+    mesh_axes: Tuple[Optional[str], str, str] = ("pod", "data", "model")
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shards(self) -> Tuple[int, int]:
+        return self.exchange.shards if self.exchange is not None else (1, 1)
+
+    @property
+    def state_spec(self) -> Optional[Tuple[Optional[str], ...]]:
+        """The placement `domain.shard_state` takes, the JAX package's
+        `P(ax_e, None, ax_y, ax_x)` (ax_e None where the mesh lacks it);
+        None on one device."""
+        if self.mesh is None:
+            return None
+        ax_e, ax_y, ax_x = self.mesh_axes
+        have_e = ax_e is not None and ax_e in self.mesh.axis_names
+        return (ax_e if have_e else None, None, ax_y, ax_x)
 
     @property
     def op_def(self) -> StencilOpDef:
@@ -317,9 +407,11 @@ class ExecutionPlan:
                 prog.ensemble, self.k_steps)
         return self._cache["model_window"]
 
-    def step(self, state: WeatherState) -> WeatherState:
-        """Advance ONE round (`k_steps` timesteps)."""
-        self._check_state(state)
+    def step(self, state):
+        """Advance ONE round (`k_steps` timesteps). On a mesh the state is a
+        `domain.ShardedState` (a `WeatherState` is placed first) and so is
+        the result."""
+        state = self._check_state(state)
         return self._step_fn()(state)
 
     def run(self, state: WeatherState, steps: int) -> WeatherState:
@@ -328,7 +420,7 @@ class ExecutionPlan:
         `round_plan(steps % k_steps)`."""
         if not isinstance(steps, int) or steps < 0:
             raise ValueError(f"steps={steps!r} must be a non-negative int")
-        self._check_state(state)
+        state = self._check_state(state)
         rounds, tail = divmod(steps, self.k_steps)
         step = self._step_fn()
         for _ in range(rounds):
@@ -348,8 +440,11 @@ class ExecutionPlan:
             return self
         plan = self._cache.get(("tail", k))
         if plan is None:
+            ax_e, ax_y, ax_x = self.mesh_axes
             plan = compile(dataclasses.replace(self.program, variant="auto",
-                                               k_steps=k), device=self.device)
+                                               k_steps=k), mesh=self.mesh,
+                           ax_e=ax_e, ax_y=ax_y, ax_x=ax_x,
+                           device=self.device)
             self._cache[("tail", k)] = plan
         return plan
 
@@ -358,7 +453,8 @@ class ExecutionPlan:
         structure, `traffic_model_ty` and `traffic` (the op's modelled
         bytes of a step at the rows of the kernel tile that runs; a plan
         with no tile takes `_traffic_model_ty`'s rows), `exchange_model`
-        (None: one device exchanges nothing), `model` (the analytic model
+        (the modelled wire bytes of a packed mesh round, None otherwise),
+        `model` (the analytic model
         of `model_window()` under `hardware_spec()`, None for the unfused
         oracle), `model_by_hardware`, and `tuning`: the measured pick of
         `compile(tune="measure")`, None otherwise."""
@@ -373,10 +469,12 @@ class ExecutionPlan:
             "tile": (None if self.tile is None
                      else {"ty": self.tile_ty, **self.tile.describe()}),
             "device": str(self.device),
-            "distributed": False,
+            "distributed": self.distributed,
+            "mesh_axes": list(self.mesh_axes),
             "local_grid": list(self.local_grid),
             "compute_grid": list(self.compute_grid),
-            "exchange": None,
+            "exchange": (None if self.exchange is None
+                         else self.exchange.describe()),
             "pallas_calls_per_round": self.pallas_calls_per_round,
             "collectives_per_round": self.collectives_per_round,
         }
@@ -389,6 +487,10 @@ class ExecutionPlan:
         rep["traffic_model_ty"] = model_ty
         rep["traffic"] = opdef.traffic(self, model_ty)
         rep["exchange_model"] = None
+        if (self.exchange is not None and self.exchange.mode == "packed"
+                and opdef.exchange_model is not None):
+            rep["exchange_model"] = opdef.exchange_model(
+                prog, self.k_steps, self.exchange.shards)
         window = self.model_window()
         if window is None:
             rep["model"] = None
@@ -470,8 +572,35 @@ class ExecutionPlan:
         self._cache[("model_by_hardware", grid)] = out
         return out
 
-    def _check_state(self, state: WeatherState) -> None:
-        if state.grid_shape != self.program.grid_shape:
+    def _check_state(self, state):
+        """`state` checked against the program (and, on a mesh, placed on
+        the plan's mesh); returns what the round takes."""
+        if self.mesh is not None:
+            return self._check_sharded(state)
+        if isinstance(state, _domain.ShardedState):
+            raise ValueError("a sharded state needs a plan compiled with "
+                             "mesh=; gather it first (domain.gather_state)")
+        self._check_leaves(state)
+        if not same_device(state.device, self.device):
+            raise ValueError(f"state is on {state.device} but the plan was "
+                             f"compiled for {self.device}")
+        return state
+
+    def _check_sharded(self, state):
+        if isinstance(state, _domain.ShardedState):
+            if (state.grid_shape != self.program.grid_shape
+                    or state.ensemble != self.program.ensemble):
+                raise ValueError(
+                    f"sharded state of grid {state.grid_shape} and ensemble "
+                    f"{state.ensemble} does not match the program's "
+                    f"{self.program.grid_shape} and {self.program.ensemble}")
+            self._check_leaves(state.shards[0], whole=False)
+        else:
+            self._check_leaves(state)
+        return _domain.shard_state(state, self.mesh, self.state_spec)
+
+    def _check_leaves(self, state: WeatherState, whole: bool = True) -> None:
+        if whole and state.grid_shape != self.program.grid_shape:
             raise ValueError(
                 f"state grid {state.grid_shape} does not match the "
                 f"program's {self.program.grid_shape}; compile a plan for "
@@ -480,14 +609,11 @@ class ExecutionPlan:
             raise ValueError(
                 f"state dtype {state.wcon.dtype} does not match the "
                 f"program's precision policy {self.program.dtype!r}")
-        if (state.wcon.dim() == 4
+        if (whole and state.wcon.dim() == 4
                 and int(state.wcon.shape[0]) != self.program.ensemble):
             raise ValueError(
                 f"state ensemble {int(state.wcon.shape[0])} does not match "
                 f"the program's ensemble={self.program.ensemble}")
-        if not same_device(state.device, self.device):
-            raise ValueError(f"state is on {state.device} but the plan was "
-                             f"compiled for {self.device}")
         missing = [n for n in self.program.fields if n not in state.fields]
         if missing:
             raise ValueError(f"state is missing program fields {missing}")
@@ -495,25 +621,56 @@ class ExecutionPlan:
     def _step_fn(self):
         fn = self._cache.get("step")
         if fn is None:
-            fn = self.op_def.build_local_step(self)
+            fn = (_build_distributed_step(self) if self.mesh is not None
+                  else self.op_def.build_local_step(self))
             self._cache["step"] = fn
         return fn
 
 
-def compile(program: StencilProgram, mesh=None, *, device="cuda",
-            tune: Optional[str] = None,
+def _build_distributed_step(plan: ExecutionPlan):
+    """The mesh round: the op's shard-local round over every shard of a
+    `ShardedState` (the JAX package's `shard_map` of it), wcon and the slow
+    tendencies passed through, and so are fields the program does not
+    name (as a chain's unbound fields pass a stage)."""
+    local = plan.op_def.build_shard_local(plan)
+
+    def step(state: "_domain.ShardedState") -> "_domain.ShardedState":
+        sh = state.shards
+        new_fields, new_stage = local([s.fields for s in sh],
+                                      [s.wcon for s in sh],
+                                      [s.tens for s in sh],
+                                      [s.stage_tens for s in sh])
+        shards = tuple(WeatherState(fields={**s.fields, **f}, wcon=s.wcon,
+                                    tens=s.tens,
+                                    stage_tens={**s.stage_tens, **st})
+                       for s, f, st in zip(sh, new_fields, new_stage))
+        return dataclasses.replace(state, shards=shards)
+    return step
+
+
+def compile(program: StencilProgram, mesh: Optional[Mesh] = None, *,
+            ax_e: Optional[str] = "pod", ax_y: str = "data",
+            ax_x: str = "model", device=None, tune: Optional[str] = None,
             _tile: Optional[Tuple[int, int]] = None) -> ExecutionPlan:
-    """Resolve `program`'s single-device execution strategy once.
+    """Resolve `program`'s execution strategy once.
 
     `device` defaults to the GPU; pass `device="cpu"` to run the plain
-    versions of the kernels. `tune=None` / `"model"` take the kernel tile
-    of `core/tiling.py` (the analytic model's window is reported, not
-    launched: it ranks windows differently from the card). `tune="measure"`
-    (the paper's "auto-tuned" mode) times one round at each of the op's
-    candidate tiles on `device` and keeps the fastest, stored in the disk
-    cache of `core/autotune.py` under (program, hardware spec, device), so
-    a later compile measures nothing. `_tile` is the `(ty, tx)` request
-    the measured path pins."""
+    versions of the kernels. With `mesh` (`launch/mesh.py::make_mesh`) the
+    plan runs on the mesh's devices (a `device` that names another kind is
+    refused): y is split over `ax_y`, x over `ax_x`, the ensemble over
+    `ax_e` where the mesh has it, and a round is the op's shard-local round
+    (see the module docstring). `k_steps="auto"` resolves on a mesh to the
+    exchange model's pick (`autotune.resolve_k_steps` over the op's
+    declared rides and flops), walked down to what the op's CUDA k-step
+    round takes (`StencilOpDef.kstep_check`); on one device to 1.
+    `tune=None` / `"model"` take the kernel tile of `core/tiling.py` (the
+    analytic model's window is reported, not launched: it ranks windows
+    differently from the card). `tune="measure"` (the paper's "auto-tuned"
+    mode) times one round at each of the op's candidate tiles on the
+    plan's device (on a mesh, the mesh round) and keeps the fastest, stored
+    in the disk cache of `core/autotune.py` under (program, shards,
+    hardware spec, device), so a later compile measures nothing. `_tile` is
+    the `(ty, tx)` request the measured path pins."""
     if not isinstance(program, StencilProgram):
         raise TypeError(f"compile wants a StencilProgram, got "
                         f"{type(program).__name__}")
@@ -521,8 +678,15 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
         raise ValueError(f"tune={tune!r}: expected None, 'model', or "
                          f"'measure'")
     if mesh is not None:
-        raise _not_ported("mesh= (distributed rounds)", "item 6")
-    device = torch.device(device)
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh= wants a launch.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        first = mesh.device_list[0]
+        if device is not None and torch.device(device).type != first.type:
+            raise ValueError(f"device={device!r} but the mesh's devices are "
+                             f"{first.type}")
+        device = first
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("compile(device='cuda'): no CUDA device is "
                            "available; pass device='cpu' to run the plain "
@@ -533,8 +697,44 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
     opdef = get_stencil_op(program.op)
     nz, ny, nx = program.grid_shape
     nf = program.n_fields
-    # One device: no collectives to amortize, so "auto" is one step a round.
-    k = 1 if program.k_steps == "auto" else program.k_steps
+    halo = opdef.halo
+    if mesh is not None:
+        for ax in (ax_y, ax_x):
+            if ax not in mesh.axis_names:
+                raise ValueError(f"mesh {dict(mesh.shape)} has no axis "
+                                 f"{ax!r}")
+        py, px = mesh.shape[ax_y], mesh.shape[ax_x]
+        if ny % py or nx % px:
+            raise ValueError(f"grid (ny={ny}, nx={nx}) does not divide over "
+                             f"(py={py}, px={px}) shards")
+        pe = mesh.axis_size(ax_e)
+        if program.ensemble % pe:
+            raise ValueError(f"ensemble={program.ensemble} does not divide "
+                             f"over the {pe} shards of mesh axis {ax_e!r}")
+    else:
+        py = px = 1
+    ly, lx = ny // py, nx // px
+
+    # steps a round: the communication-avoiding k, from the op's declared
+    # flops and rides; one device has no collectives to amortize
+    k = program.k_steps
+    if k == "auto":
+        if ("kstep" not in opdef.variants or mesh is None
+                or program.variant not in ("auto", "kstep")):
+            k = 1
+        else:
+            def exchange_model(kk):
+                return memmodel.packed_exchange_model(
+                    program.grid_shape, program.dtype,
+                    rides=opdef.memmodel_rides(nf), k=kk, shards=(py, px),
+                    compute_halo=(kk * halo, kk * halo))
+            k = autotune.resolve_k_steps(
+                program.grid_shape, program.dtype, (py, px), n_fields=nf,
+                halo=halo, flops_per_point=opdef.flops_per_point,
+                exchange_model=exchange_model,
+                kstep_check=opdef.kstep_check(program, (py, px)),
+                spec=hwspec.load_spec(program.hardware)
+                if program.hardware else None)
     variant = program.variant
     if variant == "auto":
         variant = "kstep" if k > 1 else "whole_state"
@@ -545,29 +745,62 @@ def compile(program: StencilProgram, mesh=None, *, device="cuda",
         raise ValueError("exchange_dtype requires a packed (stacked) "
                          "exchange variant of op "
                          f"{program.op!r} ({opdef.packed_variants})")
+
+    # the exchange schedule and the grid the kernel tiles over, from the
+    # op's declared footprint
     rides = opdef.resolved_rides(k)
-    hy = hx = k * opdef.halo
-    compute_grid = ((nz, ny + 2 * hy, nx + 2 * hx) if opdef.pads_single_chip
-                    else program.grid_shape)
-    if opdef.pads_single_chip:
+    hy = hx = k * halo
+    pads = mesh is not None or opdef.pads_single_chip
+    compute_grid = (nz, ly + 2 * hy, lx + 2 * hx) if pads else (nz, ly, lx)
+    if pads:
+        # a ride deeper than the local slab would need data from beyond the
+        # adjacent neighbour (or, on one device, wrap more than one period)
         for name, dy, dx in rides:
-            if max(dy) > ny or max(dx) > nx:
+            if max(dy) > ly or max(dx) > lx:
                 raise ValueError(
                     f"op {program.op!r} at k_steps={k} needs a ({max(dy)}, "
-                    f"{max(dx)})-deep halo for {name!r} but the grid is "
-                    f"only ({ny}, {nx}); use a bigger grid or a smaller "
-                    f"k_steps")
+                    f"{max(dx)})-deep halo for {name!r} but the local slab "
+                    f"is only ({ly}, {lx}); use fewer shards, a bigger grid, "
+                    f"or a smaller k_steps")
+    exchange = None
+    if mesh is not None:
+        if variant in opdef.packed_variants:
+            exchange = ExchangeSchedule(mode="packed", shards=(py, px),
+                                        rides=rides,
+                                        wire_dtype=program.exchange_dtype)
+        else:
+            # the per-operand exchange (dycore per_field/unfused): one
+            # exchange an operand at one step's reach
+            exchange = ExchangeSchedule(mode="per_operand", shards=(py, px),
+                                        rides=opdef.resolved_rides(1),
+                                        wire_dtype=None)
+            compute_grid = (nz, ly + 2 * halo, lx + 2 * halo)
     tile = opdef.resolve_tile(variant, compute_grid, program.dtype, nf,
                               program.ensemble, k, _tile)
+    collectives = 0
+    if mesh is not None:
+        collectives = (opdef.collectives(variant, nf, py, px, k)
+                       if opdef.collectives is not None else None)
+        if collectives is None:
+            collectives = opdef.generic_collectives(py, px, k)
     plan = ExecutionPlan(
         program=program, variant=variant, k_steps=k,
         tile_ty=None if tile is None else tile.ty, tile=tile,
-        local_grid=(nz, ny, nx), compute_grid=compute_grid, device=device,
+        local_grid=(nz, ly, lx), compute_grid=compute_grid, device=device,
         pallas_calls_per_round=opdef.pallas_calls(variant, nf, k),
-        collectives_per_round=0)
+        collectives_per_round=collectives, rides=rides, exchange=exchange,
+        mesh=mesh, mesh_axes=(ax_e, ax_y, ax_x))
     if tune == "measure" and _tile is None:
         plan = _measured_retune(plan)
     return plan
+
+
+def _recompile(plan: ExecutionPlan, program: StencilProgram,
+               **kw) -> ExecutionPlan:
+    """`compile(program)` on `plan`'s device or mesh and axes."""
+    ax_e, ax_y, ax_x = plan.mesh_axes
+    return compile(program, mesh=plan.mesh, ax_e=ax_e, ax_y=ax_y, ax_x=ax_x,
+                   device=plan.device, **kw)
 
 
 def reference_program(program: StencilProgram) -> StencilProgram:
@@ -583,8 +816,11 @@ def reference_program(program: StencilProgram) -> StencilProgram:
                                exchange_dtype=None)
 
 
-def compile_with_fallback(program: StencilProgram, mesh=None, *,
-                          device="cuda", attempt_hook=None
+def compile_with_fallback(program: StencilProgram,
+                          mesh: Optional[Mesh] = None, *,
+                          ax_e: Optional[str] = "pod", ax_y: str = "data",
+                          ax_x: str = "model", device=None,
+                          attempt_hook=None
                           ) -> Tuple[ExecutionPlan, Optional[str], list]:
     """`compile` with an explicit, counted degradation chain over
 
@@ -608,7 +844,10 @@ def compile_with_fallback(program: StencilProgram, mesh=None, *,
     failure to compile the kernelled plan propagates, so no kernel is ever
     silently replaced by the plain ops."""
     from repro_torch.testing.faults import InjectedFault
-    on_card = torch.device(device).type != "cpu"
+    if mesh is not None:
+        on_card = mesh.device_type != "cpu"
+    else:
+        on_card = torch.device(device or "cuda").type != "cpu"
     attempts = [("native", program), ("reference", reference_program(program))]
     errors: list = []
     last = None
@@ -616,7 +855,9 @@ def compile_with_fallback(program: StencilProgram, mesh=None, *,
         try:
             if attempt_hook is not None:
                 attempt_hook(prog, stage)
-            plan = compile(prog, mesh=mesh, device=device)
+            axes = ({} if mesh is None
+                    else {"ax_e": ax_e, "ax_y": ax_y, "ax_x": ax_x})
+            plan = compile(prog, mesh=mesh, device=device, **axes)
             return plan, (None if stage == "native" else stage), errors
         except Exception as e:  # noqa: BLE001 — see the rule above
             if on_card and not isinstance(e, InjectedFault):
@@ -630,16 +871,16 @@ def compile_with_fallback(program: StencilProgram, mesh=None, *,
 
 def _measured_retune(plan: ExecutionPlan) -> ExecutionPlan:
     """The `tune="measure"` path: the candidate tile that ran a round
-    fastest on the plan's device, looked up in the disk cache by (program,
-    one shard, hardware spec, device) or measured once and stored; the
-    plan recompiled with that tile pinned."""
+    fastest on the plan's device (on a mesh, the mesh round), looked up in
+    the disk cache by (program, shards, hardware spec, device) or measured
+    once and stored; the plan recompiled with that tile pinned."""
     if plan.tile is None:
         return plan               # the unfused oracle has no tile to tune
     program = plan.program
     spec = plan.hardware_spec()
     backend = autotune.backend_name(plan.device)
-    key = autotune.tune_cache_key((plan_cache_key(program), (1, 1)), spec,
-                                  backend)
+    key = autotune.tune_cache_key((plan_cache_key(program), plan.shards),
+                                  spec, backend)
     entry = autotune.tune_cache_load(key)
     cached = entry is not None
     if entry is None:
@@ -648,8 +889,8 @@ def _measured_retune(plan: ExecutionPlan) -> ExecutionPlan:
                       "spec_fingerprint": spec.fingerprint,
                       "k_steps": plan.k_steps})
         autotune.tune_cache_store(key, entry)
-    tuned = compile(program, device=plan.device,
-                    _tile=tuple(int(t) for t in entry["tile"]))
+    tuned = _recompile(plan, program,
+                       _tile=tuple(int(t) for t in entry["tile"]))
     tuned._cache["tuning"] = {"mode": "measure", "cached": cached, **entry}
     return tuned
 
@@ -665,8 +906,8 @@ MEASURE_REPEATS = 10
 def _measure_tile_candidates(plan: ExecutionPlan) -> Dict[str, Any]:
     """Time one round (`autotune.measure_walltime`) at each of the op's
     kernel tile candidates, at most MAX_MEASURED spread over the list (the
-    default first), on an all-zero state on the plan's device; return the
-    cache entry. Only a ValueError of the planner, refusing a pinned
+    default first), on an all-zero state on the plan's device or mesh;
+    return the cache entry. Only a ValueError of the planner, refusing a pinned
     request, scores a candidate `inf`: a kernel that fails to build or
     launch raises."""
     program = plan.program
@@ -677,11 +918,14 @@ def _measure_tile_candidates(plan: ExecutionPlan) -> Dict[str, Any]:
         stride = len(cands) / MAX_MEASURED
         cands = [cands[int(i * stride)] for i in range(MAX_MEASURED)]
     state = zeros_state(program.grid_shape, program.ensemble, program.dtype,
-                        names=program.fields, device=plan.device)
+                        names=program.fields,
+                        device="cpu" if plan.mesh else plan.device)
+    if plan.mesh is not None:
+        state = _domain.shard_state(state, plan.mesh, plan.state_spec)
     timed = {}
     for request, tile in cands:
         try:
-            cp = compile(program, device=plan.device, _tile=request)
+            cp = _recompile(plan, program, _tile=request)
         except ValueError:
             timed[request] = (tile, math.inf)
             continue

@@ -1,9 +1,10 @@
 """The StencilOp registry: declared operators the planner compiles.
 
-A port of `repro.weather.stencil_ops` for one device. Each operator is a
-`StencilOpDef` declaring which state operands it streams, its per-operand
-halo footprint (`OperandRide`), its stencil reach, flop count and execution
-variants, and its lowerings: tile resolution and the single-device step.
+A port of `repro.weather.stencil_ops`. Each operator is a `StencilOpDef`
+declaring which state operands it streams, its per-operand halo footprint
+(`OperandRide`), its stencil reach, flop count and execution variants, and
+its lowerings: tile resolution, the single-device step, the shard-local
+round of a mesh and, for a chainable op, its full-slab pipeline stage.
 `weather/program.py::compile` consumes only this declaration. Registered:
 
   "dycore"       — the fused compound step (vadvc + point-wise + hdiff);
@@ -23,8 +24,12 @@ as one of its stages.
 
 `dycore` and `hdiff` also run the k-step round (`variant="kstep"`): k
 timesteps in ONE kernel launch. On one device the halo exchange of the JAX
-package degenerates to periodic wrap-padding, which the lowerings here do
-directly. Distributed rounds are later work (ROADMAP queue 1, item 6).
+package degenerates to periodic wrap-padding, which the single-device
+lowerings do directly. On a mesh (`build_shard_local`) every op runs the
+JAX package's shard-local round over all shards at once: the exchange of
+its declared rides (`weather/domain.py`), the existing kernels launched on
+each shard's padded slab (hadv in its passthrough mode, the dycore from the
+staggered sum built on the slab), and the interior crop.
 
 Each op also declares its models, as the JAX package's do: the analytic
 window `report()["model"]` estimates (`model_tile`), the modelled bytes of
@@ -52,9 +57,10 @@ from repro_torch.kernels.hdiff import ops as hdiff_ops
 from repro_torch.kernels.hdiff import ref as hdiff_ref
 from repro_torch.kernels.vadvc import ops as vadvc_ops
 from repro_torch.kernels.vadvc import ref as vadvc_ref
+from repro_torch.weather import domain as _domain
 from repro_torch.weather import dycore as _dycore
 from repro_torch.weather.dycore import HALO
-from repro_torch.weather.fields import WeatherState, dtype_name
+from repro_torch.weather.fields import WeatherState, dtype_name, field_views
 
 VARIANTS = ("auto", "unfused", "per_field", "whole_state", "kstep")
 
@@ -101,6 +107,18 @@ class StencilOpDef:
       request=None)` -> `tiling.CudaTile`, or None for the unfused oracle
       variant; a `(ty, tx)` request pins the kernel planner's arguments;
     * `build_local_step(plan)` -> `state -> state`, the single-device round;
+    * `build_shard_local(plan)` -> `(fields, wcon, tens, stage_tens) ->
+      (new_fields, new_stage)`, the round on a mesh: each argument a list
+      in shard order (of dicts, or of wcon tensors) of the shards' local
+      slabs; the exchange of the plan's schedule (`weather/domain.py`),
+      the op's launches on each shard, and the interior crop;
+    * `collectives(variant, n_fields, py, px, k)` -> rides a round on a
+      mesh, or None to derive them from the rides (`generic_collectives`);
+    * `apply_stage(prog, names, use_ref)` -> the op's full-slab stage
+      function `(fields, wconp, tens, stage_tens) -> (new_fields,
+      new_stage)` of one shard for the pipeline's mesh round: dict values
+      are padded slabs, `names` the stage's bound fields; no exchange and
+      no crop (the chain's round owns both);
     * `pallas_calls(variant, n_fields, k)` -> kernel launches per round
       (the JAX package's key name, kept for schema parity);
     * `model_tile(variant, compute_grid, dtype, n_fields, ensemble, k)` ->
@@ -139,6 +157,12 @@ class StencilOpDef:
         default=None, compare=False, repr=False)
     build_local_step: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
+    build_shard_local: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    collectives: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    apply_stage: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
     pallas_calls: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
     model_tile: Optional[Callable] = dataclasses.field(
@@ -161,6 +185,23 @@ class StencilOpDef:
         """The rides in `memmodel.packed_exchange_model` form."""
         return tuple((r.operand, n_fields if r.per_field else 1,
                       r.y, r.x, r.y_fixed, r.x_fixed) for r in self.rides)
+
+    def generic_collectives(self, py: int, px: int, k: int) -> int:
+        """Rides a packed round, from the footprint: one a mesh direction
+        and side any operand rides (a side nothing rides is elided by
+        `domain._exchange_packed`)."""
+        total = 0
+        for axis, n in (("y", py), ("x", px)):
+            if n <= 1:
+                continue
+            lo = hi = False
+            for r in self.rides:
+                dy, dx = r.depths(k)
+                d = dy if axis == "y" else dx
+                lo |= d[0] > 0
+                hi |= d[1] > 0
+            total += int(lo) + int(hi)
+        return total
 
     def describe(self, n_fields: int = 4, k: int = 1) -> Dict[str, Any]:
         """JSON footprint declaration (`plan.report()["footprint"]`)."""
@@ -224,6 +265,18 @@ def _tile_candidates(resolve, default_request, requests
             seen.add(tile)
             out.append((tuple(request), tile))
     return out
+
+
+def _mesh_of(plan):
+    """`(mesh, ax_y, ax_x, wire dtype)` of a mesh plan."""
+    _, ax_y, ax_x = plan.mesh_axes
+    return plan.mesh, ax_y, ax_x, plan.program.exchange_dtype
+
+
+def _crop(a: torch.Tensor, y0: int, ly: int, x0: int, lx: int):
+    """The interior `(ly, lx)` of a padded slab from `(y0, x0)`, as a new
+    contiguous tensor (the next round stacks it without a copy)."""
+    return a[..., y0:y0 + ly, x0:x0 + lx].contiguous()
 
 
 def _generic_exchange_model(program, k, shards):
@@ -356,6 +409,114 @@ def _dycore_local_step(plan):
     return step
 
 
+def _dycore_shard_local(plan):
+    """The dycore's round on a mesh, per the plan's exchange schedule:
+
+    * `unfused`: per field, the plain vadvc with wcon's right column from
+      the x neighbour, the update, and the plain hdiff on the exchanged
+      slab (`domain._local_vadvc`, `domain._local_hdiff`);
+    * `per_field`: the staggered sum built once and exchanged, then per
+      field its three operands exchanged and one whole-state kernel launch
+      at one field on the padded slab;
+    * `whole_state` / `kstep`: ONE packed exchange per direction of every
+      operand (fields, tendencies, stage tendencies at the round's reach
+      and wcon at its ragged `(hx, hx + 1)` x-depth: the staggering column
+      comes from the right neighbour only), the staggered sum
+      `w = wconp[..., :-1] + wconp[..., 1:]` on the padded slab (valid to
+      its edge, which the kernel's periodic `staggered_w` would not be),
+      one launch of the whole-state or k-step kernel a shard, and the
+      crop."""
+    prog = plan.program
+    mesh, ax_y, ax_x, wire = _mesh_of(plan)
+    names = prog.fields
+    coeff, dt, k, tile = prog.coeff, prog.dt, plan.k_steps, plan.tile
+    col = lambda ds, n: [d[n] for d in ds]
+
+    def local_unfused(fields, wcon, tens, stage_tens):
+        new_fields = [{} for _ in wcon]
+        new_stage = [{} for _ in wcon]
+        for name in names:
+            f = col(fields, name)
+            stage = _domain._local_vadvc(f, wcon, f, col(tens, name),
+                                         col(stage_tens, name), mesh, ax_x)
+            f = [a + dt * b for a, b in zip(f, stage)]
+            f = _domain._local_hdiff(f, coeff, mesh, ax_y, ax_x)
+            for s in range(len(wcon)):
+                new_fields[s][name] = f[s]
+                new_stage[s][name] = stage[s]
+        return new_fields, new_stage
+
+    def local_per_field(fields, wcon, tens, stage_tens):
+        ly, lx = wcon[0].shape[-2:]
+
+        def pad(xs):
+            xs = _domain._exchange(xs, mesh, ax_y, HALO, dim=2)
+            return _domain._exchange(xs, mesh, ax_x, HALO, dim=3)
+
+        # one exchange of the pre-combined staggered velocity serves every
+        # field; each field's inputs are exchanged so the halo ring's vadvc
+        # tendency is recomputed locally
+        wp = pad(_domain._staggered_w(wcon, mesh, ax_x))
+        new_fields = [{} for _ in wcon]
+        new_stage = [{} for _ in wcon]
+        one = lambda a: a.unsqueeze(-4)
+        for name in names:
+            fp, tp, sp = (pad(col(d, name))
+                          for d in (fields, tens, stage_tens))
+            for s, (f, w, t, st) in enumerate(zip(fp, wp, tp, sp)):
+                f_new, stage = fused_ops.fused_step_summed(
+                    one(f), w, one(t), one(st), coeff=coeff, dt=dt,
+                    tile=tile)
+                new_fields[s][name] = _crop(f_new.squeeze(-4), HALO, ly,
+                                            HALO, lx)
+                new_stage[s][name] = _crop(stage.squeeze(-4), HALO, ly,
+                                           HALO, lx)
+        return new_fields, new_stage
+
+    def local_packed(fields, wcon, tens, stage_tens):
+        ly, lx = wcon[0].shape[-2:]
+        sched = plan.exchange
+        hy, hx = sched.depth_y, sched.depth_x
+        stk = lambda ds: [_dycore.stack_state(d, names) for d in ds]
+        # the three stacks and wcon share one wire buffer a direction
+        parts = _domain._exchange_packed(
+            [(stk(fields), hy), (stk(tens), hy), (stk(stage_tens), hy),
+             (wcon, hy)], mesh, ax_y, dim=-2, wire_dtype=wire)
+        fs, ts, ss, wp = _domain._exchange_packed(
+            [(parts[0], hx), (parts[1], hx), (parts[2], hx),
+             (parts[3], sched.wcon_depth_x)], mesh, ax_x, dim=-1,
+            wire_dtype=wire)
+        new_fields, new_stage = [], []
+        for f, t, st, wc in zip(fs, ts, ss, wp):
+            w = wc[..., :-1] + wc[..., 1:]
+            if k == 1:
+                f, st = fused_ops.fused_step_summed(f, w, t, st, coeff=coeff,
+                                                    dt=dt, tile=tile)
+            else:               # the whole round in one launch
+                f, st = fused_ops.fused_kstep_summed(f, w, t, st, k_steps=k,
+                                                     coeff=coeff, dt=dt,
+                                                     tile=tile)
+            new_fields.append(field_views(_crop(f, hy, ly, hx, lx), names))
+            new_stage.append(field_views(_crop(st, hy, ly, hx, lx), names))
+        return new_fields, new_stage
+
+    return {"unfused": local_unfused, "per_field": local_per_field,
+            "whole_state": local_packed, "kstep": local_packed}[plan.variant]
+
+
+def _dycore_collectives(variant, n_fields, py, px, k):
+    if variant in ("whole_state", "kstep"):
+        return None          # from the rides: one pair a direction
+    ey = 2 if py > 1 else 0  # one ride pair an active direction
+    ex = 2 if px > 1 else 0
+    rc = 1 if px > 1 else 0  # wcon's right-column fetch
+    if variant == "per_field":
+        # the shared staggered-w pad + 3 per-operand pads a field
+        return rc + (ey + ex) + n_fields * 3 * (ey + ex)
+    # unfused: per-field vadvc + hdiff pads
+    return n_fields * (rc + ey + ex)
+
+
 register_stencil_op(StencilOpDef(
     name="dycore",
     title="fused compound dycore step (vadvc + point-wise + hdiff)",
@@ -380,6 +541,8 @@ register_stencil_op(StencilOpDef(
                  ("kstep", "dycore_kstep")),
     resolve_tile=_dycore_resolve_tile,
     build_local_step=_dycore_local_step,
+    build_shard_local=_dycore_shard_local,
+    collectives=_dycore_collectives,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1, "kstep": 1}[
                                              variant],
@@ -475,6 +638,63 @@ def _hdiff_local_step(plan):
     return step
 
 
+def _hdiff_shard_local(plan):
+    """hdiff's round on a mesh, every variant: ONE packed exchange per
+    direction at the round's reach `k·2`, then the launches on each shard's
+    padded stack (the plain version, one a field, one for the whole state,
+    or one k-step launch for the round), and the crop. On a `(1, 1)` mesh
+    the exchange is the single-device step's wrap padding."""
+    prog = plan.program
+    mesh, ax_y, ax_x, wire = _mesh_of(plan)
+    names, coeff, variant, tile = prog.fields, prog.coeff, plan.variant, \
+        plan.tile
+    k = plan.k_steps
+    (_, (hy_lo, hy_hi), (hx_lo, hx_hi)), = plan.rides
+
+    def local(fields, wcon, tens, stage_tens):
+        fs = [_dycore.stack_state(d, names) for d in fields]
+        ly, lx = fs[0].shape[-2:]
+        (fs,) = _domain._exchange_packed([(fs, (hy_lo, hy_hi))], mesh, ax_y,
+                                         dim=-2, wire_dtype=wire)
+        (fs,) = _domain._exchange_packed([(fs, (hx_lo, hx_hi))], mesh, ax_x,
+                                         dim=-1, wire_dtype=wire)
+        new_fields = []
+        for a in fs:
+            Y, X = a.shape[-2:]
+            planes = a.reshape(-1, Y, X)
+            if variant == "unfused":
+                out = hdiff_ref.hdiff(planes, coeff=coeff)
+            elif variant == "per_field":
+                out = torch.stack(
+                    [hdiff_ops.hdiff(a[:, i].reshape(-1, Y, X), coeff=coeff,
+                                     tile=tile).reshape(a[:, i].shape)
+                     for i in range(len(names))], dim=1)
+            elif variant == "whole_state":
+                out = hdiff_ops.hdiff(planes, coeff=coeff, tile=tile)
+            else:                                    # kstep: ONE launch
+                out = hdiff_ops.hdiff_kstep(planes, coeff=coeff, k=k,
+                                            tile=tile)
+            new_fields.append(field_views(
+                _crop(out.reshape(a.shape), hy_lo, ly, hx_lo, lx), names))
+        return new_fields, [dict(d) for d in stage_tens]
+    return local
+
+
+def _hdiff_apply_stage(prog, names, use_ref):
+    """hdiff as a chain stage on one shard's padded slabs: the bound
+    fields' planes in one launch (the kernel's own tile for the slab)."""
+    coeff = prog.coeff
+
+    def fn(fields, wconp, tens, stage_tens):
+        fs = _dycore.stack_state(fields, names)
+        planes = fs.reshape((-1,) + fs.shape[-2:])
+        out = (hdiff_ref.hdiff(planes, coeff=coeff) if use_ref
+               else hdiff_ops.hdiff(planes, coeff=coeff)).reshape(fs.shape)
+        return ({**fields, **{n: out[:, i] for i, n in enumerate(names)}},
+                dict(stage_tens))
+    return fn
+
+
 register_stencil_op(StencilOpDef(
     name="hdiff",
     title="compound horizontal diffusion (laplace -> limited flux -> out)",
@@ -492,6 +712,8 @@ register_stencil_op(StencilOpDef(
                  ("kstep", "hdiff")),
     resolve_tile=_hdiff_resolve_tile,
     build_local_step=_hdiff_local_step,
+    build_shard_local=_hdiff_shard_local,
+    apply_stage=_hdiff_apply_stage,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1, "kstep": 1}[
                                              variant],
@@ -597,6 +819,68 @@ def _vadvc_local_step(plan):
     return step
 
 
+def _vadvc_shard_local(plan, update: bool = False):
+    """vadvc's round on a mesh: the only operand that rides is wcon's
+    right staggering column, the `(0, 1)` x-ride (ONE ride; the other
+    direction ships nothing and is elided); fields and tendencies need no
+    halo, so there is no crop. The kernel takes the staggered `(.., lx +
+    1)` wcon once for every field under it: per_field launches once a
+    field, whole_state once over the stack. With `update` (the
+    vadvc_update op), then `f + dt * stage` on the stack."""
+    prog = plan.program
+    mesh, ax_y, ax_x, wire = _mesh_of(plan)
+    names, variant, tile, dt = prog.fields, plan.variant, plan.tile, prog.dt
+    (_, _, (wx_lo, wx_hi)), = plan.rides
+
+    def local(fields, wcon, tens, stage_tens):
+        (wconp,) = _domain._exchange_packed([(wcon, (wx_lo, wx_hi))], mesh,
+                                            ax_x, dim=-1, wire_dtype=wire)
+        new_fields, new_stage = [], []
+        for fd, w, td, sd in zip(fields, wconp, tens, stage_tens):
+            if variant == "per_field":
+                stage = {}
+                for n in names:
+                    u = fd[n].contiguous()
+                    stage[n] = vadvc_ops.vadvc(u, w, u, td[n].contiguous(),
+                                               sd[n].contiguous(), tile=tile)
+                new_fields.append(dict(fd))
+                new_stage.append(stage)
+                continue
+            stack = lambda d: _dycore.stack_state(d, names)
+            u, ts, ss = stack(fd), stack(td), stack(sd)
+            if variant == "unfused":
+                ss = vadvc_ref.vadvc(u, w.unsqueeze(1), u, ts, ss)
+            else:
+                ss = vadvc_ops.vadvc(u, w, u, ts, ss, tile=tile)
+            new_stage.append(field_views(ss, names))
+            new_fields.append(field_views(u + dt * ss, names) if update
+                              else dict(fd))
+        return new_fields, new_stage
+    return local
+
+
+def _vadvc_apply_stage(prog, names, use_ref, update: bool = False):
+    """vadvc (with `update`, vadvc_update) as a chain stage on one shard's
+    padded slabs: one launch over the bound fields' stack; `wconp` is one
+    column wider on the high-x side than the field slabs, the solo round's
+    staggering contract."""
+    dt = prog.dt
+
+    def fn(fields, wconp, tens, stage_tens):
+        u, ts, ss = (_dycore.stack_state(d, names)
+                      for d in (fields, tens, stage_tens))
+        ss = (vadvc_ref.vadvc(u, wconp.unsqueeze(1), u, ts, ss) if use_ref
+              else vadvc_ops.vadvc(u, wconp, u, ts, ss))
+        new_stage = {**stage_tens,
+                     **{n: ss[:, i] for i, n in enumerate(names)}}
+        if not update:
+            return dict(fields), new_stage
+        fs = u + dt * ss
+        return ({**fields, **{n: fs[:, i] for i, n in enumerate(names)}},
+                new_stage)
+    return fn
+
+
 register_stencil_op(StencilOpDef(
     name="vadvc",
     title="vertical advection (implicit Thomas solve; updates stage_tens)",
@@ -612,6 +896,8 @@ register_stencil_op(StencilOpDef(
     tile_spaces=(("per_field", "vadvc"), ("whole_state", "vadvc")),
     resolve_tile=_vadvc_resolve_tile,
     build_local_step=_vadvc_local_step,
+    build_shard_local=_vadvc_shard_local,
+    apply_stage=_vadvc_apply_stage,
     pallas_calls=lambda variant, nf, k: {"unfused": 0, "per_field": nf,
                                          "whole_state": 1}[variant],
     model_tile=_vadvc_model_tile,
@@ -678,6 +964,9 @@ register_stencil_op(StencilOpDef(
     tile_spaces=(("whole_state", "vadvc_update"),),
     resolve_tile=_vadvc_resolve_tile,
     build_local_step=_vadvc_update_local_step,
+    build_shard_local=lambda plan: _vadvc_shard_local(plan, update=True),
+    apply_stage=lambda prog, names, use_ref: _vadvc_apply_stage(
+        prog, names, use_ref, update=True),
     pallas_calls=lambda variant, nf, k: {"unfused": 0,
                                          "whole_state": 1}[variant],
     model_tile=_vadvc_update_model_tile,
@@ -748,6 +1037,58 @@ def _hadv_local_step(plan):
     return step
 
 
+def _hadv_shard_local(plan):
+    """hadv's round on a mesh: ONE packed exchange per direction at the
+    asymmetric `(1, 0)` depth (the donor cell looks backward only, so the
+    high sides ship nothing and that direction is elided), the kernel in
+    its passthrough mode on each shard's padded stack (row 0 and column 0,
+    the pad, pass through), and the crop. The plan's tile was planned for
+    the unpadded slab; the launch re-balances it over the padded one (the
+    kernel is bit for bit tile-independent)."""
+    prog = plan.program
+    mesh, ax_y, ax_x, wire = _mesh_of(plan)
+    names, cfl, variant, tile = prog.fields, prog.coeff, plan.variant, \
+        plan.tile
+    (_, (hy_lo, hy_hi), (hx_lo, hx_hi)), = plan.rides
+
+    def local(fields, wcon, tens, stage_tens):
+        fs = [_dycore.stack_state(d, names) for d in fields]
+        ly, lx = fs[0].shape[-2:]
+        (fs,) = _domain._exchange_packed([(fs, (hy_lo, hy_hi))], mesh, ax_y,
+                                         dim=-2, wire_dtype=wire)
+        (fs,) = _domain._exchange_packed([(fs, (hx_lo, hx_hi))], mesh, ax_x,
+                                         dim=-1, wire_dtype=wire)
+        new_fields = []
+        for a in fs:
+            Y, X = a.shape[-2:]
+            planes = a.reshape(-1, Y, X)
+            if variant == "unfused":
+                out = hadv_ref.hadv_upwind(planes, cfl=cfl)
+            else:
+                slab_tile = tiling.hadv_tile(Y, X, a.element_size(), tile.ty,
+                                             tile.tx)
+                out = hadv_ops.hadv_upwind(planes, cfl=cfl, tile=slab_tile)
+            new_fields.append(field_views(
+                _crop(out.reshape(a.shape), hy_lo, ly, hx_lo, lx), names))
+        return new_fields, [dict(d) for d in stage_tens]
+    return local
+
+
+def _hadv_apply_stage(prog, names, use_ref):
+    """hadv as a chain stage on one shard's padded slabs: passthrough mode
+    over the bound fields' planes, the kernel's own tile for the slab."""
+    cfl = prog.coeff
+
+    def fn(fields, wconp, tens, stage_tens):
+        fs = _dycore.stack_state(fields, names)
+        planes = fs.reshape((-1,) + fs.shape[-2:])
+        out = (hadv_ref.hadv_upwind(planes, cfl=cfl) if use_ref
+               else hadv_ops.hadv_upwind(planes, cfl=cfl)).reshape(fs.shape)
+        return ({**fields, **{n: out[:, i] for i, n in enumerate(names)}},
+                dict(stage_tens))
+    return fn
+
+
 register_stencil_op(StencilOpDef(
     name="hadv_upwind",
     title="upwind horizontal advection (donor cell, backward-only reach)",
@@ -764,6 +1105,8 @@ register_stencil_op(StencilOpDef(
     tile_spaces=(("whole_state", "hadv_upwind"),),
     resolve_tile=_hadv_resolve_tile,
     build_local_step=_hadv_local_step,
+    build_shard_local=_hadv_shard_local,
+    apply_stage=_hadv_apply_stage,
     pallas_calls=lambda variant, nf, k: {"unfused": 0,
                                          "whole_state": 1}[variant],
     model_tile=_hadv_model_tile,
@@ -796,6 +1139,32 @@ def _asselin_local_step(plan):
     return step
 
 
+def _asselin_shard_local(plan):
+    """asselin's round on a mesh: point-wise on each shard, no ride."""
+    prog = plan.program
+    names, coeff, dt = prog.fields, prog.coeff, prog.dt
+
+    def local(fields, wcon, tens, stage_tens):
+        new_fields = []
+        for fd, td, sd in zip(fields, tens, stage_tens):
+            stack = lambda d: _dycore.stack_state(d, names)
+            fs = stack(fd) + coeff * dt * (stack(td) - stack(sd))
+            new_fields.append(field_views(fs, names))
+        return new_fields, [dict(d) for d in stage_tens]
+    return local
+
+
+def _asselin_apply_stage(prog, names, use_ref):
+    """asselin as a chain stage: the same point-wise filter on the slabs."""
+    coeff, dt = prog.coeff, prog.dt
+
+    def fn(fields, wconp, tens, stage_tens):
+        return ({**fields, **{n: fields[n] + coeff * dt
+                              * (tens[n] - stage_tens[n]) for n in names}},
+                dict(stage_tens))
+    return fn
+
+
 register_stencil_op(StencilOpDef(
     name="asselin",
     title="leapfrog time filter from stored tendencies (point-wise)",
@@ -814,6 +1183,8 @@ register_stencil_op(StencilOpDef(
     resolve_tile=lambda variant, compute_grid, dtype, nf, e, k, request=None:
         None,
     build_local_step=_asselin_local_step,
+    build_shard_local=_asselin_shard_local,
+    apply_stage=_asselin_apply_stage,
     pallas_calls=lambda variant, nf, k: 0,
     model_tile=lambda variant, compute_grid, dtype, nf, e, k: None,
     traffic=_plane_traffic("asselin"),

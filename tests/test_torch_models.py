@@ -265,12 +265,21 @@ def test_every_config_builds_and_its_loss_runs(arch):
 
 
 def test_remat_dots_still_raises():
+    """Named for the refusal it held: `remat="dots"` is ported, and on a MoE
+    config (its router and dispatch products among the saved 2-D dots) the
+    loss and gradients equal `"none"`'s."""
     cfg = treg.reduced_config(treg.get_config("granite-moe-3b-a800m"))
     model = api.build(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9 step 5"):
-        model.loss(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                   remat="dots")
+    params.requires_grad_(True)
+    batch = {"tokens": torch.arange(8, dtype=torch.long).reshape(2, 4)}
+    out = []
+    for remat in ("none", "dots"):
+        loss = model.loss(params, batch, remat=remat)
+        out.append([loss] + list(torch.autograd.grad(
+            loss, list(params.parameters()))))
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
 
 
 def test_build_defaults_to_the_card():

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no `repro`, in its package (every
 module, the training slice's `train/`, `data/`, `kernels/xent/` and
-`launch/train.py` among them) or its chip smoke script."""
+`launch/train.py` and the mesh slice's `weather/domain.py` and
+`launch/mesh.py` among them) or its chip smoke script."""
 
 import ast
 import os
@@ -46,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
             "'repro_torch.train.loop', 'repro_torch.kernels.xent.ops', "
             "'repro_torch.data.synthetic', 'repro_torch.launch.train', "
             "'repro_torch.serve.forecast', 'repro_torch.ckpt.checkpoint', "
-            "'repro_torch.testing.faults'):\n"
+            "'repro_torch.testing.faults', 'repro_torch.weather.domain', "
+            "'repro_torch.launch.mesh'):\n"
             "    assert m in sys.modules, m\n")
     res = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ,

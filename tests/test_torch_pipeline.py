@@ -12,7 +12,9 @@ mode, as the JAX package's own tests run them):
   points where an hdiff stage's flux limiter may flip and within 0.05
   everywhere; bfloat16 within 0.25;
 * inside the port, bit for bit: every chain of 1-3 distinct chainable
-  stages (85) equals its stages run as solo plans one after the other; a
+  stages (85) equals its stages run as solo plans one after the other,
+  and on a (2, 2) mesh of CPU shards its mesh round (one packed exchange a
+  round) equals its stages' solo mesh plans one after the other; a
   subset binding leaves the unbound fields as the earlier stages left
   them; the k=2 round equals two rounds; the asselin chain rides nothing
   and launches nothing;
@@ -46,7 +48,8 @@ from repro.weather.program import StencilProgram as JProgram
 from repro.weather.program import compile as jcompile
 from repro.weather.stencil_ops import get_stencil_op as jget_stencil_op
 from repro_torch.kernels import _build
-from repro_torch.weather import convert, dycore, fields
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.weather import convert, domain, dycore, fields
 from repro_torch.weather.pipeline import (PipelineProgram, PipelineStage,
                                           pipeline_op_name)
 from repro_torch.weather.program import (StencilProgram, compile,
@@ -323,6 +326,28 @@ def test_chain_is_its_solo_sequence(chain):
     st = _port_state(seed=CHAINS.index(chain))
     plan = compile(_pipe(chain), device="cpu")
     _assert_equal(plan.step(st), _solo(chain, st))
+
+
+@pytest.mark.parametrize("chain", CHAINS + [BINDING], ids=_chain_id)
+def test_chain_mesh_round_is_its_solo_mesh_plans(chain):
+    """On a (2, 2) mesh every chain's round (one packed exchange for the
+    whole chain, the stages on each shard's padded slabs, one crop) equals
+    its stages' own mesh plans one after the other, bit for bit, fields and
+    stage tendencies; the rides it made are its report's, one a sharded
+    direction and side any operand rides."""
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    st = _port_state(seed=len(chain))
+    plan = compile(_pipe(chain), mesh=mesh)
+    domain.reset_rides()
+    out = domain.gather_state(plan.step(st))
+    assert domain.RIDES["rides"] == plan.collectives_per_round <= 4
+    seq = st
+    for stage in chain:
+        op, bound = (stage, None) if isinstance(stage, str) else stage
+        seq = compile(StencilProgram(
+            grid_shape=GRID, ensemble=E, coeff=COEFF, op=op, k_steps=1,
+            fields=bound or fields.PROGNOSTIC), mesh=mesh).step(seq)
+    _assert_equal(out, domain.gather_state(seq))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

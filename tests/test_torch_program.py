@@ -11,8 +11,9 @@ run 5 steps (full rounds and a ragged tail) against the reference's, and
 against the port's own whole-state plan. Also: programs round-trip as JSON
 across the packages, `report()` keeps the structural keys, the CPU launches
 no kernel, the solo `asselin` plan reports where the reference's report
-raises, and the option not yet ported (meshes) raises
-`NotImplementedError`. Pipeline programs: `tests/test_torch_pipeline.py`.
+raises, and the option not yet ported (the forecast engine on a mesh)
+raises `NotImplementedError`. Mesh plans: `tests/test_torch_mesh.py`;
+pipeline programs: `tests/test_torch_pipeline.py`.
 """
 
 import json
@@ -29,6 +30,8 @@ from repro.weather import fields as jfields
 from repro.weather.program import StencilProgram as JProgram
 from repro.weather.program import compile as jcompile
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.serve.forecast import ForecastEngine
 from repro_torch.weather import convert, dycore, fields
 from repro_torch.weather.program import StencilProgram, compile
 
@@ -314,11 +317,17 @@ def test_report_structural_keys_match(op, variant):
 
 
 @pytest.mark.parametrize("call", [
-    lambda p: compile(p, mesh=object(), device="cpu"),
+    lambda p: ForecastEngine(slots=1, device="cpu", mesh=make_mesh(
+        (1, 1), ("data", "model"), devices=["cpu"])),
 ])
 def test_unported_options_raise(call):
+    """Meshes run plans (`tests/test_torch_mesh.py`); the forecast engine's
+    sharded lanes are not ported yet and raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(StencilProgram(grid_shape=GRID))
+    with pytest.raises(TypeError, match="Mesh"):
+        compile(StencilProgram(grid_shape=GRID), mesh=object(),
+                device="cpu")
 
 
 @pytest.mark.parametrize("variant", ["whole_state", "unfused"])

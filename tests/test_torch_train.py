@@ -208,9 +208,13 @@ def _loss_and_grads(arch, remat):
             jax.tree.map(np.asarray, jgrads))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("remat", ["none", "full"])
-def test_loss_and_grads_match_jax(arch, remat):
+@pytest.mark.parametrize("remat,arch", [
+    (remat, arch) for remat in ("none", "full") for arch in ARCHS] + [
+    # "dots" against the JAX package's policy: a dense and a recurrent
+    # pattern (every arch's "dots" equals its "none" in
+    # test_remat_modes_agree)
+    ("dots", "tinyllama-1.1b"), ("dots", "recurrentgemma-9b")])
+def test_loss_and_grads_match_jax(remat, arch):
     loss, grads, want, jgrads = _loss_and_grads(arch, remat)
     np.testing.assert_allclose(loss, want, rtol=TOL)
     _assert_trees_close(grads, jgrads)
@@ -241,13 +245,13 @@ def test_moe_loss_adds_the_weighted_aux_term():
 
 @pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_remat_modes_agree(arch):
-    """"full" recomputes; loss and gradients equal "none". "dots" is not
-    ported and raises."""
+    """"full" recomputes, "dots" recomputes all but the 2-D products; the
+    loss and gradients of both equal "none"."""
     jcfg, _, _, _, tm, tp = _pair(arch)
     tp.requires_grad_(True)
     _, batch = _batches(jcfg, 4, 2, 12, kind="uniform")
     out = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         loss = tm.loss(tp, batch, remat=remat)
         out.append([loss.detach()] + list(torch.autograd.grad(
             loss, list(tp.parameters()))))
@@ -258,8 +262,33 @@ def test_remat_modes_agree(arch):
         return
     with pytest.raises(ValueError, match="remat"):
         tm.loss(tp, batch, remat="some")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+
+def test_dots_saves_the_products_and_recomputes_the_rest():
+    """Under remat="dots" the selective checkpoint keeps the outputs of the
+    2-D products (`aten.mm`, `aten.addmm`: every projection of a reduced
+    tinyllama) and recomputes everything else, `aten.bmm` included."""
+    jcfg, _, _, _, tm, tp = _pair("tinyllama-1.1b")
+    tp.requires_grad_(True)
+    _, batch = _batches(jcfg, 4, 2, 12, kind="uniform")
+    seen = []
+    policy = lm._dots_policy
+
+    def spy(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            seen.append((str(op), out.name))
+        return out
+    lm._dots_policy = spy
+    try:
         tm.loss(tp, batch, remat="dots")
+    finally:
+        lm._dots_policy = policy
+    saved = {op for op, how in seen if how == "MUST_SAVE"}
+    assert saved and saved <= {"aten.mm.default", "aten.addmm.default"}
+    assert "aten.mm.default" in saved
+    assert all(how == "PREFER_RECOMPUTE" for op, how in seen
+               if op == "aten.bmm.default")
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
@@ -422,6 +451,29 @@ def test_cpu_training_launches_nothing():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_dots_saves_fewer_bytes_than_none(cuda):
+    """On the card a reduced tinyllama forward under remat="dots" leaves
+    fewer bytes saved for the backward than under "none", and more than
+    under "full"."""
+    _, tcfg = _configs("tinyllama-1.1b", layers=4)
+    tp = api.build(tcfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).to(cuda)
+    tm = api.build(tcfg, device=cuda)
+    tp.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             synthetic.lm_batch(tcfg, 0, 0, 4, 256).items()}
+    held = {}
+    for remat in ("none", "dots", "full"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = tm.loss(tp, batch, remat=remat)
+        torch.cuda.synchronize()
+        held[remat] = torch.cuda.memory_allocated() - before
+        del loss
+    assert held["full"] < held["dots"] < held["none"], held
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ARCHS + FAMILIES)
