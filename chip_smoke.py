@@ -99,7 +99,19 @@ against their single-device plans (the chain also bit for bit against its
 stages' own mesh plans in sequence, and timed beside them), the mesh
 round beside the
 single-device step (by call and queued) and the exchange's device and
-host share under `torch.profiler`; times every kernel,
+host share under `torch.profiler`; then the forecast engine on that mesh
+(phase 11): the slot-guard kernel with each shard's offset against its
+plain version and the combined digest against the single-device kernel's
+(fp32, bf16, timed a shard and whole), `ForecastEngine(mesh=)` serving a
+dycore fp32 lane, a bf16 lane and an `op="hdiff"` lane (every result
+bit-equal to its solo mesh run and the single-device plan's at the lane's
+round strategy; one step kernel a shard and the guard's 4 + 1 launches a
+lane round), a
+persistent loss of logical device 3 failing over (2, 2) -> (2, 1) with
+every request bit-equal, a `wire_corrupt` of a rolled-back slot
+quarantined, a mid-drain checkpoint restored onto one device and onto
+(4, 1) bit-equal, and the steady mesh round, the guard's share, admit,
+retire and the failover's reshard; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -207,6 +219,11 @@ KSTEP_STEPS = (3, 6, 5, 2)
 STEADY_ROUNDS = 20
 PROFILED_ROUNDS = 10
 STEADY_STEPS = STEADY_ROUNDS + PROFILED_ROUNDS + 4
+# phase 11 (forecast on a mesh): the steady mesh rounds timed on the host
+# clock and under the profiler; the requests' steps leave room for k <= 3
+MESH_STEADY_ROUNDS = 15
+MESH_PROFILED_ROUNDS = 5
+MESH_STEADY_STEPS = 3 * (MESH_STEADY_ROUNDS + MESH_PROFILED_ROUNDS + 2)
 
 
 class SmokeFailure(Exception):
@@ -599,7 +616,7 @@ RANGES = ("moe_dispatch", "moe_combine", "ssd_scan", "halo_exchange")
 # the port's own kernels (`kernel_category`'s, `mesh_category`'s and
 # `pipeline_category`'s groups): launched through ctypes, so they go by name
 PORT_KERNELS = ("flash_attn", "lru_scan", "xent", "dycore_fused",
-                "dycore_kstep", "hdiff", "vadvc", "hadv")
+                "dycore_kstep", "hdiff", "vadvc", "hadv", "slot_guard")
 
 
 def device_breakdown(fn, category=kernel_category):
@@ -2010,6 +2027,14 @@ def mesh_category(name: str) -> str:
     return "other"
 
 
+def forecast_mesh_category(name: str) -> str:
+    """`mesh_category`, with the slot guard's partial and combine kernels
+    under "slot_guard"."""
+    if "guard_partial" in name or "guard_finish" in name:
+        return "slot_guard"
+    return mesh_category(name)
+
+
 def remat_steps(torch, dev, check, results, cfg):
     """One training step (loss, gradients, AdamW) of `cfg` at TRAIN_BATCH x
     TRAIN_SEQ in bf16 under each of REMATS: the step's time (host clock to
@@ -2335,6 +2360,430 @@ def mesh_phase(torch, dev, check, results, make_state):
     del st
     torch.cuda.empty_cache()
     return by_plan
+
+
+def forecast_mesh_phase(torch, dev, check, results, card):
+    """Phase 11: the forecast engine on a mesh of MESH_SHAPE shards, all on
+    this one card (four logical devices, no interconnect). The guard kernel
+    with offsets against its plain version on each shard's blocks and the
+    combined digest against the single-device kernel's, timed; a dycore
+    fp32 lane, a bf16 lane (FORECAST_REQUESTS requests each, steps from a
+    seed, as phase 8 draws them) and an `op="hdiff"` lane of ENSEMBLE, every
+    result bit-equal to its solo mesh `run` and to the single-device plan's
+    at the lane's round strategy (fp32 also to the single-device k=1
+    plan's; bf16 within 0.15 of it: a k-step round rounds once), each lane
+    round's launches as planned (one step kernel a shard, the guard's
+    partials and combine); a persistent loss of logical device 3
+    failing over (2, 2) -> (2, 1) with every request bit-equal; a
+    `wire_corrupt` in shard 1 of a rolled-back slot quarantined; a
+    mid-drain checkpoint restored onto one device and onto (4, 1), both
+    bit-equal; the steady mesh round, the guard's share, admit and retire
+    and the failover's reshard. Returns the drain's launches."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import tiling
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slot_guard import ref as guard_ref
+    from repro_torch.kernels.slot_guard.slot_guard import (
+        slot_guard_blocks_cuda, slot_guard_cuda)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.forecast import ForecastEngine, ForecastRequest
+    from repro_torch.testing.faults import FaultInjector, FaultSpec
+    from repro_torch.weather import domain, fields
+    from repro_torch.weather import program as wprog
+
+    limit = 1e6
+    slots = ENSEMBLE
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=[dev] * 4)
+    spec = (None, None, "data", "model")
+    say(f"forecast mesh: {mesh}: four logical devices (ids "
+        f"{list(mesh.ids)}) on ONE card ({card}); no interconnect is "
+        f"measured")
+    rng = np.random.default_rng(27)
+
+    def quiet(fn):
+        """`fn()` whose launches are not the path's."""
+        n = _build.LAUNCHES["slot_guard"]
+        out = fn()
+        _build.LAUNCHES["slot_guard"] = n
+        return out
+
+    # ---- (a) the guard: each shard's blocks, the combine ------------------
+    for dtype in ("float32", "bfloat16"):
+        gen = torch.Generator(device=dev).manual_seed(27)
+        st = fields.initial_state(gen, GRID, slots, dtype=dtype, device=dev)
+        nz, ny, nx = GRID
+        st.fields["u"][1, nz - 1, ny * 3 // 4, 7] = float("nan")   # shard 2
+        st.tens["t"][2, 0, 5, nx - 6] = 2 * limit                 # shard 1
+        sharded = domain.shard_state(st, mesh, spec)
+        offsets = domain.block_offsets(sharded)
+        thr = guard_ref.threshold(fields.torch_dtype(dtype), limit)
+        worst = 0
+        for s, (e0, y0, x0) in enumerate(offsets):
+            leaves = fields.state_leaves(sharded.shards[s])
+            got = quiet(lambda: slot_guard_blocks_cuda(
+                [(leaves, e0, y0, x0)], slots, limit))
+            want = guard_ref.guard_finish(
+                guard_ref.guard_words(leaves, y0, x0)[None], thr)
+            worst = max([worst] + [abs(int(a) - int(b)) for a, b in zip(
+                got[0].tolist() + got[1].tolist(),
+                want[0].tolist() + want[1].tolist())])
+        check(worst == 0, f"forecast mesh guard {dtype}: a shard's kernel "
+              f"words differ from the plain version's by {worst}")
+        ok, fp = quiet(lambda: wprog.slot_guard(sharded, limit))
+        w_ok, w_fp = quiet(lambda: slot_guard_cuda(
+            fields.state_leaves(st), limit))
+        same = ok.tolist() == w_ok.tolist() and fp.tolist() == w_fp.tolist()
+        check(same and ok.tolist() == [True, False, False, True],
+              f"forecast mesh guard {dtype}: combined {ok.tolist()} "
+              f"{fp.tolist()} against the single-device kernel's "
+              f"{w_ok.tolist()} {w_fp.tolist()}")
+        leaves0 = fields.state_leaves(sharded.shards[0])
+        one = lambda: slot_guard_blocks_cuda([(leaves0,) + offsets[0]],
+                                             slots, limit)
+        whole = lambda: wprog.slot_guard(sharded, limit)
+        shard_ms, shard_q = quiet(lambda: time_ms(one)), quiet(
+            lambda: stream_ms(one))
+        mesh_ms, mesh_q = quiet(lambda: time_ms(whole)), quiet(
+            lambda: stream_ms(whole))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in fields.state_leaves(st))
+        bound_ms, _ = bound(nbytes, 0.0)
+        results[("forecast_mesh_guard", dtype)] = dict(
+            err=float(worst), shard_ms=shard_ms, shard_queued_ms=shard_q,
+            ms=mesh_ms, queued_ms=mesh_q, bound_ms=bound_ms,
+            shard_bound_ms=bound_ms / 4, launches_per_call=5,
+            bit_equal_to_single_device=same)
+        shape = list(sharded.shards[0].wcon.shape)
+        say(f"forecast mesh guard {dtype}: 4 shards of {shape} x 13 "
+            f"leaves; each shard's kernel with its offset bit-equal to "
+            f"the plain version (ok, digest); the combined digest equal to "
+            f"the single-device kernel's: {same}; one shard (partial + "
+            f"combine) {shard_ms:.4f} ms by call, {shard_q:.4f} queued "
+            f"(bound {bound_ms / 4:.4f}); the mesh guard (4 partials + 1 "
+            f"combine) {mesh_ms:.4f} ms by call, {mesh_q:.4f} queued (bound "
+            f"{bound_ms:.4f} ms, bytes) [{card}]")
+        del st, sharded
+    torch.cuda.empty_cache()
+
+    # ---- (b) the served mix on the mesh -----------------------------------
+    class Recorded(ForecastEngine):
+        """The engine with each lane round's launches and host time, and
+        each admission's and retirement's host time, recorded."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.log, self.admit_s, self.retire_s = [], [], []
+
+        def _admit(self):
+            n = self._stats["admitted"]
+            t0 = time.perf_counter()
+            super()._admit()
+            torch.cuda.synchronize()
+            if self._stats["admitted"] > n:
+                self.admit_s.append((time.perf_counter() - t0,
+                                     self._stats["admitted"] - n))
+
+        def _retire(self, lane, i):
+            t0 = time.perf_counter()
+            super()._retire(lane, i)
+            self.retire_s.append((lane.key.dtype, time.perf_counter() - t0))
+
+        def _round(self, lane):
+            plan = self._plan_for(lane.key)
+            kk = min(min(s.remaining, plan.k_steps)
+                     for s in lane.slots if s is not None)
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            super()._round(lane)
+            self.log.append(dict(
+                key=lane.key, kk=kk, s=time.perf_counter() - t0,
+                plan=plan.round_plan(kk), launches={
+                    k: v - before[k] for k, v in _build.LAUNCHES.items()
+                    if v != before[k]}))
+
+    def request_state(dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        st = fields.initial_state(g, GRID, 1, dtype=dtype, device=dev)
+        return wprog.map_state(st, lambda t: t.cpu())
+
+    plans = {}
+
+    def solo(prog, state, steps, where, pin=None):
+        """The solo run of `state` on the mesh or on one device, on the
+        CPU; with `pin`, on one device at that round strategy (the lane's
+        variant and k, as a restore onto one device compiles it)."""
+        if pin:
+            prog = dataclasses.replace(prog, **pin)
+        key = (prog, where)
+        if key not in plans:
+            plans[key] = (wprog.compile(prog, mesh=mesh) if where == "mesh"
+                          else wprog.compile(prog, device=dev))
+        plan = plans[key]
+        if where == "mesh":
+            return domain.gather_state(plan.run(
+                domain.shard_state(state, mesh, plan.state_spec), steps))
+        out = plan.run(wprog.map_state(state, lambda t: t.to(dev)), steps)
+        return wprog.map_state(out, lambda t: t.cpu())
+
+    def equal(a, b):
+        la, lb = fields.state_leaves(a), fields.state_leaves(b)
+        return len(la) == len(lb) and all(
+            torch.equal(x, y) for x, y in zip(la, lb))
+
+    programs = {"dycore float32": wprog.StencilProgram(grid_shape=GRID),
+                "dycore bfloat16": wprog.StencilProgram(grid_shape=GRID,
+                                                        dtype="bfloat16"),
+                "hdiff float32": wprog.StencilProgram(grid_shape=GRID,
+                                                      op="hdiff")}
+    mix = []
+    for name in ("dycore float32", "dycore bfloat16"):
+        mix += [(name, int(s)) for s in rng.integers(
+            FORECAST_STEPS[0], FORECAST_STEPS[1] + 1, FORECAST_REQUESTS)]
+    mix += [("hdiff float32", int(s)) for s in rng.integers(
+        FORECAST_STEPS[0], FORECAST_STEPS[1] + 1, slots)]
+    states = [request_state(programs[n].dtype, 1100 + i)
+              for i, (n, _) in enumerate(mix)]
+    eng = Recorded(slots=slots, mesh=mesh)
+    rids = [eng.submit(ForecastRequest(program=programs[n], state=s,
+                                       steps=k))
+            for (n, k), s in zip(mix, states)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    stats = eng.stats()
+    pins = {n: eng._pinned[wprog.plan_cache_key(p, ensemble=slots)]
+            for n, p in programs.items()}
+    ks = {n: pin["k_steps"] for n, pin in pins.items()}
+    say(f"forecast mesh mix: {len(mix)} requests on {slots} slots of the "
+        f"mesh (k by lane {ks}), {stats['rounds']} lane rounds in "
+        f"{drain_s:.3f} s; launches {launches}; stats "
+        + str({k: stats[k] for k in (
+            "admitted", "completed", "rolled_back_slot_rounds",
+            "quarantined", "scrubbed_idle_slots", "fingerprint_divergence",
+            "fallback_compiles", "round_retries", "mesh_devices")}))
+    bad = [rid for rid in rids if res[rid].status != "ok"]
+    check(not bad, f"forecast mesh mix: requests {bad} did not finish ok")
+    unequal, k1_err = [], {}
+    for rid, (n, k), s in zip(rids, mix, states):
+        if not equal(res[rid].state, solo(programs[n], s, k, "mesh")):
+            unequal.append((rid, "mesh"))
+        if not equal(res[rid].state, solo(programs[n], s, k, "single",
+                                          pins[n])):
+            unequal.append((rid, "single"))
+        if pins[n]["k_steps"] > 1:
+            # the single-device auto plan (k = 1): its own rounding in bf16
+            got, one = res[rid].state, solo(programs[n], s, k, "single")
+            k1_err[n] = max([k1_err.get(n, 0.0)] + [
+                float((got.fields[f].float() - one.fields[f].float()).abs()
+                      .max()) for f in got.fields])
+    say(f"forecast mesh mix: {len(rids) - len({r for r, _ in unequal})} of "
+        f"{len(rids)} results bit-equal to their solo mesh run and to the "
+        f"single-device plan's run at the lane's round strategy (pins "
+        f"{pins}); against the single-device k=1 plan the largest field "
+        f"difference is {k1_err} (0.0: bit for bit)")
+    check(not unequal, f"forecast mesh mix: results differ from their solo "
+          f"runs: {unequal[:6]}")
+    check(all(v == 0.0 for n, v in k1_err.items() if "float32" in n)
+          and all(v < 0.15 for v in k1_err.values()),
+          f"forecast mesh mix: against the single-device k=1 plan {k1_err}")
+    step_kernel = {("dycore", False): "dycore_fused",
+                   ("dycore", True): "dycore_kstep",
+                   ("hdiff", False): "hdiff", ("hdiff", True): "hdiff_kstep"}
+    wrong = []
+    for e in eng.log:
+        p = e["plan"]
+        # a k-step hdiff round longer than a launch takes is several
+        n = (len(tiling.hdiff_launches(p.k_steps)) if e["key"].op == "hdiff"
+             and p.variant == "kstep" else p.pallas_calls_per_round)
+        want = {step_kernel[(e["key"].op, p.variant == "kstep")]: 4 * n,
+                "slot_guard": 5}
+        if e["launches"] != want:
+            wrong.append((e["key"].op, e["key"].dtype, e["kk"],
+                          e["launches"], want))
+    check(not wrong, f"forecast mesh mix: lane rounds launched other than "
+          f"one step kernel a shard and the guard's 4 + 1: {wrong[:4]}")
+    for key in ("fallback_compiles", "scrubbed_idle_slots",
+                "fingerprint_divergence", "quarantined", "round_retries",
+                "mesh_failovers"):
+        check(stats[key] == 0, f"forecast mesh mix: stats {key} = "
+              f"{stats[key]}")
+    check(stats["plan_fallbacks"] == {}, f"forecast mesh mix: fallbacks "
+          f"{stats['plan_fallbacks']}")
+    retire = {dt: [t * 1e3 for d_, t in eng.retire_s if d_ == dt]
+              for dt in ("float32", "bfloat16")}
+    admit = statistics.median(t / n for t, n in eng.admit_s) * 1e3
+    mix_launches = dict(launches)
+    want_res = {rid: res[rid] for rid in rids}
+    del eng, res
+    torch.cuda.empty_cache()
+
+    # ---- (b2) the steady mesh round ----------------------------------------
+    # 4 requests of MESH_STEADY_STEPS steps on one lane: the rounds after
+    # the first on the host clock, then MESH_PROFILED_ROUNDS more under the
+    # profiler, all before any retirement
+    prog = programs["dycore float32"]
+    eng = Recorded(slots=slots, mesh=mesh)
+    for i in range(slots):
+        eng.submit(ForecastRequest(program=prog, state=request_state(
+            "float32", 1200 + i), steps=MESH_STEADY_STEPS))
+    eng.pump()
+    key = wprog.plan_cache_key(prog, ensemble=slots)
+    k = eng._plans[key].k_steps
+    steady = MESH_STEADY_ROUNDS
+    check(MESH_STEADY_STEPS // k > steady + MESH_PROFILED_ROUNDS + 1,
+          f"forecast mesh round: k={k} leaves too few rounds")
+    t0 = time.perf_counter()
+    for _ in range(steady):
+        eng.pump()
+    back_to_back = (time.perf_counter() - t0) * 1e3 / steady
+    rounds = [e["s"] * 1e3 for e in eng.log[1:]]
+    rnd = statistics.median(rounds)
+    br = device_breakdown(
+        lambda: [eng.pump() for _ in range(MESH_PROFILED_ROUNDS)],
+        forecast_mesh_category)
+    eng.drain()
+    guard = results[("forecast_mesh_guard", "float32")]
+    single = results.get(("forecast_round", "float32"), {})
+    mesh_k = results.get(("mesh_dycore_kstep", "float32"), {})
+    results[("forecast_mesh_round", "float32")] = dict(
+        k=k, round_ms=rnd, round_ms_each=rounds, back_to_back_ms=back_to_back,
+        per_step_ms=rnd / k, guard_ms=guard["ms"],
+        guard_share=guard["ms"] / rnd,
+        single_device_round_ms=single.get("round_ms"),
+        mesh_round_ms=mesh_k.get("round_ms"), admit_ms_per_request=admit,
+        retire_ms={dt: statistics.median(v) for dt, v in retire.items()},
+        retire_ms_each=retire, profile=br)
+    say(f"forecast mesh round fp32: k={k} ({k} steps a round), median "
+        f"{rnd:.4f} ms by call over {len(rounds)} steady rounds (range "
+        f"{min(rounds):.4f}-{max(rounds):.4f}), {back_to_back:.4f} ms a round "
+        f"back to back; {rnd / k:.4f} ms a step, against phase 8's "
+        f"single-device round {single.get('round_ms', float('nan')):.4f} ms "
+        f"(one step) and phase 10's k={mesh_k.get('k')} mesh round "
+        f"{mesh_k.get('round_ms', float('nan')):.4f} ms; the mesh guard "
+        f"{guard['ms']:.4f} ms by call, {guard['ms'] / rnd:.3f} of the "
+        f"round [{card}]")
+    if br is None:
+        say("forecast mesh round: the profiler saw no device kernel (not "
+            "measured)")
+    else:
+        n = MESH_PROFILED_ROUNDS
+        say(f"forecast mesh round fp32 under torch.profiler ({n} rounds): "
+            f"host window {br['wall_ms'] / n:.3f} ms a round, device busy "
+            f"{br['busy_ms'] / n:.3f} ms a round (idle share "
+            f"{br['idle_share']:.3f}); device ms a round by kind "
+            + ", ".join(f"{c} {v / n:.3f}"
+                        for c, v in br["by_category_ms"].items())
+            + "; host ms a round in the exchange "
+            + f"{br['host_range_ms'].get('halo_exchange', 0.0) / n:.3f}")
+    say(f"forecast mesh host: admit {admit:.3f} ms a request (each shard's "
+        f"block into its lane), retire {statistics.median(retire['float32']):.3f}"
+        f" ms fp32, {statistics.median(retire['bfloat16']):.3f} ms bf16 "
+        f"(medians; one slot gathered from four shards to host memory)")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- (c) a kill: logical device 3 lost for good at round 2 -------------
+    picks = [i for dt in ("float32", "bfloat16")
+             for i in [j for j, (n, _) in enumerate(mix)
+                       if n == f"dycore {dt}"][:4]]
+    inj = FaultInjector([FaultSpec(kind="device_loss", round=2, device=3,
+                                   once=False)])
+    eng = ForecastEngine(slots=slots, mesh=mesh, fault_injector=inj,
+                         max_round_retries=1, retry_backoff_s=0.0)
+    rids = {i: eng.submit(ForecastRequest(program=programs[mix[i][0]],
+                                          state=states[i], steps=mix[i][1]))
+            for i in picks}
+    res = eng.drain()
+    st_ = eng.stats()
+    fos = st_["failovers"]
+    fo = fos[0] if fos else {}
+    same = [i for i in picks if res[rids[i]].status == "ok" and equal(
+        res[rids[i]].state, want_res[i].state)]
+    results[("forecast_mesh_failover", "mixed")] = dict(
+        failovers=fos, lane_failures=st_["lane_failures"],
+        bit_equal=len(same), requests=len(picks),
+        reshard_ms=fo.get("reshard_ms"))
+    moves = [(f["lost_device"], f["from_shape"], f["to_shape"],
+              f["to_devices"]) for f in fos]
+    say(f"forecast mesh kill (device_loss of logical device 3 from round 2, "
+        f"fp32 and bf16 lanes): failovers (lost, from, to, to ids) {moves}, "
+        f"reshard {fo.get('reshard_ms', float('nan')):.1f} ms (gather "
+        f"every lane, compile on the survivors, shard); lane_failures "
+        f"{st_['lane_failures']}; {len(same)} of {len(picks)} requests ok "
+        f"and bit-equal to the fault-free drain [{card}]")
+    check(len(fos) == 1 and fo.get("from_shape") == [2, 2]
+          and fo.get("to_shape") == [2, 1] and fo.get("lost_device") == 3
+          and 3 not in fo.get("to_devices", [3])
+          and st_["lane_failures"] == 0 and len(same) == len(picks),
+          "forecast mesh kill: not one (2, 2) -> (2, 1) failover with every "
+          "request bit-equal")
+    del eng, res
+    torch.cuda.empty_cache()
+
+    # ---- (d) wire corruption in shard 1 of a rolled-back slot --------------
+    inj = FaultInjector([FaultSpec(kind="wire_corrupt", round=1, slot=0,
+                                   shard=1)])
+    eng = ForecastEngine(slots=slots, mesh=mesh, fault_injector=inj)
+    work = [(request_state("float32", 1300 + i), n)
+            for i, n in enumerate((2 * k, 2 * k - 1))]
+    rids = [eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+            for s, n in work]
+    res = eng.drain()
+    st_ = eng.stats()
+    other = res[rids[1]].status == "ok" and equal(
+        res[rids[1]].state, solo(prog, *work[1], "single",
+                                 pins["dycore float32"]))
+    say(f"forecast mesh wire_corrupt (shard 1 of the rolled-back slot 0, "
+        f"round 1): fingerprint_divergence {st_['fingerprint_divergence']}, "
+        f"slot 0 {res[rids[0]].status} "
+        f"({(res[rids[0]].diagnosis or {}).get('reason')}), the other slot "
+        f"bit-equal to its solo run: {other}")
+    check(st_["fingerprint_divergence"] >= 1 and st_["quarantined"] == 1
+          and res[rids[0]].status == "failed" and other,
+          "forecast mesh wire_corrupt: not caught, or the other slot moved")
+    del eng, res
+
+    # ---- (e) elastic restore: (2, 2) -> one device, (2, 2) -> (4, 1) -------
+    d = ROOT / "build" / f"forecast-mesh-ckpt-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    work = [(request_state("float32", 1400 + i), int(n)) for i, n in
+            enumerate(rng.integers(FORECAST_STEPS[0], FORECAST_STEPS[1] + 1,
+                                   slots + 2))]
+    eng = ForecastEngine(slots=slots, mesh=mesh, ckpt_dir=str(d))
+    for s, n in work:
+        eng.submit(ForecastRequest(program=prog, state=s, steps=n))
+    eng.pump()
+    eng.pump()
+    step = eng.checkpoint()
+    want = eng.drain()
+    del eng
+    for label, where in (("one device", {"device": dev}),
+                         ("(4, 1)", {"mesh": make_mesh(
+                             (4, 1), ("data", "model"), devices=[dev] * 4)})):
+        t0 = time.perf_counter()
+        back = ForecastEngine.restore(str(d), step, **where)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = back.drain()
+        same = [rid for rid in want if rid in got and got[rid].status == "ok"
+                and equal(got[rid].state, want[rid].state)]
+        say(f"forecast mesh restore onto {label}: restored in "
+            f"{restore_s:.3f} s (pins {list(back._pinned.values())}), "
+            f"{len(same)} of {len(want)} results bit-equal to the "
+            f"uninterrupted (2, 2) drain")
+        check(len(same) == len(want) == len(got), f"forecast mesh restore "
+              f"onto {label}: the resumed drain differs")
+        del back, got
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return mix_launches
 
 
 def main() -> int:
@@ -3842,6 +4291,12 @@ def main() -> int:
 
     phase_done("phase 10 (mesh)")
 
+    # ---- 11. the forecast engine on a mesh ----------------------------------
+    forecast_mesh_launches = forecast_mesh_phase(torch, dev, check, results,
+                                                 card)
+
+    phase_done("phase 11 (forecast on a mesh)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -3898,6 +4353,17 @@ def main() -> int:
             # the forecast drain's own launches (phase 8)
             kernels[-1].setdefault("paths", {})["forecast"] = {
                 "launches": forecast_launches[name]}
+        if name in forecast_mesh_launches:
+            # the mesh forecast drain's own launches, every shard's (phase
+            # 11); the guard's: 4 partials and a combine a lane round
+            kernels[-1].setdefault("paths", {})["forecast_mesh"] = {
+                "launches": forecast_mesh_launches[name]}
+            if name == "slot_guard":
+                g = results[("forecast_mesh_guard", "float32")]
+                kernels[-1]["paths"]["forecast_mesh"].update(
+                    {key: g[key] for key in ("ms", "queued_ms", "shard_ms",
+                                             "shard_queued_ms", "bound_ms",
+                                             "err")})
         if name in pipe_launches:
             # the flagship chain's own launches (one fp32 step)
             kernels[-1].setdefault("paths", {})["pipeline"] = {

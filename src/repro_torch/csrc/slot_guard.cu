@@ -23,6 +23,14 @@
 // and leaf's pair of words by atomicXor and atomicMax. A second launch of
 // E threads combines the leaves in order, fp = fp * LEAF ^ f, and compares
 // each leaf's max with the limit's bits.
+//
+// On a mesh each shard's block of the state runs the first launch alone
+// (`nero_slot_guard_partial`), with its global offset (y0, x0) in the
+// position hash, into its rows of an (S, E, leaves, 2) buffer of S
+// distinct blocks; one `nero_slot_guard_finish` then XORs the S acc words
+// and takes the largest of the S max words before the leaves' combine.
+// XOR and max are order-free, so the digest is the whole state's however it
+// is split, as the JAX package's sharded jnp reduction is.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -73,7 +81,7 @@ __device__ __forceinline__ void mix(uint32_t b, uint32_t pos, uint32_t& acc,
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     guard_partial(Leaves leaves, int nleaves, int nz, int ny, int nx,
-                  uint32_t* __restrict__ words) {
+                  uint32_t y0, uint32_t x0, uint32_t* __restrict__ words) {
   using U = typename Bits<T>::U;
   constexpr uint32_t kAbsMask = Bits<T>::kAbs;
   constexpr int kV = 16 / sizeof(T);  // elements a 16-byte load
@@ -90,21 +98,21 @@ __global__ void __launch_bounds__(kThreads)
     const int z = r / ny, y = r - z * ny;
     const U* row = base + z * sz + y * sy;
     const uint32_t rowpos = static_cast<uint32_t>(z) * kAxisZ +
-                            static_cast<uint32_t>(y) * kAxisY;
+                            (y0 + static_cast<uint32_t>(y)) * kAxisY;
     if (kVec) {
       const uint4* vrow = reinterpret_cast<const uint4*>(row);
       for (int c = lane; c < nx / kV; c += 32) {
         const uint4 q = __ldg(vrow + c);
         const U* el = reinterpret_cast<const U*>(&q);
-        const uint32_t x0 = static_cast<uint32_t>(c * kV);
+        const uint32_t xc = x0 + static_cast<uint32_t>(c * kV);
 #pragma unroll
         for (int j = 0; j < kV; ++j)
-          mix(el[j], rowpos + (x0 + j) * kAxisX, acc, mx, kAbsMask);
+          mix(el[j], rowpos + (xc + j) * kAxisX, acc, mx, kAbsMask);
       }
     } else {
       for (int x = lane; x < nx; x += 32)
-        mix(row[x], rowpos + static_cast<uint32_t>(x) * kAxisX, acc, mx,
-            kAbsMask);
+        mix(row[x], rowpos + (x0 + static_cast<uint32_t>(x)) * kAxisX, acc,
+            mx, kAbsMask);
     }
   }
 #pragma unroll
@@ -129,18 +137,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void guard_finish(const uint32_t* __restrict__ words, int E,
-                             int nleaves, long long thr,
+// words: (S, E, nleaves, 2), S blocks' partial words (S = 1 on one device)
+__global__ void guard_finish(const uint32_t* __restrict__ words, int S,
+                             int E, int nleaves, long long thr,
                              long long* __restrict__ fp_out,
                              bool* __restrict__ ok_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
-  const uint32_t* w = words + 2LL * e * nleaves;
-  uint32_t fp = w[0];
-  bool ok = static_cast<long long>(w[1]) <= thr;
-  for (int l = 1; l < nleaves; ++l) {
-    fp = (fp * kLeafMix) ^ w[2 * l];
-    ok = ok && static_cast<long long>(w[2 * l + 1]) <= thr;
+  const long long block = 2LL * E * nleaves;
+  uint32_t fp = 0;
+  bool ok = true;
+  for (int l = 0; l < nleaves; ++l) {
+    const uint32_t* w =
+        words + 2LL * (static_cast<long long>(e) * nleaves + l);
+    uint32_t acc = 0, mx = 0;
+    for (int s = 0; s < S; ++s, w += block) {
+      acc ^= w[0];
+      mx = max(mx, w[1]);
+    }
+    fp = l == 0 ? acc : (fp * kLeafMix) ^ acc;
+    ok = ok && static_cast<long long>(mx) <= thr;
   }
   fp_out[e] = static_cast<long long>(fp);
   ok_out[e] = ok;
@@ -148,18 +164,50 @@ __global__ void guard_finish(const uint32_t* __restrict__ words, int E,
 
 template <typename T>
 int launch(const Leaves& leaves, int nleaves, int E, int nz, int ny, int nx,
-           int vec, uint32_t* words, cudaStream_t st) {
+           int vec, uint32_t y0, uint32_t x0, uint32_t* words,
+           cudaStream_t st) {
   const long long rows = static_cast<long long>(nz) * ny;
   const long long chunks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (rows > INT_MAX || chunks > INT_MAX || E > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(chunks), nleaves, E);
   if (vec)
-    guard_partial<T, true>
-        <<<grid, kThreads, 0, st>>>(leaves, nleaves, nz, ny, nx, words);
+    guard_partial<T, true><<<grid, kThreads, 0, st>>>(leaves, nleaves, nz,
+                                                      ny, nx, y0, x0, words);
   else
-    guard_partial<T, false>
-        <<<grid, kThreads, 0, st>>>(leaves, nleaves, nz, ny, nx, words);
+    guard_partial<T, false><<<grid, kThreads, 0, st>>>(leaves, nleaves, nz,
+                                                       ny, nx, y0, x0, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int partial(const long long* desc, int nleaves, int E, int nz, int ny,
+            int nx, int bf16, int vec, long long y0, long long x0,
+            uint32_t* words, cudaStream_t st) {
+  if (nleaves < 1 || nleaves > kMaxLeaves || E < 1 || nz < 1 || ny < 1 ||
+      nx < 1 || (vec != 0 && vec != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Leaves leaves{};
+  for (int l = 0; l < nleaves; ++l) {
+    leaves.ptr[l] = reinterpret_cast<const void*>(desc[4 * l]);
+    leaves.se[l] = desc[4 * l + 1];
+    leaves.sz[l] = desc[4 * l + 2];
+    leaves.sy[l] = desc[4 * l + 3];
+  }
+  // positions hash mod 2^32, as the JAX package's uint32 iota does
+  const auto oy = static_cast<uint32_t>(y0), ox = static_cast<uint32_t>(x0);
+  return bf16 ? launch<__nv_bfloat16>(leaves, nleaves, E, nz, ny, nx, vec,
+                                      oy, ox, words, st)
+              : launch<float>(leaves, nleaves, E, nz, ny, nx, vec, oy, ox,
+                              words, st);
+}
+
+int finish(const uint32_t* words, int S, int E, int nleaves, long long thr,
+           void* fp_out, void* ok_out, cudaStream_t st) {
+  if (S < 1 || E < 1 || nleaves < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  guard_finish<<<(E + 127) / 128, 128, 0, st>>>(
+      words, S, E, nleaves, thr, static_cast<long long*>(fp_out),
+      static_cast<bool*>(ok_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -174,28 +222,36 @@ extern "C" int nero_slot_guard(const long long* desc, int nleaves, int E,
                                int nz, int ny, int nx, int bf16, int vec,
                                long long thr, void* words, void* fp_out,
                                void* ok_out, void* stream) {
-  if (nleaves < 1 || nleaves > kMaxLeaves || E < 1 || nz < 1 || ny < 1 ||
-      nx < 1 || (vec != 0 && vec != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Leaves leaves{};
-  for (int l = 0; l < nleaves; ++l) {
-    leaves.ptr[l] = reinterpret_cast<const void*>(desc[4 * l]);
-    leaves.se[l] = desc[4 * l + 1];
-    leaves.sz[l] = desc[4 * l + 2];
-    leaves.sy[l] = desc[4 * l + 3];
-  }
   auto st = static_cast<cudaStream_t>(stream);
   auto* w = static_cast<uint32_t*>(words);
+  if (nleaves < 1 || nleaves > kMaxLeaves || E < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(
       w, 0, sizeof(uint32_t) * 2 * static_cast<size_t>(E) * nleaves, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = bf16 ? launch<__nv_bfloat16>(leaves, nleaves, E, nz, ny,
-                                              nx, vec, w, st)
-                      : launch<float>(leaves, nleaves, E, nz, ny, nx, vec, w,
-                                      st);
+  const int rc = partial(desc, nleaves, E, nz, ny, nx, bf16, vec, 0, 0, w, st);
   if (rc) return rc;
-  guard_finish<<<(E + 127) / 128, 128, 0, st>>>(
-      w, E, nleaves, thr, static_cast<long long*>(fp_out),
-      static_cast<bool*>(ok_out));
-  return static_cast<int>(cudaGetLastError());
+  return finish(w, 1, E, nleaves, thr, fp_out, ok_out, st);
+}
+
+// One block of a sharded state: the partial pass alone, its positions
+// hashed at the block's global offset (y0, x0), accumulated into `words`
+// (E * nleaves * 2 uint32, zeroed by the caller).
+extern "C" int nero_slot_guard_partial(const long long* desc, int nleaves,
+                                       int E, int nz, int ny, int nx,
+                                       int bf16, int vec, long long y0,
+                                       long long x0, void* words,
+                                       void* stream) {
+  return partial(desc, nleaves, E, nz, ny, nx, bf16, vec, y0, x0,
+                 static_cast<uint32_t*>(words),
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The combine over S blocks' partial words, (S, E, nleaves, 2) uint32.
+extern "C" int nero_slot_guard_finish(const void* words, int S, int E,
+                                      int nleaves, long long thr,
+                                      void* fp_out, void* ok_out,
+                                      void* stream) {
+  return finish(static_cast<const uint32_t*>(words), S, E, nleaves, thr,
+                fp_out, ok_out, static_cast<cudaStream_t>(stream));
 }

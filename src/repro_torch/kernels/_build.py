@@ -70,6 +70,9 @@ _SIGNATURES = {
                      _LL, _LL, _LL, _F, _I, _I, _P),
     "nero_slot_guard": (_P, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P,
                         _P),
+    "nero_slot_guard_partial": (_P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
+                                _P, _P),
+    "nero_slot_guard_finish": (_P, _I, _I, _I, _LL, _P, _P, _P),
 }
 
 LAUNCHES: Dict[str, int] = {"hdiff": 0, "vadvc": 0, "dycore_fused": 0,

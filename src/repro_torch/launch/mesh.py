@@ -8,6 +8,13 @@ shard's round from this process, moving each halo ride with a copy into the
 neighbour shard's device (`weather/domain.py`). Several shards may sit on
 one device, but only when the caller lists that device more than once:
 nothing here repeats a device on its own.
+
+Each entry of a mesh also has a logical id (`Mesh.ids`), the twin of
+`jax.Device.id`: by default its position in the list `make_mesh` was given,
+which for the default mesh over the card's devices is the CUDA index. A
+mesh built from some of another's entries (a failover's survivors) keeps
+their ids, so four shards of one card (`["cuda:0"] * 4`) are four logical
+devices that a fault, a failover record or `stats()` can name apart.
 """
 
 from __future__ import annotations
@@ -27,13 +34,22 @@ class Mesh:
     """`devices`, an object array of `torch.device` shaped like the mesh,
     and one name an axis. `shape` maps each axis to its size, in axis
     order, as `jax.sharding.Mesh.shape` does. Shards are numbered in the
-    C order of `devices`."""
+    C order of `devices`; `ids` holds each shard's logical device id in that
+    order (by default 0, 1, ...). Two meshes are equal when they place
+    shards on the same devices, whatever their ids."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    ids: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        ids = (tuple(range(self.devices.size)) if self.ids is None
+               else tuple(int(i) for i in self.ids))
+        if len(ids) != self.devices.size or len(set(ids)) != len(ids):
+            raise ValueError(f"a mesh of {self.devices.size} devices needs "
+                             f"as many distinct ids, got {ids}")
+        object.__setattr__(self, "ids", ids)
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"mesh of shape {self.devices.shape} needs "
                              f"{self.devices.ndim} axis names, got "
@@ -86,17 +102,21 @@ class Mesh:
                                                other.devices.flat)))
 
     def __repr__(self) -> str:
-        devs = ", ".join(str(d) for d in self.devices.flat)
+        devs = ", ".join(f"{i}:{d}" for i, d in zip(self.ids,
+                                                   self.devices.flat))
         return f"Mesh({self.shape}, devices=[{devs}])"
 
 
-def make_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
+def make_mesh(shape, axes, devices: Optional[Sequence] = None,
+              ids: Optional[Sequence[int]] = None) -> Mesh:
     """A mesh of `shape` named `axes` over the first prod(shape) of
     `devices`, by default the card's devices (`cuda:0`, `cuda:1`, ...).
     Asking for more shards than there are devices raises, as the JAX
     package's `make_mesh` does; to put several shards on one device, list
     it that many times in `devices` (e.g. `["cuda:0"] * 4`, or `["cpu"] *
-    4` for the plain versions)."""
+    4` for the plain versions). `ids` are the devices' logical ids, one a
+    listed device (default: their positions in the list); the mesh keeps
+    those of the devices it takes."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     if devices is None:
@@ -112,10 +132,13 @@ def make_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
         raise RuntimeError(
             f"need {n} devices for mesh {shape}, have {len(devs)}; list a "
             f"device more than once in devices= to put several shards on it")
+    ids = list(range(len(devs))) if ids is None else [int(i) for i in ids]
+    if len(ids) != len(devs):
+        raise ValueError(f"{len(ids)} ids for {len(devs)} devices")
     arr = np.empty(n, dtype=object)
     for i, d in enumerate(devs[:n]):
         arr[i] = d
-    return Mesh(arr.reshape(shape), tuple(axes))
+    return Mesh(arr.reshape(shape), tuple(axes), tuple(ids[:n]))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -1,9 +1,10 @@
 """Forecast-as-a-service: a continuous-batching ensemble serving engine.
 
-A port of `repro.serve.forecast` for one device. An operational forecast
-service runs the SAME compiled stencil programs for many concurrent
-consumers — requests differ only in initial state and step count. This
-engine is that service layer over the plan API (`weather/program.py`):
+A port of `repro.serve.forecast`, on one device or a mesh. An operational
+forecast service runs the SAME compiled stencil programs for many
+concurrent consumers — requests differ only in initial state and step
+count. This engine is that service layer over the plan API
+(`weather/program.py`):
 
 * **Plan cache, compile once / serve forever.** Every request names a
   `StencilProgram` (ensemble 1 — one forecast). The engine canonicalizes it
@@ -33,16 +34,28 @@ engine is that service layer over the plan API (`weather/program.py`):
   Retirement reads back exactly one slot; a result's `state` holds CPU
   tensors (numpy has no bfloat16).
 
-* **Warm restarts.** `checkpoint()` persists the whole engine — lanes,
-  queue, finished results, per-request bookkeeping and each lane's resolved
-  round strategy — through `ckpt.save_tree`, in the JAX package's layout
-  (either package restores the other's checkpoints);
-  `ForecastEngine.restore()` resumes mid-forecast, falling back past a
-  corrupt newest checkpoint.
+* **On a mesh.** With `mesh=` (`launch/mesh.py::make_mesh`) a lane's
+  batch is a `domain.ShardedState` on its plan's `state_spec`: y over
+  `ax_y`, x over `ax_x`, the slots over `ax_e` where the mesh has it. A
+  round is the plan's mesh round; admission, rollback and scrub write each
+  shard's own block in place; a retiring slot is gathered from the shards
+  that hold it. The lanes live on the mesh's devices and nothing moves to
+  the CPU unless the mesh is of CPU devices.
 
-* **Supervised.** At every round boundary one launch of the slot-guard
-  kernel (`program.slot_guard`) gives each slot a validity bit (NaN/Inf
-  and `|x| <= guard_limit`) and a digest of its exact bits. An invalid
+* **Warm restarts, on any mesh.** `checkpoint()` persists the whole engine
+  — lanes (gathered whole), queue, finished results, per-request
+  bookkeeping and each lane's resolved round strategy — through
+  `ckpt.save_tree`, in the JAX package's layout (either package restores
+  the other's checkpoints); `ForecastEngine.restore(..., mesh=)` resumes
+  mid-forecast on whatever device or mesh it is given, each lane resharded
+  through the new plan's `state_spec` after its round-strategy pin is
+  seeded, falling back past a corrupt newest checkpoint.
+
+* **Supervised.** At every round boundary the slot-guard kernel
+  (`program.slot_guard`: one launch on one device; on a mesh one partial
+  launch a distinct block and one combine) gives each slot a validity bit
+  (NaN/Inf and `|x| <= guard_limit`) and a digest of its exact bits, the
+  same however the lane is sharded. An invalid
   slot is QUARANTINED (its request fails with a per-leaf diagnosis, the
   slot is zeroed and backfills); slots that did not advance a round
   (rolled back, idle) must keep their digest, or they count as divergent.
@@ -52,17 +65,36 @@ engine is that service layer over the plan API (`weather/program.py`):
   round, `ckpt_every_rounds` checkpoints at round boundaries, and plan
   compilation goes through `program.compile_with_fallback` (native, then
   the op's reference plan; on the card only for an injected fault, so a
-  real compile error propagates), counted in `stats()`. Every path is driven by
-  `testing.faults.FaultInjector`.
+  real compile error propagates), counted in `stats()`.
 
-Differences from the JAX package: one device (`mesh=` raises; the sharded
-lanes, mesh failover and elastic restore are ROADMAP queue 1, item 6b,
-though `program.compile(mesh=)` runs mesh rounds), so there is no
-failover and the compile chain has no interpreter stage; when retries run
-out a lane fails, as the JAX package's does on its interpreter. A
-retiring slot is zeroed at once (the JAX package leaves its last state to
-step along idle, and its next round's fingerprint check then counts a
-divergence and scrubs it), so a fault-free drain scrubs nothing.
+* **Mesh failover.** When a round's retries run out on a mesh and a
+  device is identifiably lost — named by the error (`lost_device`, a
+  logical id of `launch.mesh.Mesh.ids`) or found dead by a probe of each
+  logical device — the engine gathers every lane's pre-round batch (the
+  last round boundary: a round writes new tensors, never its input),
+  walks `domain.failover_meshes` over the survivors best first until
+  every lane's plan compiles with its pinned round strategy, reshards and
+  re-runs the interrupted round; `stats()` records `mesh_failovers`,
+  `recovery_rounds`, `requests_preserved` and each failover. It moves
+  work only to surviving devices of the mesh's kind, never to the CPU. A
+  round that fails for any other reason fails its lane.
+
+Every path is driven by `testing.faults.FaultInjector`.
+
+Differences from the JAX package: the compile chain has no interpreter
+stage, so when retries run out (and no failover applies) a lane fails,
+as the JAX package's does on its interpreter. A retiring slot is zeroed
+at once (the JAX package leaves its last state to step along idle, and
+its next round's fingerprint check then counts a divergence and scrubs
+it), so a fault-free drain scrubs nothing. A mesh's devices are named by
+logical ids (several shards may share one card), and the probe's tiny
+transfer, add and readback go to each logical device. The port's mesh
+rounds are bit for bit the single-device plan's at the same round
+strategy (the same kernels on the same inputs at every point), so a
+failover that collapses a sharded axis keeps results bit for bit where
+the JAX package's does not. On the CPU in bf16 a mesh round sums w in the
+storage dtype and the single-device plan in fp32, so there results keep
+the original mesh's bits, not the single-device plan's.
 """
 
 from __future__ import annotations
@@ -76,6 +108,8 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.launch.mesh import Mesh
+from repro_torch.weather import domain as _domain
 from repro_torch.weather import fields as _fields
 from repro_torch.weather import program as _wprog
 from repro_torch.weather.fields import WeatherState, dtype_name
@@ -178,11 +212,13 @@ class _Lane:
     """One plan's batch: all slots share the lane's compiled plan."""
 
     key: _wprog.StencilProgram                  # canonical, ensemble=slots
-    batch: WeatherState                         # (slots, nz, ny, nx) leaves
+    # (slots, nz, ny, nx) leaves; on a mesh a domain.ShardedState
+    batch: Any
     slots: List[Optional[_Slot]]
     # Per-slot content digests recorded at round boundaries (slot index ->
-    # uint32 as int). Entries are dropped whenever a slot's bits
-    # legitimately get new content (admit, scrub, retire).
+    # uint32 as int). Sharding-invariant, so they survive a failover
+    # reshard and keep guarding across it. Entries are dropped whenever a
+    # slot's bits legitimately get new content (admit, scrub, retire).
     fps: Dict[int, int] = dataclasses.field(default_factory=dict)
 
 
@@ -216,15 +252,20 @@ class ForecastEngine:
     admits + advances every busy lane one round, `drain()` pumps until
     idle and returns `{rid: ForecastResult}`. `checkpoint()` /
     `ForecastEngine.restore()` persist and resume the warm engine. Runs on
-    the card unless `device="cpu"` (the kernels' plain versions)."""
+    the card unless `device="cpu"` (the kernels' plain versions); with
+    `mesh=`, on the mesh's devices (a `device` of another kind raises),
+    sharded over `ax_e` / `ax_y` / `ax_x`, failing over to survivors on a
+    persistent device loss unless `failover=False`."""
 
-    def __init__(self, slots: int = 4, mesh=None, device="cuda",
+    def __init__(self, slots: int = 4, mesh: Optional[Mesh] = None,
+                 device=None, ax_e: Optional[str] = "pod",
+                 ax_y: str = "data", ax_x: str = "model",
                  ckpt_dir: Optional[str] = None, ckpt_keep: int = 3,
                  max_queue: Optional[int] = None, guard: bool = True,
                  guard_limit: float = 1e6,
                  ckpt_every_rounds: Optional[int] = None,
                  max_round_retries: int = 2, retry_backoff_s: float = 0.05,
-                 fault_injector=None,
+                 fault_injector=None, failover: bool = True,
                  round_deadline_s: Optional[float] = None):
         if slots < 1:
             raise ValueError(f"slots={slots} must be >= 1")
@@ -232,18 +273,23 @@ class ForecastEngine:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None "
                              f"for unbounded)")
         if mesh is not None:
-            # compile(mesh=) runs mesh rounds; the engine's sharded lanes,
-            # its mesh failover and elastic restore are not ported yet
-            raise NotImplementedError(
-                "ForecastEngine(mesh=...) (sharded lanes, mesh failover and "
-                "elastic restore) is not ported to PyTorch yet (ROADMAP.md "
-                "queue 1, item 6b)")
-        device = torch.device(device)
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh= wants a launch.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            first = mesh.device_list[0]
+            if device is not None and torch.device(device).type != first.type:
+                raise ValueError(f"device={device!r} but the mesh's devices "
+                                 f"are {first.type}")
+            device = first
+        device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ForecastEngine(device='cuda'): no CUDA "
                                "device is available; pass device='cpu' to "
                                "run the plain PyTorch versions")
         self.slots = slots
+        self.mesh = mesh
+        self.mesh_axes = (ax_e, ax_y, ax_x)
+        self.failover = failover
         self.device = device
         self.ckpt_dir = ckpt_dir
         self.ckpt_keep = ckpt_keep
@@ -264,6 +310,7 @@ class ForecastEngine:
         # canonical round sequence is fixed when its plan first compiles,
         # and a restore re-pins it.
         self._pinned: Dict[_wprog.StencilProgram, Dict[str, Any]] = {}
+        self._failovers: List[Dict[str, Any]] = []
         self._results: Dict[int, ForecastResult] = {}
         self._next_rid = 0
         self._ckpt_step = 0
@@ -337,9 +384,10 @@ class ForecastEngine:
         return dict(self._results)
 
     def stats(self) -> Dict[str, Any]:
-        """Service counters under the JAX package's keys (plan-cache hit
-        rate, mean occupancy, rounds, supervision counters; one device:
-        `mesh_devices` None, `failovers` [])."""
+        """Service counters under the JAX package's keys: plan-cache hit
+        rate, mean occupancy, rounds, supervision counters, each mesh
+        failover (`failovers`) and the mesh's logical device ids
+        (`mesh_devices`, None on one device)."""
         s = dict(self._stats)
         lookups = s["plan_cache_hits"] + s["plan_cache_misses"]
         s["plan_cache_hit_rate"] = (
@@ -356,11 +404,19 @@ class ForecastEngine:
                            if r.status == "expired")
         s["plan_fallbacks"] = {k.op: v["stage"]
                                for k, v in self._fallbacks.items()}
-        s["failovers"] = []             # one device: no mesh failover
-        s["mesh_devices"] = None
+        s["failovers"] = [dict(f) for f in self._failovers]
+        s["mesh_devices"] = self._device_ids()
         return s
 
     # -- scheduling ---------------------------------------------------------
+    def _where(self) -> Dict[str, Any]:
+        """`compile`'s placement arguments: the device, or the mesh and its
+        axes."""
+        if self.mesh is None:
+            return {"device": self.device}
+        ax_e, ax_y, ax_x = self.mesh_axes
+        return {"mesh": self.mesh, "ax_e": ax_e, "ax_y": ax_y, "ax_x": ax_x}
+
     def _plan_for(self, key: _wprog.StencilProgram) -> _wprog.ExecutionPlan:
         plan = self._plans.get(key)
         if plan is None:
@@ -368,21 +424,21 @@ class ForecastEngine:
             prog = key
             pinned = self._pinned.get(key)
             if pinned is not None:
-                # Recompiling an already-served program (a restore): pin
-                # the FIRST resolution's round strategy so in-flight
-                # canonical round sequences stay intact; if it no longer
-                # compiles, re-resolve and count it.
+                # Recompiling an already-served program (a failover or an
+                # elastic restore): pin the FIRST resolution's round
+                # strategy so in-flight canonical round sequences stay
+                # intact; if it cannot compile here, re-resolve and count it.
                 prog = dataclasses.replace(key, variant=pinned["variant"],
                                            k_steps=pinned["k_steps"])
                 try:
-                    _wprog.compile(prog, device=self.device)
+                    _wprog.compile(prog, **self._where())
                 except Exception:  # noqa: BLE001 — planner rejection
                     self._stats["plan_repins"] += 1
                     prog = key
             # Through the module, so a spy on
             # repro_torch.weather.program.compile sees every compile.
             plan, fallback, errors = _wprog.compile_with_fallback(
-                prog, device=self.device,
+                prog, **self._where(),
                 attempt_hook=inj.on_compile if inj is not None else None)
             if fallback is not None:
                 self._stats["fallback_compiles"] += 1
@@ -392,16 +448,21 @@ class ForecastEngine:
                 key, {"variant": plan.variant, "k_steps": plan.k_steps})
         return plan
 
-    def _zeros(self, key: _wprog.StencilProgram,
-               ensemble: int) -> WeatherState:
-        return _fields.zeros_state(key.grid_shape, ensemble=ensemble,
+    def _zeros(self, key: _wprog.StencilProgram):
+        """A zero lane batch: on the device, or made on each shard of the
+        mesh by the plan's `state_spec`."""
+        if self.mesh is not None:
+            return _domain.zeros_sharded(
+                key.grid_shape, self.slots, key.dtype, key.fields, self.mesh,
+                self._plan_for(key).state_spec)
+        return _fields.zeros_state(key.grid_shape, ensemble=self.slots,
                                    dtype=key.dtype, names=key.fields,
                                    device=self.device)
 
     def _lane_for(self, key: _wprog.StencilProgram) -> _Lane:
         lane = self._lanes.get(key)
         if lane is None:
-            lane = _Lane(key=key, batch=self._zeros(key, self.slots),
+            lane = _Lane(key=key, batch=self._zeros(key),
                          slots=[None] * self.slots)
             self._lanes[key] = lane
         return lane
@@ -409,7 +470,8 @@ class ForecastEngine:
     def _admit(self) -> None:
         """FIFO admission: fill free slots per lane; a lane with no free
         slot does not block requests bound for other lanes. Each admitted
-        request is one in-place copy into its slot."""
+        request is one in-place copy into its slot (on a mesh, of each
+        shard's block into that shard's lane)."""
         now = time.perf_counter()
         waves: Dict[_wprog.StencilProgram,
                     List[Tuple[int, _Pending]]] = {}
@@ -486,13 +548,15 @@ class ForecastEngine:
         kk = min(parts.values())
         participants = [i for i, p in parts.items() if p == kk]
         rnd = self._stats["rounds"]
-        # the step writes new tensors and never its input, so `prev` keeps
-        # the pre-round bits for the in-place rollback
+        # the step (on a mesh, every shard's) writes new tensors and never
+        # its input, so `prev` keeps the pre-round bits for the in-place
+        # rollback, and a failed round leaves the batch at the last round
+        # boundary (the failover's pivot)
         prev = lane.batch if len(participants) < len(parts) else None
         new_batch = self._step_with_retry(lane, plan, kk, rnd)
         if new_batch is None:                    # escalation exhausted
-            # one device: no mesh to fail over to (item 6b), so the lane
-            # fails, as the JAX package's does without a mesh
+            if self._try_failover(lane, rnd):
+                return          # the round re-ran on the rebuilt mesh
             self._fail_lane(lane, rnd)
             return
         lane.batch = new_batch
@@ -511,7 +575,7 @@ class ForecastEngine:
                              if i not in set(participants))
             lane.batch = inj.poison(lane.batch, lane.key.op, rnd,
                                     tuple(parts), nonparticipants=nonparts,
-                                    shards=(1, 1))
+                                    shards=plan.shards)
         bad = (self._guard_check(lane, parts, participants, rnd)
                if self.guard else {})
         for i, (diag, state) in bad.items():
@@ -531,15 +595,18 @@ class ForecastEngine:
                 self._expire_slot(lane, i, now)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = ([self.device] if self.mesh is None
+                   else self.mesh.device_list)
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _step_with_retry(self, lane: _Lane, plan, kk: int, rnd: int):
         """Run one round, retrying failures with exponential backoff.
         Returns the new batch, or None once `max_round_retries` retries
         failed (the port has no interpreter to degrade to; the caller fails
-        the lane). With `round_deadline_s` set, an attempt whose wall clock
-        exceeds it counts as a failed attempt."""
+        over or fails the lane). With `round_deadline_s` set, an attempt
+        whose wall clock exceeds it counts as a failed attempt."""
         inj = self.fault_injector
         delay = self.retry_backoff_s
         last = None
@@ -548,7 +615,7 @@ class ForecastEngine:
                 t0 = time.perf_counter()
                 if inj is not None:
                     inj.on_round(lane.key.op, rnd,
-                                 device_ids=None)   # no mesh
+                                 device_ids=self._device_ids())
                 out = plan.round_plan(kk).step(lane.batch)
                 if (self.guard or inj is not None
                         or self.round_deadline_s is not None):
@@ -571,19 +638,21 @@ class ForecastEngine:
                     time.sleep(delay)
                     delay *= 2
         self._last_round_error = repr(last)
+        self._last_round_exc = last
         return None
 
     def _fail_lane(self, lane: _Lane, rnd: int) -> None:
-        """A round failed beyond retry: fail ONLY this lane's in-flight
-        requests (each with a diagnosis and its pre-round state) and reset
-        the lane, so the rest of the engine keeps serving."""
+        """A round failed beyond retry (and failover): fail ONLY this
+        lane's in-flight requests (each with a diagnosis and its pre-round
+        state) and reset the lane (re-zeroed, on a mesh resharded), so the
+        rest of the engine keeps serving."""
         self._stats["lane_failures"] += 1
         err = getattr(self, "_last_round_error", "unknown")
         for i, slot in enumerate(lane.slots):
             if slot is None:
                 continue
             lane.slots[i] = None
-            state = _host(_wprog.ensemble_slot_view(lane.batch, i))
+            state = self._slot_host(lane, i)
             self._finish(slot.rid,
                          dataclasses.replace(lane.key, ensemble=1), state,
                          steps=slot.steps, admit_t=slot.admit_t,
@@ -592,17 +661,108 @@ class ForecastEngine:
                          steps_done=slot.steps - slot.remaining,
                          diagnosis={"reason": "round_failure", "round": rnd,
                                     "error": err})
-        lane.batch = self._zeros(lane.key, self.slots)
+        lane.batch = self._zeros(lane.key)
         lane.fps.clear()
+
+    # -- mesh failover ------------------------------------------------------
+    def _device_ids(self) -> Optional[List[int]]:
+        """The mesh's logical device ids (None on one device)."""
+        return None if self.mesh is None else list(self.mesh.ids)
+
+    @staticmethod
+    def _probe_devices(devices) -> List[Tuple[int, torch.device]]:
+        """The `(id, device)` pairs among `devices` that still answer a
+        tiny transfer, add and readback (the failure-agnostic way to find
+        survivors when the round's error named no device)."""
+        alive = []
+        for i, dev in devices:
+            try:
+                float((torch.zeros((), device=dev) + 1).cpu())
+                alive.append((i, dev))
+            except Exception:  # noqa: BLE001 — that IS the probe's result
+                pass
+        return alive
+
+    def _try_failover(self, lane: _Lane, rnd: int) -> bool:
+        """Past retry: rebuild the mesh from the surviving devices and
+        resume EVERY in-flight request from the last round boundary.
+        Returns True when the interrupted round re-ran on the new mesh,
+        False when failover is off, no device is identifiably lost, or no
+        surviving shape carries the lanes (the caller then fails the lane).
+
+        The lost device is the round error's `lost_device`, else what a
+        probe of each logical device finds dead. Every lane's pre-round
+        batch is gathered (the pivot: nothing was credited and the round
+        wrote nothing into it); `domain.failover_meshes` over the
+        survivors, of the mesh's own kind, is walked best first until every
+        lane's plan compiles (with its pinned round strategy); the lanes are
+        resharded and the round re-runs. Digests are sharding-invariant and
+        keep guarding across the change."""
+        if not self.failover or self.mesh is None:
+            return False
+        ids, devs = list(self.mesh.ids), self.mesh.device_list
+        lost = getattr(getattr(self, "_last_round_exc", None),
+                       "lost_device", None)
+        if lost is not None:
+            survivors = [(i, d) for i, d in zip(ids, devs) if i != int(lost)]
+        else:
+            survivors = self._probe_devices(zip(ids, devs))
+        if not survivors or len(survivors) == len(devs):
+            return False        # nothing identifiably lost: not a mesh fault
+        t0 = time.perf_counter()
+        host = {key: _domain.gather_state(ln.batch)
+                for key, ln in self._lanes.items()}
+        old = (self.mesh, self._plans, self._fallbacks)
+        like = (self._plans[lane.key].shards if lane.key in self._plans
+                else None)
+        _, ax_y, ax_x = self.mesh_axes
+        grids = [ln.key.grid_shape for ln in self._lanes.values()]
+        chosen = None
+        for mesh2 in _domain.failover_meshes(
+                [d for _, d in survivors], grids, axes=(ax_y, ax_x),
+                like=like, ids=[i for i, _ in survivors]):
+            self.mesh, self._plans, self._fallbacks = mesh2, {}, {}
+            try:
+                for key in self._lanes:
+                    self._plan_for(key)
+                chosen = mesh2
+                break
+            except Exception:  # noqa: BLE001 — try the next shape
+                continue
+        if chosen is None:
+            self.mesh, self._plans, self._fallbacks = old
+            return False
+        for key, ln in self._lanes.items():
+            ln.batch = _domain.shard_state(host[key], self.mesh,
+                                           self._plan_for(key).state_spec)
+        self._sync()
+        active = sum(sum(s is not None for s in ln.slots)
+                     for ln in self._lanes.values())
+        self._stats["mesh_failovers"] += 1
+        self._stats["recovery_rounds"] += 1
+        self._stats["requests_preserved"] += active
+        self._failovers.append({
+            "round": rnd,
+            "lost_device": None if lost is None else int(lost),
+            "from_devices": list(ids),
+            "to_devices": list(self.mesh.ids),
+            "from_shape": None if like is None else list(like),
+            "to_shape": list(self._plan_for(lane.key).shards),
+            "reshard_ms": (time.perf_counter() - t0) * 1e3,
+            "requests_preserved": active,
+        })
+        self._round(lane)       # re-run the interrupted round
+        return True
 
     # -- validity guard / quarantine ---------------------------------------
     def _guard_check(self, lane: _Lane, parts: Dict[int, int],
                      participants: List[int],
                      rnd: int) -> Dict[int, Tuple[Dict[str, Any],
                                                   WeatherState]]:
-        """The per-slot supervision pass: ONE launch over the lane batch
-        at the round boundary giving each slot a validity bit and a content
-        digest (`program.slot_guard`). Active invalid slots are diagnosed
+        """The per-slot supervision pass over the lane batch at the round
+        boundary (`program.slot_guard`: one launch; on a mesh a partial
+        launch a distinct block and one combine) giving each slot a
+        validity bit and a content digest. Active invalid slots are diagnosed
         (host readback of that slot); idle slots that rot are scrubbed to
         zeros. Slots that did NOT advance this round — rolled back or idle
         — must keep their digest bit for bit; a divergent in-flight slot
@@ -640,7 +800,7 @@ class ForecastEngine:
 
     def _diagnose_fp(self, lane: _Lane, i: int, rnd: int, want: int,
                      got: int) -> Tuple[Dict[str, Any], WeatherState]:
-        state = _host(_wprog.ensemble_slot_view(lane.batch, i))
+        state = self._slot_host(lane, i)
         diag = {"reason": "fingerprint_divergence", "round": rnd,
                 "expected_fp": want, "observed_fp": got,
                 "note": "slot did not advance this round but its bits "
@@ -653,7 +813,7 @@ class ForecastEngine:
                   rnd: int) -> Tuple[Dict[str, Any], WeatherState]:
         """Host-side diagnosis of one invalid slot (the slow path: it only
         runs on quarantine): per-leaf NaN/Inf/out-of-bounds counts."""
-        state = _host(_wprog.ensemble_slot_view(lane.batch, i))
+        state = self._slot_host(lane, i)
         leaves = {}
         for name, a in sorted(state.fields.items()):
             leaves[f"fields/{name}"] = a
@@ -694,16 +854,29 @@ class ForecastEngine:
 
     def _scrub(self, lane: _Lane, i: int) -> None:
         """Zero slot `i` in place (zeros are a fixed point of the
-        stencils)."""
-        _wprog.map_state(_wprog.ensemble_slot_view(lane.batch, i),
-                         lambda t: t.zero_())
+        stencils); on a mesh, in every shard that holds it."""
+        zero = lambda t: t.zero_()
+        if isinstance(lane.batch, _domain.ShardedState):
+            for s, local in _domain.slot_shards(lane.batch, i):
+                _wprog.map_state(_wprog.ensemble_slot_view(
+                    lane.batch.shards[s], local), zero)
+        else:
+            _wprog.map_state(_wprog.ensemble_slot_view(lane.batch, i), zero)
         lane.fps.pop(i, None)   # the slot's bits were legitimately replaced
+
+    @staticmethod
+    def _slot_host(lane: _Lane, i: int) -> WeatherState:
+        """Slot `i` of the lane as CPU tensors sharing nothing with it (on
+        a mesh, gathered from the shards that hold it)."""
+        if isinstance(lane.batch, _domain.ShardedState):
+            return _wprog.ensemble_slot_view(lane.batch, i)
+        return _host(_wprog.ensemble_slot_view(lane.batch, i))
 
     def _expire_slot(self, lane: _Lane, i: int, now: float) -> None:
         slot = lane.slots[i]
         lane.slots[i] = None
         self._stats["deadline_expired"] += 1
-        state = _host(_wprog.ensemble_slot_view(lane.batch, i))
+        state = self._slot_host(lane, i)
         self._scrub(lane, i)
         self._finish(slot.rid, dataclasses.replace(lane.key, ensemble=1),
                      state, steps=slot.steps, admit_t=slot.admit_t,
@@ -719,7 +892,7 @@ class ForecastEngine:
         slot = lane.slots[i]
         lane.slots[i] = None
         # Read back exactly this slot; waiting here IS the finish time.
-        state = _host(_wprog.ensemble_slot_view(lane.batch, i))
+        state = self._slot_host(lane, i)
         # then zero it, so an idle slot holds the fixed point its digest
         # check expects (not counted as a scrub)
         self._scrub(lane, i)
@@ -756,7 +929,11 @@ class ForecastEngine:
         now = time.perf_counter()
         lanes = list(self._lanes.values())
         tree = {
-            "lanes": [lane.batch for lane in lanes],
+            # a sharded lane is persisted whole (unsharded-logical), so a
+            # checkpoint restores onto any device or mesh
+            "lanes": [_domain.gather_state(lane.batch)
+                      if isinstance(lane.batch, _domain.ShardedState)
+                      else lane.batch for lane in lanes],
             "queue": [p.request.state for p in self._queue],
             "results": {str(rid): r.state
                         for rid, r in self._results.items()},
@@ -766,7 +943,7 @@ class ForecastEngine:
             "next_rid": self._next_rid,
             "ckpt_step": self._ckpt_step,
             "stats": {k: v for k, v in self._stats.items()},
-            "mesh_devices": None,
+            "mesh_devices": None if self.mesh is None else self.mesh.size,
             "config": {
                 "max_queue": self.max_queue, "guard": self.guard,
                 "guard_limit": self.guard_limit,
@@ -808,20 +985,25 @@ class ForecastEngine:
 
     @classmethod
     def restore(cls, ckpt_dir: str, step: Optional[int] = None, *,
-                mesh=None, device="cuda", ckpt_keep: int = 3,
+                mesh: Optional[Mesh] = None, device=None,
+                ax_e: Optional[str] = "pod", ax_y: str = "data",
+                ax_x: str = "model", ckpt_keep: int = 3,
                 fault_injector=None) -> "ForecastEngine":
-        """Resume a checkpointed engine (either package's) on `device`.
+        """Resume a checkpointed engine (either package's, written on any
+        device or mesh) on `device`, or on `mesh` over `ax_*`.
 
         In-flight forecasts continue from their persisted round boundary,
         queued requests stay queued, finished results are preserved; plans
         recompile through the plan cache with the persisted (variant,
-        k_steps) pin; the supervision config comes from the checkpoint.
+        k_steps) pin, and on a mesh each lane is resharded through its new
+        plan's `state_spec` (the pin seeded first); the supervision config
+        comes from the checkpoint.
         With `step=None` the newest checkpoint is used; when it is corrupt
         (`ckpt.CheckpointCorruptError`), restore falls back to the
         next-older valid one, and raises an aggregated error only when
         every retained checkpoint is unreadable."""
-        kw = dict(mesh=mesh, device=device, ckpt_keep=ckpt_keep,
-                  fault_injector=fault_injector)
+        kw = dict(mesh=mesh, device=device, ax_e=ax_e, ax_y=ax_y, ax_x=ax_x,
+                  ckpt_keep=ckpt_keep, fault_injector=fault_injector)
         if step is not None:
             return cls._restore_step(ckpt_dir, step, **kw)
         steps = sorted(ckpt.all_steps(ckpt_dir), reverse=True)
@@ -838,8 +1020,9 @@ class ForecastEngine:
             + "; ".join(f"step {s}: {e}" for s, e in failures))
 
     @classmethod
-    def _restore_step(cls, ckpt_dir: str, step: int, *, mesh, device,
-                      ckpt_keep: int, fault_injector) -> "ForecastEngine":
+    def _restore_step(cls, ckpt_dir: str, step: int, *, mesh, device, ax_e,
+                      ax_y, ax_x, ckpt_keep: int,
+                      fault_injector) -> "ForecastEngine":
         def prog_of(d):
             return _wprog.StencilProgram.from_json(d)
 
@@ -871,7 +1054,8 @@ class ForecastEngine:
         tree, _ = ckpt.restore_tree(ckpt_dir, step, tmpl, device="cpu")
 
         cfg = extra.get("config", {})
-        eng = cls(slots=slots, mesh=mesh, device=device, ckpt_dir=ckpt_dir,
+        eng = cls(slots=slots, mesh=mesh, device=device, ax_e=ax_e,
+                  ax_y=ax_y, ax_x=ax_x, ckpt_dir=ckpt_dir,
                   ckpt_keep=ckpt_keep,
                   max_queue=cfg.get("max_queue"),
                   guard=cfg.get("guard", True),
@@ -892,8 +1076,13 @@ class ForecastEngine:
             if pin is not None:
                 # seed the round-strategy pin BEFORE the first compile
                 eng._pinned[key] = dict(pin)
+            if mesh is not None:
+                batch = _domain.shard_state(batch, mesh,
+                                            eng._plan_for(key).state_spec)
+            else:
+                batch = _stage(batch, eng.device)
             eng._lanes[key] = _Lane(
-                key=key, batch=_stage(batch, eng.device),
+                key=key, batch=batch,
                 slots=[None if s is None else _Slot(
                     rid=s["rid"], remaining=s["remaining"],
                     steps=s["steps"], rounds=s["rounds"],

@@ -20,11 +20,17 @@ into which slot:
 * ``device_loss``: raise `InjectedDeviceLoss` when a chosen round starts —
   a transient runtime failure the engine must retry with backoff. A
   per-device loss (`device=<id>`) fires only while that device is in the
-  `device_ids` the engine reports, which is None without a mesh: on one
-  device it never fires, as in the JAX package.
+  `device_ids` the engine reports (a mesh's logical ids,
+  `launch.mesh.Mesh.ids`), which is None without a mesh: on one device it
+  never fires, as in the JAX package.
 * ``wire_corrupt``: finite, in-bounds garbage in one slot's rows of one
   shard's slab (on one device: the slab is the whole grid) — only the
   per-slot fingerprint (`program.slot_guard`) catches it.
+
+Poison and wire corruption act in place on a lane's batch, a
+`WeatherState` or a sharded lane's `domain.ShardedState`: the positions are
+drawn over the whole grid as the JAX package draws them, and each shard
+holding the slot takes those inside its block.
 * ``straggler``: sleep `delay_s` seconds as the round starts; the engine's
   round deadline (`round_deadline_s`) must notice.
 
@@ -43,7 +49,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.weather.fields import state_leaves
+from repro_torch.weather.domain import (ShardedState, block_offsets,
+                                        slot_shards)
+from repro_torch.weather.fields import WeatherState, state_leaves
 
 __all__ = ["FaultSpec", "FaultInjector", "InjectedFault",
            "InjectedCompileError", "InjectedDeviceLoss", "truncate_file",
@@ -241,45 +249,83 @@ class FaultInjector:
         """Finite, in-bounds damage to one slot's rows inside ONE shard's
         slab, in place: a seeded handful of elements of the slab's first
         rows gets +1.0 — invisible to the NaN/Inf/magnitude validity guard,
-        visible to the fingerprint."""
+        visible to the fingerprint. The positions are the JAX package's (its
+        draw over the whole state); on a sharded lane they land in every
+        x-shard of y-block `shard` (and its copies)."""
         py = max(1, int(shards[0]))
-        name = field if field is not None else sorted(batch.fields)[0]
-        leaf = batch.fields[name]
-        ny = int(leaf.shape[2])
+        name = field if field is not None else \
+            sorted(_first(batch).fields)[0]
+        nz, ny, nx = _grid(batch)
         ly = max(1, ny // py)
         lo = min(int(shard), py - 1) * ly
-        rows = slice(lo, lo + max(1, min(2, ly)))
-        band = leaf[slot][:, rows, :]            # (nz, rows, nx), a view
-        n = max(1, band.numel() // 16)
-        idx = self.rng.choice(band.numel(), size=n, replace=False)
-        at = _positions(idx, band)
-        band[at] = band[at] + torch.ones((), dtype=leaf.dtype,
-                                         device=leaf.device)
+        rows = max(1, min(2, ly))
+        n = max(1, nz * rows * nx // 16)
+        idx = self.rng.choice(nz * rows * nx, size=n, replace=False)
+        z, r, x = np.unravel_index(idx, (nz, rows, nx))
+
+        def bump(t, at):
+            t[at] = t[at] + torch.ones((), dtype=t.dtype, device=t.device)
+        _update(batch, lambda st: st.fields[name], slot, (z, lo + r, x),
+                bump)
         return batch
 
     def _poison_slot(self, batch, slot: int, field: Optional[str],
                      val: float):
         """Overwrite a seeded handful of elements of `slot` with `val`, in
         place, leaf by leaf in the JAX package's leaf order (`field`: that
-        field only)."""
-        def bad(leaf):
-            e = leaf[slot]                       # a view of the slot
-            n = max(1, e.numel() // 8)
-            idx = self.rng.choice(e.numel(), size=n, replace=False)
-            e[_positions(idx, e)] = val
+        field only); on a sharded lane in the shards that hold them."""
+        grid = _grid(batch)
+        size = int(np.prod(grid))
+        n = max(1, size // 8)
+        if field is not None:
+            pickers = [lambda st: st.fields[field]]
+        else:
+            pickers = [lambda st, k=k: state_leaves(st)[k]
+                       for k in range(len(state_leaves(_first(batch))))]
 
-        for leaf in (state_leaves(batch) if field is None
-                     else [batch.fields[field]]):
-            bad(leaf)
+        def put(t, at):
+            t[at] = val
+        for leaf_of in pickers:
+            idx = self.rng.choice(size, size=n, replace=False)
+            _update(batch, leaf_of, slot, np.unravel_index(idx, grid), put)
         return batch
 
 
-def _positions(idx: np.ndarray, t: torch.Tensor):
-    """The flat (C-order) indices `idx` of `t` as an index tuple on its
-    device: writes through it land in `t`'s storage, whatever its
-    strides."""
-    return tuple(torch.as_tensor(p, device=t.device)
-                 for p in np.unravel_index(idx, tuple(t.shape)))
+def _first(batch) -> WeatherState:
+    return batch.shards[0] if isinstance(batch, ShardedState) else batch
+
+
+def _grid(batch):
+    if isinstance(batch, ShardedState):
+        return tuple(batch.grid_shape)
+    return tuple(batch.wcon.shape[1:])
+
+
+def _update(batch, leaf_of, slot: int, pos, update) -> None:
+    """`update(slot_view, index)` at the whole-grid positions `pos`
+    ((z, y, x) numpy arrays) of slot `slot` of the leaf `leaf_of(state)`,
+    in place: on a `domain.ShardedState` in every shard holding the slot,
+    each at the positions inside its block."""
+    z, y, x = (np.asarray(a) for a in pos)
+    if not isinstance(batch, ShardedState):
+        t = leaf_of(batch)[slot]                 # a view of the slot
+        update(t, _index(t, (z, y, x)))
+        return
+    offsets = block_offsets(batch)
+    for s, local in slot_shards(batch, slot):
+        _, y0, x0 = offsets[s]
+        t = leaf_of(batch.shards[s])[local]
+        ly, lx = t.shape[-2:]
+        inside = (y >= y0) & (y < y0 + ly) & (x >= x0) & (x < x0 + lx)
+        if inside.any():
+            update(t, _index(t, (z[inside], y[inside] - y0,
+                                 x[inside] - x0)))
+
+
+def _index(t: torch.Tensor, pos):
+    """Index arrays `pos` as an index tuple on `t`'s device: writes
+    through it land in `t`'s storage, whatever its strides."""
+    return tuple(torch.as_tensor(p, device=t.device) for p in pos)
 
 
 # ---------------------------------------------------------------------------

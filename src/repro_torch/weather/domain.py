@@ -31,7 +31,10 @@ tells its host time and device kernels from the round's others.
 * `_local_hdiff` / `_local_vadvc` — the unfused oracle's exchanged plain
   stencils;
 * `ShardedState`, `shard_state`, `gather_state` — a state placed on a mesh
-  and brought back;
+  and brought back; `block_offsets`, `distinct_shards`, `slot_shards` —
+  where a shard's block sits in the whole state, which shards hold each
+  block once, and which hold a slot; `zeros_sharded` — an all-zero state
+  made on the shards' devices;
 * `failover_meshes` — the candidate meshes over surviving devices.
 """
 
@@ -46,10 +49,12 @@ from repro_torch.kernels.hdiff import ref as hdiff_ref
 from repro_torch.kernels.vadvc import ref as vadvc_ref
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.weather.dycore import HALO, stack_state
-from repro_torch.weather.fields import WeatherState, field_views, torch_dtype
+from repro_torch.weather.fields import (WeatherState, field_views, torch_dtype,
+                                        zeros_state)
 
 __all__ = ["RIDES", "reset_rides", "ShardedState", "shard_state",
-           "gather_state", "failover_meshes"]
+           "gather_state", "block_offsets", "distinct_shards", "slot_shards",
+           "zeros_sharded", "failover_meshes"]
 
 # Rides of the halo exchange (one per direction a buffer moved, for all
 # shards at once) and the bytes they moved, since the last reset.
@@ -255,6 +260,58 @@ def _blocks(mesh: Mesh, spec, shape) -> List[Tuple[slice, ...]]:
     return out
 
 
+def block_offsets(state: ShardedState) -> List[Tuple[int, int, int]]:
+    """Each shard's `(e0, y0, x0)`: where its block starts in the whole
+    state's ensemble, y and x axes."""
+    shape = (state.ensemble,) + tuple(state.grid_shape)
+    return [tuple(sl[a].start or 0 for a in (0, 2, 3))
+            for sl in _blocks(state.mesh, state.spec, shape)]
+
+
+def distinct_shards(state: ShardedState) -> List[int]:
+    """The shards that hold each block of the state once: along a mesh
+    axis the spec does not name the shards hold copies, and only the first
+    of them is taken."""
+    unnamed = [a for a, name in enumerate(state.mesh.axis_names)
+               if name not in state.spec]
+    return [s for s in range(state.mesh.size)
+            if all(state.mesh.coords(s)[a] == 0 for a in unnamed)]
+
+
+def slot_shards(state: ShardedState, e: int) -> List[Tuple[int, int]]:
+    """`(shard, local slot)` of every shard holding slot `e` of the whole
+    ensemble (copies included)."""
+    if not 0 <= e < state.ensemble:
+        raise IndexError(f"slot {e} of an ensemble of {state.ensemble}")
+    out = []
+    for s, (e0, _, _) in enumerate(block_offsets(state)):
+        local = e - e0
+        if 0 <= local < int(state.shards[s].wcon.shape[0]):
+            out.append((s, local))
+    return out
+
+
+def zeros_sharded(grid_shape: Tuple[int, int, int], ensemble: int, dtype,
+                  names: Tuple[str, ...], mesh: Mesh, spec) -> ShardedState:
+    """An all-zero state placed on `mesh` by `spec`, each shard's block
+    made on its device (`shard_state` of `fields.zeros_state`, without the
+    whole state on the host)."""
+    spec = tuple(spec)
+    shape = (ensemble,) + tuple(grid_shape)
+    for extent, ax in zip(shape, spec):
+        if extent % mesh.axis_size(ax):
+            raise ValueError(f"a state axis of {extent} does not divide "
+                             f"over the {mesh.axis_size(ax)} shards of mesh "
+                             f"axis {ax!r}")
+    shards = []
+    for sl, dev in zip(_blocks(mesh, spec, shape), mesh.device_list):
+        local = [len(range(*s.indices(n))) for s, n in zip(sl, shape)]
+        shards.append(zeros_state(tuple(local[1:]), ensemble=local[0],
+                                  dtype=dtype, names=names, device=dev))
+    return ShardedState(mesh=mesh, spec=spec, shards=tuple(shards),
+                        grid_shape=tuple(grid_shape), ensemble=ensemble)
+
+
 def _copy_to(a: torch.Tensor, device) -> torch.Tensor:
     """A contiguous copy of `a` on `device`."""
     out = torch.empty(a.shape, dtype=a.dtype, device=device)
@@ -300,43 +357,61 @@ def shard_state(state, mesh: Mesh, spec) -> ShardedState:
                         grid_shape=tuple(shape[-3:]), ensemble=shape[0])
 
 
-def gather_state(state) -> WeatherState:
+def gather_state(state, slot: Optional[int] = None) -> WeatherState:
     """The whole state as CPU tensors: a `ShardedState`'s shards put back
     together (the reshard pivot: gather on one mesh, `shard_state` on
-    another), or a `WeatherState` copied to the CPU."""
+    another), or a `WeatherState` copied to the CPU. With `slot`, only that
+    ensemble slot, as an ensemble-1 state: each of its blocks is read from
+    one shard that holds it."""
     if isinstance(state, WeatherState):
-        put = lambda d: {k: v.to("cpu", copy=True) for k, v in d.items()}
+        take = (lambda t: t) if slot is None else (
+            lambda t: t[slot:slot + 1])
+        put = lambda d: {k: take(v).to("cpu", copy=True)
+                         for k, v in d.items()}
         return WeatherState(fields=put(state.fields),
-                            wcon=state.wcon.to("cpu", copy=True),
+                            wcon=take(state.wcon).to("cpu", copy=True),
                             tens=put(state.tens),
                             stage_tens=put(state.stage_tens))
     first = state.shards[0]
-    shape = (state.ensemble,) + tuple(state.grid_shape)
-    blocks = _blocks(state.mesh, state.spec, shape)
+    grid = tuple(state.grid_shape)
+    blocks = _blocks(state.mesh, state.spec, (state.ensemble,) + grid)
+    if slot is None:
+        picks = [(s, blocks[s], slice(None)) for s in distinct_shards(state)]
+        shape = (state.ensemble,) + grid
+    else:
+        held = dict(slot_shards(state, slot))
+        picks = [(s, (slice(0, 1),) + blocks[s][1:],
+                  slice(held[s], held[s] + 1))
+                 for s in distinct_shards(state) if s in held]
+        shape = (1,) + grid
     wcon = torch.empty(shape, dtype=first.dtype)
-    for sl, sh in zip(blocks, state.shards):
-        wcon[sl] = sh.wcon.to("cpu")
+    for s, sl, es in picks:
+        wcon[sl] = state.shards[s].wcon[es].to("cpu")
 
     def join(part):
         names = tuple(getattr(first, part))
         out = torch.empty((shape[0], len(names)) + shape[1:],
                           dtype=first.dtype)
-        for sl, sh in zip(blocks, state.shards):
+        for s, sl, es in picks:
+            d = getattr(state.shards[s], part)
             out[(sl[0], slice(None)) + sl[1:]] = stack_state(
-                getattr(sh, part), names).to("cpu")
+                {n: d[n][es] for n in names}, names).to("cpu")
         return field_views(out, names)
     return WeatherState(fields=join("fields"), wcon=wcon, tens=join("tens"),
                         stage_tens=join("stage_tens"))
 
 
-def _mesh_from(devices, shape: Tuple[int, int], axes) -> Mesh:
-    return make_mesh(shape, axes, devices=list(devices))
+def _mesh_from(devices, shape: Tuple[int, int], axes, ids=None) -> Mesh:
+    return make_mesh(shape, axes, devices=list(devices), ids=ids)
 
 
 def failover_meshes(devices, grids: Iterable[Tuple[int, int, int]],
                     axes=("data", "model"),
-                    like: Optional[Tuple[int, int]] = None) -> List[Mesh]:
-    """Candidate meshes over surviving `devices`, best first.
+                    like: Optional[Tuple[int, int]] = None,
+                    ids: Optional[Sequence[int]] = None) -> List[Mesh]:
+    """Candidate meshes over surviving `devices`, best first; each takes
+    the first devices it needs, with their logical `ids` (default: their
+    positions in `devices`).
 
     Every candidate's (py, px) divides every grid in `grids` (ny over py,
     nx over px): one mesh must carry every lane. More devices first; then
@@ -363,5 +438,5 @@ def failover_meshes(devices, grids: Iterable[Tuple[int, int, int]],
             match = ((py > 1) == (like[0] > 1)) + ((px > 1) == (like[1] > 1))
         return (-(py * px), -match, -py)
 
-    return [_mesh_from(devices, pp, axes)
+    return [_mesh_from(devices, pp, axes, ids)
             for pp in sorted(cands, key=score)]

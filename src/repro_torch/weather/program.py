@@ -50,7 +50,9 @@ card it does so only for an injected fault.
 The serving engine's slot helpers sit here too, as in the JAX package:
 `ensemble_slot_view` / `_assign` / `_select` (in place, keeping a lane's
 field-stacked layout) and `slot_guard` / `slot_validity` (one launch of the
-slot-guard kernel on CUDA).
+slot-guard kernel on CUDA), each also on a `domain.ShardedState` (shard by
+shard in place; the guard a partial launch a distinct block and one
+combine, the whole state's digest).
 """
 
 from __future__ import annotations
@@ -233,31 +235,59 @@ def _tensor_pairs(a: WeatherState, b: WeatherState):
     return pairs
 
 
-def ensemble_slot_view(state: WeatherState, e: int) -> WeatherState:
-    """Member `e` of a batched state as an ensemble-1 state of views."""
+def ensemble_slot_view(state, e: int) -> WeatherState:
+    """Member `e` of a batched state as an ensemble-1 state of views; of a
+    `domain.ShardedState`, that slot gathered to the CPU (only its blocks
+    are read, each from one shard)."""
+    if isinstance(state, _domain.ShardedState):
+        return _domain.gather_state(state, slot=e)
     return map_state(state, lambda a: a[e:e + 1])
 
 
-def ensemble_slot_assign(batch: WeatherState, indices,
-                         sub: WeatherState) -> WeatherState:
+def ensemble_slot_assign(batch, indices, sub: WeatherState):
     """Write `sub` (leading dim = len(indices)) into the given ensemble
     slots of `batch`, in place (the JAX package returns a new batch);
-    returns `batch`."""
-    idx = torch.as_tensor(list(indices), dtype=torch.long,
-                          device=batch.device)
+    returns `batch`. On a `domain.ShardedState` each shard holding one of
+    the slots takes its block of `sub` into its own slot."""
+    indices = [int(i) for i in indices]
+    if isinstance(batch, _domain.ShardedState):
+        for (e0, y0, x0), sh in zip(_domain.block_offsets(batch),
+                                    batch.shards):
+            held = int(sh.wcon.shape[0])
+            pick = [(j, e - e0) for j, e in enumerate(indices)
+                    if 0 <= e - e0 < held]
+            if not pick:
+                continue
+            ly, lx = sh.wcon.shape[-2:]
+            rows = [j for j, _ in pick]
+            local = torch.as_tensor([loc for _, loc in pick],
+                                    device=sh.wcon.device)
+            for dst, src in zip(state_leaves(sh), state_leaves(sub)):
+                block = src[..., y0:y0 + ly, x0:x0 + lx].index_select(
+                    0, torch.as_tensor(rows, device=src.device))
+                dst.index_copy_(0, local, block.to(dst.device, dst.dtype))
+        return batch
+    idx = torch.as_tensor(indices, dtype=torch.long, device=batch.device)
     for dst, src in _tensor_pairs(batch, sub):
         dst.index_copy_(0, idx, src.to(dst.device, dst.dtype))
     return batch
 
 
-def ensemble_slot_select(mask, new: WeatherState,
-                         old: WeatherState) -> WeatherState:
+def ensemble_slot_select(mask, new, old):
     """Per-slot select, in place into `new`: slots where `mask` (shape
     (E,)) is True keep `new`, the rest take `old` (the JAX package returns
     a new state) — how a serving engine rolls back slots that sat out a
     shorter-than-their-next-part round. Tensors the two states share (the
-    round did not write them) are left alone. Returns `new`."""
-    keep = [i for i, m in enumerate(torch.as_tensor(mask).tolist()) if not m]
+    round did not write them) are left alone. Two `domain.ShardedState`s
+    on one placement are selected shard by shard, each on its own slots.
+    Returns `new`."""
+    mask = [bool(m) for m in torch.as_tensor(mask).tolist()]
+    if isinstance(new, _domain.ShardedState):
+        for (e0, _, _), n, o in zip(_domain.block_offsets(new), new.shards,
+                                    old.shards):
+            ensemble_slot_select(mask[e0:e0 + int(n.wcon.shape[0])], n, o)
+        return new
+    keep = [i for i, m in enumerate(mask) if not m]
     if not keep:
         return new
     idx = torch.as_tensor(keep, dtype=torch.long, device=new.device)
@@ -268,18 +298,25 @@ def ensemble_slot_select(mask, new: WeatherState,
     return new
 
 
-def slot_guard(state: WeatherState, limit) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def slot_guard(state, limit) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-slot validity and content fingerprint in one pass over the
     state's leaves (in the JAX package's order): `(ok, fp)`, ok an (E,)
     bool — every element finite and `|x| <= limit` — and fp an (E,) int64
     holding the JAX package's uint32 digest of the slot's exact bits. On
     CUDA one launch of the slot-guard kernel (`kernels/slot_guard`), on
-    the CPU its plain version; both give the JAX package's values."""
+    the CPU its plain version; both give the JAX package's values. On a
+    `domain.ShardedState` the digest is the whole state's: one partial pass
+    over each distinct block at its global offset, then one combine (on
+    CUDA: a launch a block and one more)."""
+    if isinstance(state, _domain.ShardedState):
+        offsets = _domain.block_offsets(state)
+        blocks = [(state_leaves(state.shards[s]),) + offsets[s]
+                  for s in _domain.distinct_shards(state)]
+        return _guard_ops.slot_guard_blocks(blocks, state.ensemble, limit)
     return _guard_ops.slot_guard(state_leaves(state), limit)
 
 
-def slot_validity(state: WeatherState, limit) -> torch.Tensor:
+def slot_validity(state, limit) -> torch.Tensor:
     """Per-slot physics validity: `slot_guard`'s (E,) bool."""
     return slot_guard(state, limit)[0]
 

@@ -369,7 +369,7 @@ def test_request_validation_and_zero_steps():
                         steps=1).validate()
     with pytest.raises(ValueError, match="slots"):
         ForecastEngine(slots=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         ForecastEngine(slots=1, mesh=object(), device="cpu")
     eng = ForecastEngine(slots=1, device="cpu")
     rid = eng.submit(ForecastRequest(program=prog, state=st_, steps=0))

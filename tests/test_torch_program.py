@@ -321,13 +321,17 @@ def test_report_structural_keys_match(op, variant):
         (1, 1), ("data", "model"), devices=["cpu"])),
 ])
 def test_unported_options_raise(call):
-    """Meshes run plans (`tests/test_torch_mesh.py`); the forecast engine's
-    sharded lanes are not ported yet and raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(StencilProgram(grid_shape=GRID))
+    """No option of the JAX package is refused any more: meshes run plans
+    (`tests/test_torch_mesh.py`) and the forecast engine
+    (`tests/test_torch_forecast_mesh.py`). A mesh that is not a
+    `launch.mesh.Mesh` raises in both."""
+    eng = call(StencilProgram(grid_shape=GRID))
+    assert eng.stats()["mesh_devices"] == [0]
     with pytest.raises(TypeError, match="Mesh"):
         compile(StencilProgram(grid_shape=GRID), mesh=object(),
                 device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        ForecastEngine(slots=1, mesh=object())
 
 
 @pytest.mark.parametrize("variant", ["whole_state", "unfused"])
