@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --copy-times ROOT
     python3 chip_smoke.py --kernel-times ROOT
+    torchrun --nproc-per-node 4 chip_smoke.py --train-mesh
 
 In order: finds the card and prints its name and power limit; builds the
 CUDA kernels from `src/repro_torch/csrc/` and shows with cuobjdump that the
@@ -111,7 +112,17 @@ persistent loss of logical device 3 failing over (2, 2) -> (2, 1) with
 every request bit-equal, a `wire_corrupt` of a rolled-back slot
 quarantined, a mid-drain checkpoint restored onto one device and onto
 (4, 1) bit-equal, and the steady mesh round, the guard's share, admit,
-retire and the failover's reshard; times every kernel,
+retire and the failover's reshard; then LM training on a device mesh
+(phase 12): a (1, 1) `DeviceMesh` over NCCL (a world of one), on which
+`fit(mesh=)` trains tinyllama-1.1b in full and recurrentgemma-9b at full
+width cut to phase 7's 3 layers for 3 steps with phase 7's seed and
+settings, parameters, optimizer state and batches DTensors placed by the
+rule table, each run bit for bit the same run on one device (losses, grad
+norms, parameters) and phase 7's losses, with phase 7's flash, LRU and
+xent launches a step through the DTensor seams and the step beside the
+one-device step (the DTensor overhead); reduced fp32 mesh steps on the
+card against the CPU; the int8 codec and `compressed_psum` on the card;
+times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -131,6 +142,16 @@ k=2 hdiff plan's `run(state, 5)`, one `op="vadvc"` and one
 sweep (forward and reverse), fp32 and bf16, each output hashed so two
 checkouts' bits can be compared: run parent, change, change, parent in
 one call.
+
+`torchrun --nproc-per-node 4 chip_smoke.py --train-mesh` (four cards,
+one process each, NCCL; `train_mesh_main`) runs the reduced families'
+fp32 steps on (2, 2) and (1, 4) against a one-card step, the codec over a
+2-rank axis, and tinyllama-1.1b and recurrentgemma-9b at full width and
+depth (38 layers) in bf16 at 4 x 2048, remat "full", 3 steps on (2, 2):
+launches a rank, each first loss against a forward-only `model.loss` on
+one card and its first gradient norm against one card's backward, peak
+memory a card, step ms, tokens/s, mfu and rank 0's device
+idle share. It prints no result line.
 """
 
 from __future__ import annotations
@@ -175,6 +196,9 @@ MESH_TOL = {"hdiff": 1e-5, "vadvc": 2e-4, "hadv_upwind": 1e-5,
 # phase 7: a tinyllama step under each remat mode, REMAT_STEPS timed
 REMATS = ("none", "dots", "full")
 REMAT_STEPS = 3
+# phase 12: LM training on a (1, 1) DeviceMesh, each of TRAIN_RUNS for
+# this many steps on the mesh and on one device
+TRAIN_MESH_STEPS = 3
 # the copy's two sizes, as (rows, 256) float32: the paper's domain (16.8 MB,
 # L2-resident) and the main path's field-stacked state (268 MB)
 COPY_SIZES = (("paper domain", GRID[0] * GRID[1]),
@@ -2786,6 +2810,382 @@ def forecast_mesh_phase(torch, dev, check, results, card):
     return mix_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12 and --train-mesh: LM training on a torch.distributed device mesh
+# ---------------------------------------------------------------------------
+
+def train_plan(cfg) -> dict:
+    """The flash, LRU and xent launches of one `remat="full"` training
+    step of a decoder-only `cfg` (phase 7's plan)."""
+    from repro_torch.models import lm
+
+    kinds = lm.layer_kinds(cfg)
+    period = len(cfg.pattern)
+    recomputed = kinds[:cfg.n_repeats * period]
+    attn = [k not in ("rec", "ssd") for k in kinds]
+    return {"flash_attn": sum(attn) + sum(attn[:len(recomputed)]),
+            "lru_scan": 2 * kinds.count("rec") + recomputed.count("rec"),
+            "xent": 1}
+
+
+def mesh_fit(torch, cfg, steps, mesh=None, profile=False):
+    """`fit` over `cfg` at TRAIN_BATCH x TRAIN_SEQ from seed 0 with phase
+    7's optimizer settings, on the card or on `mesh` (every rank alike):
+    (params, history, launches, peak GB, rank 0's profiled extra step or
+    None). The launch counts are reset just before the run and read just
+    after."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    model = api.build(cfg)
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=5,
+                              total_steps=TRAIN_RUNS[0][2])
+    data = synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                              device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    params, opt_state, hist = loop.fit(model, data, steps=steps,
+                                       opt_cfg=opt_cfg, remat="full",
+                                       log_every=0, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in ("flash_attn", "lru_scan",
+                                                 "xent")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = None
+    if profile:              # one more step, profiled on rank 0 only
+        import torch.distributed as dist
+
+        step_fn, _ = loop.make_train_step(model, opt_cfg, remat="full",
+                                          mesh=mesh)
+        batch = next(data)
+        run = lambda: step_fn(params, opt_state, batch)    # noqa: E731
+        if dist.get_rank() == 0:
+            prof = device_breakdown(run)
+        else:
+            run()
+            torch.cuda.synchronize()
+    del opt_state, data
+    return params, hist, launches, peak, prof
+
+
+def mesh_reduced_step(torch, arch, mesh, single_dev):
+    """One fp32 AdamW step of `arch`'s reduced config on `mesh` against
+    the same step on `single_dev` (the CPU, or this rank's card): the
+    largest relative loss / grad-norm error and updated-parameter error."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    cfg = dataclasses.replace(
+        registry.reduced_config(registry.get_config(arch)),
+        dtype="float32", param_dtype="float32")
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic.lm_batch(cfg, 0, 0, 4, 33).items()}
+    params = api.build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    opt_cfg = optim.OptConfig(lr=1e-3)
+    one = api.build(cfg, device=single_dev)
+    p1 = copy.deepcopy(params).to(single_dev)
+    p1, _, m1 = loop.make_train_step(one, opt_cfg, remat="full")(
+        p1, optim.init_opt_state(p1),
+        {k: v.to(single_dev) for k, v in batch.items()})
+    step, _ = loop.make_train_step(api.build(cfg), opt_cfg, remat="full",
+                                   mesh=mesh)
+    p2 = copy.deepcopy(params).cuda()
+    p2, _, m2 = step(p2, optim.init_opt_state(p2),
+                     {k: v.cuda() for k, v in batch.items()})
+    full = [p.full_tensor().detach().cpu() for p in p2.parameters()]
+    err_m = max(abs(float(m2[k]) - float(m1[k])) / abs(float(m1[k]))
+                for k in ("loss", "grad_norm"))
+    err_p = max(float((a.detach().cpu() - b).abs().max())
+                for a, b in zip(p1.parameters(), full))
+    return err_m, err_p
+
+
+def codec_checks(torch, dev, check, mesh, say_fn):
+    """`parallel/compression.py` on the card: the int8 codec's error bound
+    and unbiasedness (as the JAX package's tests hold them) and each
+    `compressed_psum` method on `mesh`'s "data" axis."""
+    from repro_torch.parallel import compression as comp
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(256, 1024, generator=gen, device=dev)
+    q, s = comp.int8_rowwise_encode(x, gen)
+    err = (comp.int8_rowwise_decode(q, s) - x).abs()
+    bound_ok = bool((err <= s + 1e-6).all())
+    row = torch.linspace(-1, 1, 64, device=dev)[None] * 0.3712
+    acc = torch.zeros_like(row, dtype=torch.float64)
+    draws = 400
+    for _ in range(draws):
+        acc += comp.int8_rowwise_decode(
+            *comp.int8_rowwise_encode(row, gen)).double()
+    bias = float((acc / draws - row.double()).abs().max())
+    say_fn(f"train mesh codec: int8 row-wise on the card, max err / scale "
+           f"{float((err / s).max()):.4f} (bound 1), mean of {draws} "
+           f"decodes off by {bias:.2e} (limit 5e-4)")
+    check(bound_ok and bias <= 5e-4, "int8 codec: error bound or bias")
+    tree = {"w": x, "b": x[0]}
+    for method in comp.METHODS:
+        out = comp.compressed_psum(tree, mesh, "data", method, generator=gen)
+        n = mesh.size(0)
+        errs = {k: float((out[k] - v).abs().max()) for k, v in tree.items()}
+        lim = {"none": 1e-6, "bf16": 2 ** -8 * 4.5,
+               "int8": float(s.max()) * 1.01}[method]
+        say_fn(f"train mesh codec: compressed_psum {method} over data "
+               f"({n} rank(s)): max err {max(errs.values()):.3g} "
+               f"(limit {lim:.3g})")
+        check(max(errs.values()) <= lim, f"compressed_psum {method}")
+    ex = comp.exact_compressed_psum(tree, mesh, "data", generator=gen)
+    e = max(float((ex[k] - v).abs().max()) for k, v in tree.items())
+    check(e <= float(s.max()) * 1.01, "exact_compressed_psum")
+
+
+def train_mesh_phase(torch, dev, check, results):
+    """LM training on a (1, 1) `DeviceMesh` on this card (phase 12): NCCL
+    world of one, parameters, optimizer state and batches DTensors placed
+    by the rule table. tinyllama-1.1b in full and recurrentgemma-9b at
+    full width cut to phase 7's 3 layers, at TRAIN_BATCH x TRAIN_SEQ in
+    bf16 through `fit(mesh=)` for TRAIN_MESH_STEPS steps with phase 7's
+    seed and settings, each held to the same run on one device (losses,
+    grad norms, parameters: bit for bit, else within 1e-5 relative) and
+    to phase 7's own losses, with phase 7's launches a step (flash, LRU,
+    xent through the DTensor seams); reduced fp32 mesh steps on the card
+    against the CPU; the codec. Returns the mesh runs' launches by arch."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_device_mesh
+
+    mesh = make_device_mesh((1, 1), ("data", "model"))
+    say(f"train mesh: {mesh} on the card, backend {dist.get_backend()}, "
+        f"world {dist.get_world_size()}")
+    steps = TRAIN_MESH_STEPS
+    launches = {}
+    for arch, layers, _ in TRAIN_RUNS:
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+        label = f"train mesh {arch}" + (f" ({layers} layers)" if layers
+                                        else "")
+        p1, h1, l1, peak1, _ = mesh_fit(torch, cfg, steps)
+        p2, h2, l2, peak2, _ = mesh_fit(torch, cfg, steps, mesh=mesh)
+        plan = train_plan(cfg)
+        want = {k: v * steps for k, v in plan.items()}
+        launches[arch] = l2
+        say(f"{label}: launches {l2} over {steps} steps, one device "
+            f"{l1}, planned {want} ({plan} a step, phase 7's)")
+        check(l2 == want and l1 == want,
+              f"{label}: launched {l2} (one device {l1}), planned {want}")
+        rel = 0.0
+        equal = True
+        for a, b in zip(p1.parameters(), p2.parameters()):
+            b = b.full_tensor()
+            if not torch.equal(a, b):
+                equal = False
+                d = float((a.float() - b.float()).abs().max())
+                rel = max(rel, d / max(float(a.float().abs().max()), 1e-30))
+        keys = ("loss", "grad_norm")
+        m_rel = max(abs(x[k] - y[k]) / abs(x[k])
+                    for x, y in zip(h1, h2) for k in keys)
+        p7 = results[(f"train_{arch}", cfg.dtype)]["losses"][:steps]
+        say(f"{label}: losses mesh {[x['loss'] for x in h2]}, one device "
+            f"{[x['loss'] for x in h1]}, phase 7 {p7}; grad norms mesh "
+            f"{[x['grad_norm'] for x in h2]}; parameters bit-equal "
+            f"{equal} (largest relative difference {rel:.3g}), metrics "
+            f"relative difference {m_rel:.3g} (limit 1e-5)")
+        check(m_rel <= 1e-5 and rel <= 1e-5,
+              f"{label}: the (1, 1) mesh run is not the one-device run")
+        check([x["loss"] for x in h1] == p7 or max(
+            abs(a - b) / abs(b) for a, b in
+            zip([x["loss"] for x in h1], p7)) <= 1e-5,
+              f"{label}: one-device losses moved from phase 7's")
+        ms1 = statistics.median(x["time_s"] for x in h1[1:]) * 1e3
+        ms2 = statistics.median(x["time_s"] for x in h2[1:]) * 1e3
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        results[(f"train_mesh_{arch}", cfg.dtype)] = dict(
+            mesh=[1, 1], steps=steps, losses=[x["loss"] for x in h2],
+            step_ms=ms2, one_device_step_ms=ms1,
+            step_ms_each=[x["time_s"] * 1e3 for x in h2],
+            one_device_step_ms_each=[x["time_s"] * 1e3 for x in h1],
+            overhead=ms2 / ms1 - 1.0, peak_gb=peak2, one_device_peak_gb=peak1,
+            tokens_per_s=tokens / ms2 * 1e3, bit_equal=equal,
+            param_rel=rel, launches=l2)
+        say(f"{label}: step {ms2:.1f} ms on the (1, 1) mesh against "
+            f"{ms1:.1f} ms on one device (median after the first; "
+            f"DTensor overhead {100 * (ms2 / ms1 - 1):.2f}%), "
+            f"{tokens / ms2 * 1e3:.0f} tokens/s, peak {peak2:.1f} GB "
+            f"(one device {peak1:.1f} GB)")
+        del p1, p2
+        torch.cuda.empty_cache()
+    for arch in ("tinyllama-1.1b", "recurrentgemma-9b",
+                 "granite-moe-3b-a800m", "mamba2-1.3b", "whisper-medium"):
+        err_m, err_p = mesh_reduced_step(torch, arch, mesh, "cpu")
+        say(f"train mesh reduced {arch} fp32 step on the (1, 1) mesh: card "
+            f"vs CPU loss/grad-norm relative err {err_m:.3g}, updated "
+            f"params err {err_p:.3g} (limit 1e-4)")
+        check(err_m <= 1e-4 and err_p <= 1e-4,
+              f"train mesh reduced {arch}: the card disagrees with the CPU")
+    codec_checks(torch, dev, check, mesh, say)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the --train-mesh mode's meshes and runs (four cards, one process each)
+MESH4_SHAPES = ((2, 2), (1, 4))
+MESH4_REDUCED = {(2, 2): ("gemma3-27b", "granite-moe-3b-a800m",
+                          "mamba2-1.3b", "moonshot-v1-16b-a3b", "olmo-1b",
+                          "qwen2-vl-72b", "recurrentgemma-9b",
+                          "tinyllama-1.1b", "whisper-medium", "yi-34b"),
+                 (1, 4): ("tinyllama-1.1b", "recurrentgemma-9b",
+                          "granite-moe-3b-a800m", "mamba2-1.3b",
+                          "whisper-medium", "qwen2-vl-72b")}
+MESH4_FULL = (("tinyllama-1.1b", 3), ("recurrentgemma-9b", 3))
+# bf16 on four cards against one card, from the same seed and batch: the
+# first loss (fp32 over every token; 2.87e-5 and 4.53e-5 relative measured
+# on four H100s, PERF.md) and the first step's gradient norm, which one more
+# bf16 rounding of every gradient element (2**-9 relative each) moves by
+# at most 2**-9 relative
+MESH4_LOSS_RTOL = 1e-3
+MESH4_GNORM_RTOL = 2 ** -9
+
+
+def train_mesh_main() -> int:
+    """`torchrun --nproc-per-node 4 chip_smoke.py --train-mesh`: LM
+    training on four cards, one process each, over NCCL. The reduced
+    families' fp32 steps on (2, 2) and (1, 4) against a one-card step;
+    tinyllama-1.1b and recurrentgemma-9b at full width and depth (38
+    layers), bf16, TRAIN_BATCH x TRAIN_SEQ, remat="full", 3 steps on
+    (2, 2), each first loss held to a forward-only `model.loss` on one
+    card from the same seed and batch (MESH4_LOSS_RTOL) and its first
+    gradient norm to one card's backward (MESH4_GNORM_RTOL), peak memory a
+    card under 80 GB; step ms, tokens/s, mfu over the four cards and a
+    profiled step's device idle share on rank 0. Prints no result line;
+    exits nonzero where a check failed on any rank."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.train import optim
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    meshes = {MESH4_SHAPES[0]: make_device_mesh(MESH4_SHAPES[0],
+                                                ("data", "model"))}
+    for shape in MESH4_SHAPES[1:]:
+        meshes[shape] = init_device_mesh("cuda", shape,
+                                          mesh_dim_names=("data", "model"))
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    say0 = say if rank == 0 else (lambda *_: None)
+    failures = []
+
+    def check(ok, msg):
+        if not ok:
+            failures.append(msg)
+            say0(f"CHECK FAILED: {msg}")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    say0("train mesh cards: " + "; ".join(smi.stdout.strip().splitlines()))
+    say0(f"train mesh: world {dist.get_world_size()}, backend "
+         f"{dist.get_backend()}, torch {torch.__version__}")
+    for shape, archs in MESH4_REDUCED.items():
+        for arch in archs:
+            err_m, err_p = mesh_reduced_step(torch, arch, meshes[shape], dev)
+            say0(f"train mesh reduced {arch} fp32 step on {shape}: against "
+                 f"one card loss/grad-norm relative err {err_m:.3g}, "
+                 f"updated params err {err_p:.3g} (limits 1e-5, 1e-4)")
+            check(err_m <= 1e-5 and err_p <= 1e-4,
+                  f"train mesh reduced {arch} {shape}")
+    codec_checks(torch, dev, check, meshes[(2, 2)], say0)
+    mesh = meshes[(2, 2)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for arch, steps in MESH4_FULL:
+        cfg = registry.get_config(arch)
+        label = f"train mesh 4 cards {arch}"
+        want = want_norm = None
+        if rank == 0:   # the loss, and the first gradient's norm, on one card
+            model = api.build(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            batch = next(synthetic.iterator(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                            seed=0, device=dev))
+            with torch.no_grad():
+                want = float(model.loss(params, batch, remat="none"))
+            params.requires_grad_(True)
+            grads = torch.autograd.grad(
+                model.loss(params, batch, remat="full"),
+                list(params.parameters()))
+            want_norm = float(optim.global_norm(grads))
+            del model, params, batch, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+        params, hist, launches, peak, prof = mesh_fit(torch, cfg, steps,
+                                                      mesh=mesh,
+                                                      profile=True)
+        peaks = torch.tensor([peak], device=dev)
+        dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+        losses = [x["loss"] for x in hist]
+        step_s = statistics.median(x["time_s"] for x in hist[1:])
+        mfu = 6 * cfg.param_count() * tokens / step_s / (
+            4 * BF16_FLOPS_PER_S)
+        plan = {k: v * steps for k, v in train_plan(cfg).items()}
+        say0(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
+             f"{cfg.n_layers} layers, mesh (2, 2), batch {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ}, bf16, remat full, {steps} steps; launches a "
+             f"rank {launches} (planned {plan})")
+        check(launches == plan, f"{label}: launches {launches} != {plan}")
+        if rank == 0:
+            rel = abs(losses[0] - want) / abs(want)
+            norm0 = hist[0]["grad_norm"]
+            rel_norm = abs(norm0 - want_norm) / abs(want_norm)
+            say0(f"{label}: losses {losses}, grad norms "
+                 f"{[x['grad_norm'] for x in hist]}; first loss against "
+                 f"one card's forward-only loss {want:.6f}: relative "
+                 f"{rel:.3g} (limit {MESH4_LOSS_RTOL}); first grad norm "
+                 f"against one card's backward {want_norm:.6f}: relative "
+                 f"{rel_norm:.3g} (limit {MESH4_GNORM_RTOL:.3g})")
+            check(rel <= MESH4_LOSS_RTOL, f"{label}: first loss")
+            check(rel_norm <= MESH4_GNORM_RTOL, f"{label}: first grad norm")
+        check(all(x == x and abs(x) < 1e30 for x in losses),
+              f"{label}: non-finite loss")
+        check(float(peaks) < 80.0, f"{label}: peak {float(peaks):.1f} GB")
+        idle = prof["idle_share"] if prof else None
+        say0(f"{label}: step {step_s * 1e3:.1f} ms (median after the "
+             f"first; each {[round(x['time_s'] * 1e3, 1) for x in hist]}), "
+             f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
+             f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens over 4 x "
+             f"989 TFLOP/s), peak {float(peaks):.1f} GB a card (max over "
+             f"ranks), rank 0's profiled step: "
+             + (f"host window {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}, by kind "
+                + ", ".join(f"{k} {v:.1f}" for k, v in
+                            prof["by_category_ms"].items())
+                if prof else "no device kernel seen (not measured)"))
+        del params
+        torch.cuda.empty_cache()
+    bad = torch.tensor([len(failures)], device=dev)
+    dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+    dist.destroy_process_group()
+    if int(bad):
+        say0(f"train mesh: {int(bad)} check(s) failed on some rank")
+        return 1
+    say0("train mesh: all checks passed")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4297,6 +4697,11 @@ def main() -> int:
 
     phase_done("phase 11 (forecast on a mesh)")
 
+    # ---- 12. LM training on a device mesh -----------------------------------
+    train_mesh_launches = train_mesh_phase(torch, dev, check, results)
+
+    phase_done("phase 12 (LM training on a mesh)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -4402,6 +4807,9 @@ def main() -> int:
                               "library_queued_ms"):
                     if extra in r:
                         paths[path][extra] = r[extra]
+            # phase 12's fit(mesh=) runs on a (1, 1) mesh, by arch
+            paths.update({f"train_mesh {arch}": {"launches": n[name]}
+                          for arch, n in train_mesh_launches.items()})
             kernels[-1]["paths"] = paths
         if name in ("flash_attn", "xent"):
             # the times above are the bf16 tensor-core kernel's; fp32
@@ -4469,6 +4877,8 @@ if __name__ == "__main__":
             sys.exit(copy_times_of(Path(sys.argv[2])))
         if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
             sys.exit(kernel_times_of(Path(sys.argv[2])))
+        if sys.argv[1:] == ["--train-mesh"]:
+            sys.exit(train_mesh_main())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)

@@ -1,6 +1,7 @@
-"""Checkpointing: atomic, keep-N, async save; restore onto a device.
+"""Checkpointing: atomic, keep-N, async save; restore onto a device or a
+device mesh.
 
-A port of `repro.ckpt.checkpoint` for one device. The on-disk layout is
+A port of `repro.ckpt.checkpoint`. The on-disk layout is
 the JAX package's, so a checkpoint written by either package restores in
 the other: `<dir>/step_<n:08d>/arrays.npz` plus `meta.json` (`step`,
 `n_arrays`, `dtypes`, the per-array crc32 `manifest` and, for `save_tree`,
@@ -17,6 +18,14 @@ stored as a `uint16` view with its name in `dtypes`, as the JAX package
 stores it, without `ml_dtypes`. Every tensor is copied to the host on the
 calling thread before a save goes on, so the caller may update it in
 place as soon as the call returns (the port's train step does).
+
+Sharded training state (DTensor leaves, `train/loop.py`'s mesh step) is
+gathered whole by a collective on every rank, on the calling thread and
+before any writer thread starts; only rank 0 writes, in the same layout,
+and every rank waits for the write (`save`, `AsyncSaver.wait`).
+`restore(..., mesh=)` places each leaf by the current mesh's rule table
+(`parallel/sharding.py`), wherever it was written: one device or any
+mesh, bit for bit (the elastic path).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.parallel import sharding as shd
 from repro_torch.weather.fields import (WeatherState, field_views,
                                         state_leaves)
 
@@ -52,12 +62,28 @@ _NATIVE = frozenset(
     "float16 float32 float64 complex64 complex128".split())
 
 
+def _sharded(params) -> bool:
+    return (isinstance(params, nn.Module)
+            and any(shd.is_distributed(p) for p in params.parameters()))
+
+
 def _host(leaf):
     """A leaf as a host array the caller can no longer change: numpy
-    arrays as they are (copied), tensors copied to the CPU, synchronously."""
+    arrays as they are (copied), tensors copied to the CPU, synchronously.
+    A DTensor is gathered whole (a collective: every rank calls this in
+    the same order); ranks other than the writer keep nothing."""
+    if shd.is_distributed(leaf):
+        leaf = leaf.full_tensor()
+        if not shd.is_rank0():
+            return None
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).contiguous()
     return np.array(leaf)
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
 
 
 def _pack(arrays: dict) -> Tuple[dict, dict]:
@@ -81,8 +107,8 @@ def _pack(arrays: dict) -> Tuple[dict, dict]:
 
 def _unpack(arr: np.ndarray, name: Optional[str]) -> torch.Tensor:
     """One stored array as a CPU tensor of its dtype (a non-native dtype
-    from its unsigned-int view, bit for bit)."""
-    arr = np.ascontiguousarray(arr)
+    from its unsigned-int view, bit for bit; a 0-dim array stays 0-dim)."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if not name:
         return torch.from_numpy(arr.copy())
     bits = arr.view(np.dtype(f"i{arr.dtype.itemsize}"))
@@ -310,9 +336,13 @@ def _train_arrays(params, opt_state) -> dict:
 
 def save(ckpt_dir: str, step: int, params, opt_state, keep: int = 3):
     """A training checkpoint: `params` under `params/`, `opt_state` under
-    `opt/`."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    _write(ckpt_dir, step, _train_arrays(params, opt_state), keep)
+    `opt/`. Sharded state: every rank calls it; rank 0 writes."""
+    arrays = _train_arrays(params, opt_state)
+    if shd.is_rank0():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _write(ckpt_dir, step, arrays, keep)
+    if _sharded(params):
+        _barrier()
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -348,20 +378,52 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, params, opt_state, device=None
-            ) -> Tuple[Any, Any, int]:
+def restore(ckpt_dir: str, step: int, params, opt_state, device=None,
+            mesh=None) -> Tuple[Any, Any, int]:
     """A `save` checkpoint onto `params` and `opt_state`, the templates:
     an `nn.Module`'s parameters are overwritten in place; tensor leaves
     land on `device` (default: each template leaf's device). Returns
-    (params, opt_state, step)."""
+    (params, opt_state, step).
+
+    With `mesh` (a `DeviceMesh`; every rank calls it) the templates give
+    names and dtypes only (full, sharded or meta tensors): each parameter
+    becomes a DTensor placed by the current mesh's rule table (kind
+    "train"), `m`, `v` and `master` take their parameter's placements and
+    `step` is replicated, whatever mesh the checkpoint was written on."""
     base = os.path.join(ckpt_dir, f"step_{step:08d}")
     flat, _ = _load_verified(base)
     p_flat = {k[len("params/"):]: v for k, v in flat.items()
               if k.startswith("params/")}
     o_flat = {k[len("opt/"):]: v for k, v in flat.items()
               if k.startswith("opt/")}
+    if mesh is not None:
+        return _restore_on_mesh(mesh, params, opt_state, p_flat, o_flat,
+                                step)
     return (_unflatten(params, p_flat, device),
             _unflatten(opt_state, o_flat, device), step)
+
+
+def _restore_on_mesh(mesh, params, opt_state, p_flat, o_flat, step):
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    dev = mesh.device_type
+    specs = shd.params_sharding(params, mesh, "train")
+    placed = {}
+    for name, p in list(params.named_parameters()):
+        placed[name] = shd.placements(specs[name], mesh)
+        full = p_flat[name].to(device=dev, dtype=p.dtype)
+        shd._set_param(params, name,
+                       distribute_tensor(full, mesh, placed[name]))
+    opt = {k: {n: distribute_tensor(
+                   o_flat[f"{k}/{n}"].to(device=dev, dtype=t.dtype), mesh,
+                   placed[n])
+               for n, t in opt_state[k].items()}
+           for k in ("m", "v", "master")}
+    # the same value on every rank: replicated as it is (a 0-dim tensor)
+    opt["step"] = DTensor.from_local(
+        o_flat["step"].to(device=dev, dtype=opt_state["step"].dtype), mesh,
+        [Replicate()] * mesh.ndim)
+    return params, opt, step
 
 
 def save_tree(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
@@ -415,17 +477,23 @@ class AsyncSaver:
     are copied to the host on the calling thread (complete when `save`
     returns, so an in-place step may follow at once), the file I/O runs
     on a worker thread. A write that failed raises from the next `save`
-    or `wait`."""
+    or `wait`. Sharded state is gathered on the calling thread of every
+    rank (no collective runs in the worker); rank 0's worker writes and
+    every rank's `wait` waits for it."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._sharded = False
 
     def save(self, step: int, params, opt_state):
         self.wait()
         arrays = _train_arrays(params, opt_state)
+        self._sharded = _sharded(params)
+        if not shd.is_rank0():
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
 
         def work():
@@ -441,6 +509,9 @@ class AsyncSaver:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -8,6 +8,11 @@ the copy to the card is asynchronous. An encoder-decoder config's batch
 also carries `frames`, (B, encoder_len, d_model) float32 from the same
 generator after the tokens, and the iterator copies them as it copies the
 tokens.
+
+With `mesh=` (a `DeviceMesh`) each rank yields its share of the global
+batch as DTensors split over the data axes (`parallel/sharding.py::
+data_spec`, the JAX iterator's `shardings=`): it makes the global batch
+of (seed, step), as every rank does, and copies only its own rows.
 """
 
 from __future__ import annotations
@@ -44,21 +49,52 @@ def lm_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int,
     return out
 
 
+def _rows(mesh, b: int, ndim: int):
+    """This rank's rows of a global batch of `b` on `mesh`, and the
+    DTensor placements of the batch (Shard(0) on its data axes; the same
+    for any rank of tensor)."""
+    from repro_torch.parallel import sharding as shd
+
+    spec = shd.data_spec(mesh, b, ndim)
+    axes = (spec[0],) if isinstance(spec[0], str) else spec[0] or ()
+    r, n = shd.batch_rank(mesh, axes)
+    return slice(r * (b // n), (r + 1) * (b // n)), shd.placements(spec,
+                                                                   mesh)
+
+
 def iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
              start_step: int = 0, prefetch: int = 1, kind: str = "arith",
-             device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
-    """Infinite deterministic iterator of batches on `device`, with
+             device="cuda", mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite deterministic iterator of batches on `device` (with
+    `mesh`: this rank's shards on the mesh's device, as DTensors), with
     background prefetch (`prefetch` batches ahead; 0: none)."""
+    if mesh is not None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device("cpu"))
     device = torch.device(device)
     pin = device.type == "cuda"
+
+    # this rank's rows and the placements, read off the mesh once (the
+    # prefetch thread touches no process group)
+    rows, placed = _rows(mesh, batch, 2) if mesh is not None else (None, None)
 
     def host(step):
         b = {k: torch.from_numpy(v) for k, v in
              lm_batch(cfg, seed, step, batch, seq, kind=kind).items()}
+        if mesh is not None:
+            b = {k: v[rows].contiguous() for k, v in b.items()}
         return {k: v.pin_memory() for k, v in b.items()} if pin else b
 
     def to_device(b):
-        return {k: v.to(device, non_blocking=pin) for k, v in b.items()}
+        out = {k: v.to(device, non_blocking=pin) for k, v in b.items()}
+        if mesh is None:
+            return out
+        from torch.distributed.tensor import DTensor
+        return {k: DTensor.from_local(
+                    v, mesh, placed, shape=(batch,) + tuple(v.shape[1:]),
+                    stride=torch.empty((batch,) + tuple(v.shape[1:]),
+                                       device="meta").stride())
+                for k, v in out.items()}
 
     if prefetch <= 0:
         step = start_step
@@ -72,7 +108,10 @@ def iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
     def worker():
         step = start_step
         while not stop.is_set():
-            b = host(step)
+            try:
+                b = host(step)
+            except Exception as e:  # noqa: BLE001 — raised by the consumer
+                b = e
             while not stop.is_set():
                 try:
                     q.put(b, timeout=0.1)
@@ -85,6 +124,10 @@ def iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
     t.start()
     try:
         while True:
-            yield to_device(q.get())
+            b = q.get()
+            if isinstance(b, Exception):
+                raise b
+            yield to_device(b)
     finally:
         stop.set()
+        t.join(timeout=10)   # no torch work left in the thread at exit

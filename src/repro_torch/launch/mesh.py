@@ -15,6 +15,13 @@ which for the default mesh over the card's devices is the CUDA index. A
 mesh built from some of another's entries (a failover's survivors) keeps
 their ids, so four shards of one card (`["cuda:0"] * 4`) are four logical
 devices that a fault, a failover record or `stats()` can name apart.
+
+The LM trains on another kind of mesh: `make_device_mesh` builds a
+`torch.distributed` `DeviceMesh`, one process a device (NCCL on the
+cards, gloo where the caller asks for the CPU), on which parameters,
+optimizer state and batches are DTensors (`parallel/sharding.py`,
+`train/loop.py`). Sharding parameters over processes is a different
+problem from the weather rounds' halo rides, which stay single-process.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_production_mesh", "data_axes"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "data_axes",
+           "make_device_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -150,6 +158,56 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return make_mesh(shape, axes)
 
 
-def data_axes(mesh: Mesh) -> tuple:
-    """Mesh axes that carry batch/data parallelism."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+def data_axes(mesh) -> tuple:
+    """Mesh axes that carry batch/data parallelism (a `Mesh` or a
+    `DeviceMesh`)."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def make_device_mesh(shape, axes, device_type: Optional[str] = None):
+    """The LM's mesh: a `torch.distributed` `DeviceMesh` of `shape` named
+    `axes`, one process a device (the port's twin of a JAX mesh for
+    parameter sharding; the weather rounds keep the single-process
+    `Mesh`). `device_type` is "cuda" (the default: NCCL, one card a rank,
+    the rank's `LOCAL_RANK` card) or "cpu" (gloo, where the caller asks
+    for the CPU). The process group is taken from the launcher's
+    environment (torchrun's `RANK`/`WORLD_SIZE`), or made a world of one
+    for a (1, ..., 1) shape when none exists; an existing group is used as
+    it is. Raises when the world is not prod(shape), or when the card is
+    asked for and CUDA or NCCL is not there: nothing falls back to gloo or
+    the CPU."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    device_type = device_type or "cuda"
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type {device_type!r}: 'cuda' or 'cpu'")
+    cuda = device_type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("make_device_mesh: no CUDA device is available; "
+                           "pass device_type='cpu' for gloo on the CPU")
+    backend = "nccl" if cuda else "gloo"
+    if not dist.is_initialized():
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        elif n == 1:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+        else:
+            raise RuntimeError(
+                f"a {shape} mesh needs {n} processes: run under torchrun "
+                f"(--nproc-per-node {n}) or init the process group first")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"mesh {shape} needs a world of {n}, the process "
+                           f"group has {dist.get_world_size()}")
+    if cuda and dist.get_backend() != "nccl":
+        raise RuntimeError(f"a CUDA mesh runs on NCCL; the process group's "
+                           f"backend is {dist.get_backend()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axes))

@@ -7,13 +7,23 @@ Trains the architecture at its full published width and depth on the card
 (random weights from seed 0) unless `--smoke` asks for the reduced config;
 `--device cpu` runs the kernels' plain versions. `--ckpt-dir` checkpoints
 every `--ckpt-every` steps and at the end, and resumes from the latest
-checkpoint there. The defaults are the JAX launcher's. Meshes are not
-ported.
+checkpoint there. The defaults are the JAX launcher's.
+
+Under torchrun (`RANK`/`WORLD_SIZE` set) it trains on a device mesh of the
+world, one process a device: ("data", "model") of (1, n) with `--smoke`
+(as the JAX launcher's smoke mesh), or `--mesh D,M`, else (n, 1)
+(`launch/mesh.py::make_device_mesh`; `--device cpu` runs gloo):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch tinyllama-1.1b --mesh 2,2
+
+Rank 0 prints the success line, which names the mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.configs import registry
 from repro_torch.data import synthetic
@@ -34,24 +44,48 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: the (data, model) mesh under torchrun")
     args = ap.parse_args(argv)
 
     cfg = registry.get_config(args.arch)
     if args.smoke:
         cfg = registry.reduced_config(cfg)
+    mesh, where, say = None, None, print
+    if "WORLD_SIZE" in os.environ or args.mesh:
+        from repro_torch.launch.mesh import make_device_mesh
+        from repro_torch.parallel import sharding as shd
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if args.mesh:
+            shape = tuple(int(x) for x in args.mesh.split(","))
+        else:
+            shape = (1, world) if args.smoke else (world, 1)
+        mesh = make_device_mesh(shape, ("data", "model"),
+                                device_type=args.device)
+        where = (f"mesh {dict(zip(mesh.mesh_dim_names, shape))} "
+                 f"({mesh.device_type})")
+        if not shd.is_rank0():
+            say = lambda *_: None                       # noqa: E731
     model = api.build(cfg, device=args.device)
+    where = where or str(model.device)
     opt_cfg = optim.OptConfig(lr=args.lr, warmup_steps=5,
                               total_steps=args.steps)
-    data = synthetic.iterator(cfg, args.batch, args.seq, device=model.device)
+    data = synthetic.iterator(cfg, args.batch, args.seq, device=model.device,
+                              mesh=mesh)
     _, _, hist = loop.fit(model, data, steps=args.steps, opt_cfg=opt_cfg,
                           microbatches=args.microbatches,
-                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                          mesh=mesh, log_fn=say)
     if not hist:
-        print(f"[train] done: the checkpoint in {args.ckpt_dir} is at step "
-              f"{args.steps} already; nothing to run on {model.device}")
-        return
-    print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
-          f"{hist[-1]['loss']:.4f} over {len(hist)} steps on {model.device}")
+        say(f"[train] done: the checkpoint in {args.ckpt_dir} is at step "
+            f"{args.steps} already; nothing to run on {where}")
+    else:
+        say(f"[train] done: loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f} over {len(hist)} steps on {where}")
+    data.close()
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

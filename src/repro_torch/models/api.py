@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, lm
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import MetaGenerator, torch_dtype
+from repro_torch.parallel import policy
 
 Params = Union[lm.LM, encdec.EncDec]
 
@@ -59,12 +60,23 @@ class Model:
             return encdec.init_params(self.cfg, generator)
         return lm.init_params(self.cfg, generator)
 
+    def param_shapes(self) -> Params:
+        """The parameters' names, shapes and dtypes, as a module of meta
+        tensors (the JAX package's `param_shapes`)."""
+        if self.family == "encdec":
+            return encdec.init_params(self.cfg, MetaGenerator())
+        return lm.init_params(self.cfg, MetaGenerator())
+
     # ---- training ---------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              remat: str = "full") -> torch.Tensor:
-        if self.family == "encdec":
-            return encdec.loss_fn(self.cfg, params, batch, remat=remat)
-        return lm.loss_fn(self.cfg, params, batch, remat=remat)
+        """The mean loss over the batch. With DTensor parameters
+        (`parallel/sharding.py::distribute`) and a DTensor batch, the
+        global batch's mean on every rank (`parallel/policy.py`)."""
+        with policy.rules_for(params, batch):
+            if self.family == "encdec":
+                return encdec.loss_fn(self.cfg, params, batch, remat=remat)
+            return lm.loss_fn(self.cfg, params, batch, remat=remat)
 
     def batch_spec(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
         """One training batch's shapes and dtypes, as tensors on the meta

@@ -7,7 +7,9 @@ the model scales it); on a CUDA tensor it launches the hand-written flash
 kernel (`kernels/flash_attention`, the twin of the TPU serving path's
 Pallas kernel, which scales q in fp32) or raises. `decode_attention` and
 `dense_attention` (the encoder-decoder's cross-attention) have no kernel in
-the reference and stay plain PyTorch.
+the reference and stay plain PyTorch. On a device mesh every one of them
+runs on a rank's local (batch shard, head shard) tensors
+(`parallel/policy.py`).
 """
 
 from __future__ import annotations

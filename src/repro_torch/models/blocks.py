@@ -1,7 +1,12 @@
 """Decoder block assembly: one init/apply pair per block kind, and `Block`,
 the module that holds one block's parameters.
 
-A port of `repro.models.blocks`. Kinds: "attn"/"global" (full causal
+A port of `repro.models.blocks`. On a device mesh a block computes on
+the weights `parallel/policy.py::gather_block_weights` makes local: a
+weight narrower than the config's (a rank's heads, ffn columns, experts or
+RG-LRU width) marks a tensor-parallel layer, whose input enters with
+`policy.enter_tp` and whose partial output leaves summed over "model"
+(`policy.leave_tp`). Kinds: "attn"/"global" (full causal
 attention + FFN), "local" (sliding window + FFN), "rec" (RG-LRU + FFN),
 "ssd" (Mamba2 mixer, no FFN). The FFN is a MoE layer where the config has
 `moe`. Every apply has the signature
@@ -32,6 +37,7 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import (rglru_block_apply, rglru_init,
                                       rglru_init_state)
 from repro_torch.models.ssd import ssd_apply, ssd_init, ssd_init_state
+from repro_torch.parallel import policy
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +123,12 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
                      cache, pos, causal: bool = True):
     b, t, d = h.shape
     hd = cfg.hd
-    q = (h @ params["wq"]).reshape(b, t, cfg.n_heads, hd)
-    k = (h @ params["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-    v = (h @ params["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+    tp = policy.is_tp(cfg, "attn")         # a rank's head shard
+    if tp:
+        h = policy.enter_tp(h)
+    q = (h @ params["wq"]).reshape(b, t, -1, hd)
+    k = (h @ params["wk"]).reshape(b, t, -1, hd)
+    v = (h @ params["wv"]).reshape(b, t, -1, hd)
     if cfg.qk_norm:
         q = qk_norm_apply(q, params["q_scale"])
         k = qk_norm_apply(k, params["k_scale"])
@@ -179,7 +188,8 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
                 new_cache = {"k": kk, "v": vv}
         else:
             new_cache = cache
-    return out.reshape(b, t, cfg.n_heads * hd) @ params["wo"], new_cache
+    out = out.reshape(b, t, -1) @ params["wo"]
+    return (policy.leave_tp(out) if tp else out), new_cache
 
 
 def block_apply(kind: str, cfg: ModelConfig, params, x, *, positions, mode,
@@ -227,6 +237,7 @@ class Block(nn.Module):
 
     def forward(self, x, *, positions, mode, cache=None, pos=None,
                 causal: bool = True):
-        return block_apply(self.kind, self.cfg, self.params, x,
+        params = policy.gather_block_weights(self.params, self.cfg)
+        return block_apply(self.kind, self.cfg, params, x,
                            positions=positions, mode=mode, cache=cache,
                            pos=pos, causal=causal)

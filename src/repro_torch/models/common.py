@@ -130,9 +130,17 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Init helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a generator where parameters are made on the meta
+    device: shapes and dtypes only (`Model.param_shapes`)."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """`std · N(0, 1)` drawn in float32 on the generator's device, then
     cast to `dtype`."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * std).to(dtype)
 

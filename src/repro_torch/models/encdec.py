@@ -13,7 +13,8 @@ and values are recomputed from the encoder's states each call, as there.
 A cache is {"dec": one self-attention cache a decoder layer}; decode
 writes the new token's K/V into it in place, as the port's blocks do.
 Positions are sinusoidal absolute embeddings; the whisper config turns
-RoPE off with rope_theta=0.
+RoPE off with rope_theta=0. On a device mesh the blocks, the
+cross-attention's heads and the loss follow `models/lm.py`'s seams.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamTree, embed_init, norm_apply,
                                        norm_init, torch_dtype)
 from repro_torch.models.lm import chunked_xent, mask_padded_vocab
+from repro_torch.parallel import policy
 
 
 class EncDec(nn.Module):
@@ -91,13 +93,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> EncDec:
 def encode(cfg: ModelConfig, params: EncDec,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, F, D) stub conv-frontend output -> encoder states."""
+    frames = policy.batch_local(frames)
     b, f, d = frames.shape
     dtype = torch_dtype(cfg.dtype)
     positions = torch.arange(f, device=frames.device).expand(b, f)
     x = frames.to(dtype) + sinusoid_at(positions, d).to(dtype)
     for block in params.enc_blocks:
-        x, _, _ = block(x, positions=positions, mode="train", causal=False)
-    return norm_apply(cfg, params.enc_norm, x)
+        x, _, _ = block(x, positions=positions,
+                        mode="train", causal=False)
+    return norm_apply(cfg, policy.gather_block_weights(params.enc_norm), x)
 
 
 def _cross_attend(cfg: ModelConfig, p_blk, x, enc):
@@ -105,11 +109,16 @@ def _cross_attend(cfg: ModelConfig, p_blk, x, enc):
     f = enc.shape[1]
     hd = cfg.hd
     h = norm_apply(cfg, p_blk["norm_x"], x)
-    q = (h @ p_blk["xattn"]["wq"]).reshape(b, t, cfg.n_heads, hd)
-    k = (enc @ p_blk["xattn"]["wk"]).reshape(b, f, cfg.n_kv_heads, hd)
-    v = (enc @ p_blk["xattn"]["wv"]).reshape(b, f, cfg.n_kv_heads, hd)
+    w = p_blk["xattn"]
+    tp = policy.is_tp(cfg, "xattn")                 # a rank's head shard
+    if tp:
+        h, enc = policy.enter_tp(h), policy.enter_tp(enc)
+    q = (h @ w["wq"]).reshape(b, t, -1, hd)
+    k = (enc @ w["wk"]).reshape(b, f, -1, hd)
+    v = (enc @ w["wv"]).reshape(b, f, -1, hd)
     out = attn_lib.dense_attention(q, k, v, causal=False)
-    return x + out.reshape(b, t, cfg.n_heads * hd) @ p_blk["xattn"]["wo"]
+    out = out.reshape(b, t, -1) @ w["wo"]
+    return x + (policy.leave_tp(out) if tp else out)
 
 
 def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
@@ -118,23 +127,28 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
            return_hidden: bool = False):
     """Decoder forward. tokens (B, T); enc (B, F, D). Returns (logits or
     hidden, new_cache); in decode the cache's K/V are written in place."""
+    tokens = policy.batch_local(tokens)
     b, t = tokens.shape
     offset = pos if mode == "decode" else 0
     positions = (offset + torch.arange(t, device=tokens.device)).expand(b, t)
     dtype = torch_dtype(cfg.dtype)
-    x = (params.embed[tokens.long()].to(dtype)
+    x = (policy.gather(params.embed)[tokens.long()].to(dtype)
          + sinusoid_at(positions, cfg.d_model).to(dtype))
     new_dec = []
     for i, block in enumerate(params.dec_blocks):
         c = cache["dec"][i] if cache is not None else None
-        x, nc, _ = block(x, positions=positions, mode=mode, cache=c, pos=pos)
-        x = _cross_attend(cfg, block.params, x, enc)
+        p = policy.gather_block_weights(block.params, cfg)
+        x, nc, _ = B.block_apply("attn", cfg, p, x,
+                                 positions=positions, mode=mode, cache=c,
+                                 pos=pos)
+        x = _cross_attend(cfg, p, x, enc)
         new_dec.append(nc)
-    x = norm_apply(cfg, params.final_norm, x)
+    x = norm_apply(cfg, policy.gather_block_weights(params.final_norm), x)
     new_cache = {"dec": new_dec} if cache is not None else None
     if return_hidden:
         return x, new_cache
-    logits = mask_padded_vocab(x @ params.head.to(x.dtype), cfg.vocab_size)
+    logits = mask_padded_vocab(x @ policy.gather(params.head).to(x.dtype),
+                               cfg.vocab_size)
     return logits, new_cache
 
 
@@ -150,7 +164,9 @@ def loss_fn(cfg: ModelConfig, params: EncDec, batch, remat: str = "full",
     """batch: {"tokens": (B, T), "frames": (B, F, D)}. `remat` is taken
     and, as in the JAX package, not applied: nothing is recomputed."""
     enc = encode(cfg, params, batch["frames"])
-    hidden, _ = decode(cfg, params, batch["tokens"], enc, mode="train",
+    tokens = policy.batch_local(batch["tokens"])
+    hidden, _ = decode(cfg, params, tokens, enc, mode="train",
                        return_hidden=True)
-    return chunked_xent(hidden[:, :-1], params.head, batch["tokens"][:, 1:],
-                        chunk=xent_chunk, vocab=cfg.vocab_size)
+    return policy.batch_mean(chunked_xent(
+        hidden[:, :-1], policy.gather(params.head), tokens[:, 1:],
+        chunk=xent_chunk, vocab=cfg.vocab_size))

@@ -19,6 +19,12 @@ does: a selective checkpoint that saves the outputs of `aten.mm` and
 Functions among it. `loss_fn` is the next-token cross-entropy through
 `chunked_xent`: on a CUDA tensor the fused cross-entropy kernel
 (`kernels/xent`), on a CPU tensor the JAX package's chunked body.
+
+On a device mesh (`parallel/policy.py`, rules set by the train step) the
+tokens are this rank's rows, each block gathers its weights at use inside
+the recomputed region (so the backward gathers them again, as FSDP with
+remat does), the embedding and the head are gathered whole, the xent
+kernel runs on the rank's rows and the loss is the global batch's mean.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+from contextlib import nullcontext
 from functools import partial
 
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -35,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import blocks as B
+from repro_torch.parallel import policy
 from repro_torch.models.common import (ParamTree, embed_init, norm_apply,
                                        norm_init, torch_dtype)
 
@@ -119,12 +127,22 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _train_blocks(blocks, x, positions):
+def _train_blocks(blocks, x, positions, rules=None):
+    """The blocks in order; `rules`: the mesh rules to run them under (a
+    recomputation in the backward re-enters the forward's)."""
     aux = 0.0
-    for block in blocks:
-        x, _, a = block(x, positions=positions, mode="train")
-        aux = aux + a
+    with policy.using(rules) if rules is not None else nullcontext():
+        for block in blocks:
+            x, _, a = block(x, positions=positions, mode="train")
+            aux = aux + a
     return x, aux
+
+
+def _head(cfg: ModelConfig, params: LM) -> torch.Tensor:
+    """The LM head (D, Vp), gathered whole on a mesh."""
+    if cfg.tie_embeddings:
+        return policy.gather(params.embed).T
+    return policy.gather(params.head)
 
 
 def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
@@ -146,9 +164,11 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r}; expected one of {REMATS}")
     if embeddings is None:
-        x = params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+        tokens = policy.batch_local(tokens)
+        x = policy.gather(params.embed)[tokens.long()].to(
+            torch_dtype(cfg.dtype))
     else:
-        x = embeddings.to(torch_dtype(cfg.dtype))
+        x = policy.batch_local(embeddings).to(torch_dtype(cfg.dtype))
     b, t = x.shape[:2]
     positions = _positions(cfg, b, t, pos if mode == "decode" else 0,
                            x.device)
@@ -161,7 +181,8 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
         for r in range(cfg.n_repeats):
             x, a = checkpoint(_train_blocks,
                               params.blocks[r * period:(r + 1) * period], x,
-                              positions, use_reentrant=False, **kw)
+                              positions, policy.current(),
+                              use_reentrant=False, **kw)
             aux = aux + a
         x, a = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
                              positions)
@@ -174,11 +195,10 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
             aux = aux + a
             if cache is not None:
                 new_cache.append(nc)
-    x = norm_apply(cfg, params.final_norm, x)
+    x = norm_apply(cfg, policy.gather_block_weights(params.final_norm), x)
     if return_hidden:
         return x, new_cache, aux
-    head = params.embed.T if cfg.tie_embeddings else params.head
-    logits = x @ head.to(x.dtype)
+    logits = x @ _head(cfg, params).to(x.dtype)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     logits = mask_padded_vocab(logits, cfg.vocab_size)
@@ -230,16 +250,15 @@ def loss_fn(cfg: ModelConfig, params: LM, batch, remat: str = "full",
             xent_chunk: int = 512) -> torch.Tensor:
     """Next-token cross-entropy (+ the MoE aux term, weighted by
     `cfg.moe.aux_loss_weight`). batch: {"tokens": (B, T)}."""
-    tokens = batch["tokens"]
+    tokens = policy.batch_local(batch["tokens"])
     hidden, _, aux = apply(cfg, params, tokens, mode="train", remat=remat,
                            return_hidden=True)
-    head = params.embed.T if cfg.tie_embeddings else params.head
-    nll = chunked_xent(hidden[:, :-1], head, tokens[:, 1:],
+    nll = chunked_xent(hidden[:, :-1], _head(cfg, params), tokens[:, 1:],
                        chunk=xent_chunk, softcap=cfg.logit_softcap,
                        vocab=cfg.vocab_size)
     if cfg.moe:
         nll = nll + cfg.moe.aux_loss_weight * aux
-    return nll
+    return policy.batch_mean(nll)
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,

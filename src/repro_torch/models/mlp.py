@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.parallel import policy
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -32,9 +33,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     act = ACTS[cfg.act]
+    tp = policy.is_tp(cfg, "ffn")               # a rank's ffn columns
+    if tp:
+        x = policy.enter_tp(x)
     h = x @ params["wi"]
     if cfg.gated_mlp:
         h = act(x @ params["wg"]) * h
     else:
         h = act(h)
-    return h @ params["wo"]
+    out = h @ params["wo"]
+    return policy.leave_tp(out) if tp else out

@@ -33,6 +33,7 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
 from repro_torch.models.mlp import ACTS
+from repro_torch.parallel import policy
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -84,14 +85,29 @@ def _route(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
 
 
 def _experts(cfg: ModelConfig, params, xe: torch.Tensor) -> torch.Tensor:
-    """(E, cap, d) -> (E, cap, d) expert FFN."""
+    """(E, cap, d) -> (E, cap, d) expert FFN. On a mesh a rank holds its
+    experts (expert-parallel) or every expert's d_ff shard; its output,
+    zero outside its experts or a partial sum over d_ff, is summed over
+    "model", so the combine sees every expert's output."""
     act = ACTS[cfg.act]
+    e, e_loc = cfg.moe.n_experts, params["wi"].shape[0]
+    tp = policy.is_tp(cfg, "moe")
+    if tp:
+        xe = policy.enter_tp(xe)
+        r = policy.model_rank()
+        if e_loc != e:
+            xe = xe[r * e_loc:(r + 1) * e_loc]
     h = torch.bmm(xe, params["wi"])
     if cfg.gated_mlp:
         h = act(torch.bmm(xe, params["wg"])) * h
     else:
         h = act(h)
-    return torch.bmm(h, params["wo"])
+    y = torch.bmm(h, params["wo"])
+    if not tp:
+        return y
+    if e_loc != e:
+        y = F.pad(y, (0, 0, 0, 0, r * e_loc, e - (r + 1) * e_loc))
+    return policy.leave_tp(y)
 
 
 def _route_onehot(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
@@ -142,11 +158,25 @@ def _route_gather(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
 
 def moe_apply(cfg: ModelConfig, params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, D) -> (out, aux_loss)."""
-    m = cfg.moe
+    """x: (B, T, D) -> (out, aux_loss). On a mesh the chunks are the global
+    batch's: where this rank's rows do not end on a chunk boundary, the
+    rows of every data shard are gathered, routed together and this rank's
+    rows kept (`policy.gather_batch`)."""
     b, t, d = x.shape
-    chunk = min(m.router_chunk, b * t)
-    xt = x.reshape(b * t, d)
+    n = policy.batch_shards()
+    chunk = min(cfg.moe.router_chunk, n * b * t)
+    if n > 1 and (b * t) % chunk:
+        xg = policy.gather_batch(x)
+        y, aux = _moe_tokens(cfg, params, xg.reshape(n * b * t, d), chunk)
+        y = policy.local_rows(y.reshape(n * b, t, d), b)
+        return y.to(x.dtype), aux
+    y, aux = _moe_tokens(cfg, params, x.reshape(b * t, d), chunk)
+    return y.reshape(b, t, d).to(x.dtype), aux
+
+
+def _moe_tokens(cfg: ModelConfig, params, xt: torch.Tensor, chunk: int):
+    """(N, D) tokens routed in chunks of `chunk` -> ((N, D), aux)."""
+    m = cfg.moe
     n_tok = xt.shape[0]
     pad = (-n_tok) % chunk
     if pad:
@@ -158,5 +188,4 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor
         y, aux = route(cfg, params, xs, cap)
         ys.append(y)
         auxs.append(aux)
-    y = torch.cat(ys)[:n_tok].reshape(b, t, d)
-    return y.to(x.dtype), torch.stack(auxs).mean()
+    return torch.cat(ys)[:n_tok], torch.stack(auxs).mean()

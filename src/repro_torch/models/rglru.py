@@ -7,6 +7,11 @@ first step, then runs the sweep on the (B, T, W) layout: on a CPU tensor the
 plain log-depth scan, on a CUDA tensor the hand-written LRU kernel
 (`kernels/lru_scan`), in prefill and in decode (T = 1) alike.
 
+On a device mesh the block runs on a rank's width shard: the branch
+projections, the conv, the gates' columns, Λ and the LRU sweep are its
+own, the gates read the whole width (`policy.gather_model`) and `w_out`'s
+partial product is summed over "model".
+
 `jax.nn.softplus` is `log1p(exp(-|x|)) + max(x, 0)` and `jax.nn.gelu`
 the tanh approximation; the port computes both so.
 """
@@ -21,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models.common import dense_init, normal
 from repro_torch.models.mlp import gelu
+from repro_torch.parallel import policy
 
 
 def rglru_init(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -65,11 +71,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp_min(x, 0.0)
 
 
-def _gates(params, x):
-    """a_t (decay) and gated input for the LRU, fp32."""
+def _gates(params, x, x_whole=None):
+    """a_t (decay) and gated input for the LRU, fp32. On a mesh `x` is a
+    rank's width shard and `x_whole` the whole width the gates read."""
     xf = x.float()
-    r = torch.sigmoid(xf @ params["w_rec_gate"].float())
-    i = torch.sigmoid(xf @ params["w_in_gate"].float())
+    xw = xf if x_whole is None else x_whole.float()
+    r = torch.sigmoid(xw @ params["w_rec_gate"].float())
+    i = torch.sigmoid(xw @ params["w_in_gate"].float())
     c = 8.0
     log_a = -c * softplus(params["lam"]) * r
     a = torch.exp(log_a)
@@ -93,16 +101,19 @@ def rglru_block_apply(cfg: ModelConfig, params, x: torch.Tensor,
 
     state (decode): {"h": (B, W) fp32, "conv": (B, cw-1, W)}.
     Returns (out, new_state)."""
+    tp = policy.is_tp(cfg, "rec")          # a rank's width shard
+    if tp:
+        x = policy.enter_tp(x)
     xb = x @ params["w_branch_x"]
     gb = gelu(x @ params["w_branch_g"])
     conv_state = state["conv"] if state is not None else None
     xb, new_conv = causal_conv1d(xb, params["conv"], conv_state)
-    a, b = _gates(params, xb)
+    a, b = _gates(params, xb, policy.gather_model(xb) if tp else None)
     h0 = state["h"] if state is not None else None
     h = lru_scan(a, b, h0)
     out = (h.to(x.dtype) * gb) @ params["w_out"]
     new_state = {"h": h[:, -1].clone(), "conv": new_conv}
-    return out, new_state
+    return (policy.leave_tp(out) if tp else out), new_state
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device):

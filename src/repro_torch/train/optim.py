@@ -10,6 +10,13 @@ The optimizer state holds, for every parameter by its name in
 and a scalar int32 `step`. `apply_updates` updates the state and the
 parameters in place (the JAX package returns new trees), so a step holds
 no second copy of either.
+
+With DTensor parameters (a device mesh, `train/loop.py`) `m`, `v` and
+`master` take each parameter's placements and `step` is replicated (the
+JAX package's `o_shard`). The update is element-wise, so it runs on each
+rank's local shards with the scalars as plain tensors; the clipping norm
+is the whole model's (`global_norm` sums each shard's squares over the
+mesh dims that shard it, never over copies).
 """
 
 from __future__ import annotations
@@ -19,7 +26,10 @@ import math
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,23 +53,59 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage); a tensor as it is."""
+    return t.to_local() if shd.is_distributed(t) else t
+
+
+def replicated_step(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`value` (0-dim) replicated on `like`'s mesh where `like` is a
+    DTensor; else as it is."""
+    if not shd.is_distributed(like):
+        return value
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim)
+
+
 def init_opt_state(params: nn.Module) -> Dict[str, object]:
     named = list(params.named_parameters())
-    dev = named[0][1].device
+    first = named[0][1]
+    dev = _local(first).device
     return {
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        "m": {k: torch.zeros_like(p, dtype=torch.float32)
               for k, p in named},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        "v": {k: torch.zeros_like(p, dtype=torch.float32)
               for k, p in named},
         "master": {k: p.detach().to(torch.float32, copy=True)
                    for k, p in named},
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "step": replicated_step(
+            torch.zeros((), dtype=torch.int32, device=dev), first),
     }
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tensors))
+    """The 2-norm of all `tensors` together, summed in their order. A
+    DTensor's local shard adds its squares once a shard: they are summed
+    over the mesh dims that shard it (`Shard`), never over those holding
+    copies (one all-reduce for the tensors sharing those dims)."""
+    from torch.distributed.tensor import Shard
+
+    sqs = [torch.sum(torch.square(_local(x).float())) for x in tensors]
+    groups = {}
+    for i, x in enumerate(tensors):
+        if shd.is_distributed(x):
+            dims = tuple(d for d, p in enumerate(x.placements)
+                         if isinstance(p, Shard) and x.device_mesh.size(d) > 1)
+            if dims:
+                groups.setdefault((x.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in groups.items():
+        v = torch.stack([sqs[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(v, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sqs[i] = v[j]
+    return torch.sqrt(sum(sqs))
 
 
 @torch.no_grad()
@@ -68,9 +114,11 @@ def apply_updates(cfg: OptConfig, params: nn.Module,
                   grads: Sequence[torch.Tensor]
                   ) -> Tuple[nn.Module, Dict[str, object],
                              Dict[str, torch.Tensor]]:
-    """One AdamW step from `grads` (in `named_parameters()` order), in
-    place; returns (params, opt_state, {"grad_norm", "lr"})."""
-    step = opt_state["step"]
+    """One AdamW step from `grads` (in `named_parameters()` order, each a
+    DTensor in its parameter's placements where the parameters are), in
+    place; returns (params, opt_state, {"grad_norm", "lr"}), the metrics
+    plain 0-dim tensors."""
+    step = _local(opt_state["step"])
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = torch.minimum(torch.ones_like(gnorm),
@@ -79,9 +127,10 @@ def apply_updates(cfg: OptConfig, params: nn.Module,
     bc1 = 1.0 - b1 ** (step.float() + 1.0)
     bc2 = 1.0 - b2 ** (step.float() + 1.0)
     for (name, p), g in zip(params.named_parameters(), grads):
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        master = opt_state["master"][name]
-        g = g.float() * scale
+        m, v = _local(opt_state["m"][name]), _local(opt_state["v"][name])
+        master = _local(opt_state["master"][name])
+        p = _local(p)
+        g = _local(g).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         mh = m / bc1
@@ -89,5 +138,5 @@ def apply_updates(cfg: OptConfig, params: nn.Module,
         master.sub_(lr * (mh / (torch.sqrt(vh) + cfg.eps)
                           + cfg.weight_decay * master))
         p.copy_(master)
-    opt_state["step"] = step + 1
+    opt_state["step"] = replicated_step(step + 1, opt_state["step"])
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

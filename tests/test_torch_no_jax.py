@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no `repro`, in its package (every
 module, the training slice's `train/`, `data/`, `kernels/xent/` and
 `launch/train.py`, the mesh slice's `weather/domain.py` and
-`launch/mesh.py`, and the mesh forecast slice's `serve/forecast.py`,
-`testing/faults.py` and `kernels/slot_guard/` among them) or its chip
-smoke script."""
+`launch/mesh.py`, the mesh forecast slice's `serve/forecast.py`,
+`testing/faults.py` and `kernels/slot_guard/`, and the LM mesh slice's
+`parallel/sharding.py`, `parallel/policy.py` and
+`parallel/compression.py` among them) or its chip smoke script."""
 
 import ast
 import os
@@ -52,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "'repro_torch.testing.faults', 'repro_torch.weather.domain', "
             "'repro_torch.launch.mesh', 'repro_torch.kernels.slot_guard.ops', "
             "'repro_torch.kernels.slot_guard.ref', "
-            "'repro_torch.kernels.slot_guard.slot_guard'):\n"
+            "'repro_torch.kernels.slot_guard.slot_guard', "
+            "'repro_torch.parallel.sharding', 'repro_torch.parallel.policy', "
+            "'repro_torch.parallel.compression'):\n"
             "    assert m in sys.modules, m\n")
     res = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ,
