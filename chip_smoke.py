@@ -122,7 +122,12 @@ norms, parameters) and phase 7's losses, with phase 7's flash, LRU and
 xent launches a step through the DTensor seams and the step beside the
 one-device step (the DTensor overhead); reduced fp32 mesh steps on the
 card against the CPU; the int8 codec and `compressed_psum` on the card;
-times every kernel,
+then the dry-run against the card (phase 13): phase 7's two training
+cells traced as rank 0 of a fake world of one (`launch/dryrun.py`, in a
+subprocess that sees no card), each kernel's traced calls equal to its
+launches in one of phase 7's steps and the roofline bound at or under
+phase 7's measured step, the analytic estimate and the fake live peak
+printed beside the card's peak; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -151,7 +156,9 @@ depth (38 layers) in bf16 at 4 x 2048, remat "full", 3 steps on (2, 2):
 launches a rank, each first loss against a forward-only `model.loss` on
 one card and its first gradient norm against one card's backward, peak
 memory a card, step ms, tokens/s, mfu and rank 0's device
-idle share. It prints no result line.
+idle share; then rank 0's dry-run trace of both cells on a (2, 2) fake
+world, held to the same two gates, its roofline_fraction beside the
+measured mfu. It prints no result line.
 """
 
 from __future__ import annotations
@@ -1165,7 +1172,7 @@ def train_model(torch, dev, check, results, cfg, steps, gen):
         steps=steps, losses=losses, step_ms=step_s * 1e3,
         step_ms_each=[hh["time_s"] * 1e3 for hh in hist],
         tokens_per_s=tokens / step_s, mfu=mfu, peak_gb=peak,
-        launches_per_step=plan, profile=prof)
+        launches_per_step=plan, launches=counts, profile=prof)
     say(f"{label}: step {step_s * 1e3:.1f} ms (median after the first; "
         f"each {[round(hh['time_s'] * 1e3, 1) for hh in hist]}), "
         f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
@@ -1212,6 +1219,8 @@ def train_model(torch, dev, check, results, cfg, steps, gen):
     each = times_ms(lambda: xent_ops.xent_rows(h, w, t,
                                                vocab=cfg.vocab_size), reps)
     ms = statistics.median(each)
+    queued_ms = stream_ms(lambda: xent_ops.xent_rows(
+        h, w, t, vocab=cfg.vocab_size), reps)
     plain_ms = time_ms(lambda: xent_ref.xent_rows(
         h, w, t, None, cfg.vocab_size), reps)
     library_ms = time_ms(lambda: F.cross_entropy(
@@ -1225,14 +1234,16 @@ def train_model(torch, dev, check, results, cfg, steps, gen):
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     fp32_ms, _ = bound(nbytes, flops)
     results[(f"xent_{arch}", "bfloat16")] = dict(
-        err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=b_ms, bound_by=b_by, bound_fp32_cores_ms=fp32_ms,
+        err=err, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_cores_ms=fp32_ms,
         shape=[n, d, vp], tied=cfg.tie_embeddings,
         tflops=flops / ms * 1e-9, ms_each=each)
     say(f"xent {arch} training shape N={n} D={d} Vp={vp} bf16"
         f"{' (embed.T)' if cfg.tie_embeddings else ''}: {ms:.3f} ms = "
         f"{flops / ms * 1e-9:.2f} TFLOP/s (calls "
-        f"{[round(x, 3) for x in each]} ms; err {err:.3g}; plain "
+        f"{[round(x, 3) for x in each]} ms; {reps} queued back to back "
+        f"{queued_ms:.3f} ms a call; err {err:.3g}; plain "
         f"{plain_ms:.3f} ms; library pair h @ head + F.cross_entropy, "
         f"two calls, {library_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
         f"at 989 TFLOP/s bf16; on the fp32 cores' 67 TFLOP/s "
@@ -2945,6 +2956,122 @@ def codec_checks(torch, dev, check, mesh, say_fn):
     e = max(float((ex[k] - v).abs().max()) for k, v in tree.items())
     check(e <= float(s.max()) * 1.01, "exact_compressed_psum")
 
+# ---------------------------------------------------------------------------
+# phase 13 and --train-mesh: the dry-run's trace held to the card's step
+# ---------------------------------------------------------------------------
+
+# rank 0's trace of training cells on a fake world (`launch/dryrun.py`);
+# argv[1]: [[[arch, layers kept (0: all)], ...], mesh shape, batch, seq]
+DRYRUN_TRACE = r"""
+import dataclasses, json, sys
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import hwspec
+from repro_torch.launch import dryrun
+
+cells, dims, batch, seq = json.loads(sys.argv[1])
+mesh = dryrun.cell_mesh(tuple(dims), ("data", "model"))
+out = {}
+for arch, layers in cells:
+    cfg = registry.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    out[arch] = dryrun.trace_cell(
+        cfg, ShapeConfig("smoke", seq, batch, "train"), mesh, remat="full",
+        spec=hwspec.load_spec("h100_sxm"))
+print(json.dumps(out))
+"""
+# the launcher's variables a trace's process must not see (its fake world
+# is its own)
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "GROUP_RANK", "ROLE_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "TORCHELASTIC_RUN_ID")
+
+
+def dryrun_traces(cells, dims):
+    """Rank 0's trace of each (arch, layers) training cell at TRAIN_BATCH x
+    TRAIN_SEQ, bf16, remat "full", on a fake world of prod(dims) ranks
+    (`launch/dryrun.py::trace_cell` against the h100_sxm spec), in a
+    subprocess that sees no card and no process group of this one:
+    ({arch: result}, seconds)."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_ENV}
+    env.update(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", DRYRUN_TRACE,
+         json.dumps([cells, list(dims), TRAIN_BATCH, TRAIN_SEQ])],
+        env=env, capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        raise SmokeFailure(f"the dry-run's trace failed:\n"
+                           f"{res.stderr[-3000:]}")
+    return (json.loads(res.stdout.strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def hold_dryrun(check, say_fn, label, r, per_step, step_ms, peak_gb,
+                mfu=None) -> dict:
+    """The gates of a traced cell against the card's run of it: each
+    kernel's traced calls equal its launches in one step, and the roofline
+    bound is at or under the measured step (a bound above it would mean
+    the counter over-counts). The analytic estimate and the fake live peak
+    are printed beside the card's peak, not held: the analytic model is the
+    JAX package's, written for a TPU. Returns the line's numbers."""
+    rf = r["roofline"]
+    bound_ms = rf["step_time_bound_s"] * 1e3
+    mem = r["memory"]
+    out = dict(calls=r["kernel_calls"], launches_per_step=per_step,
+               bound_ms=bound_ms, dominant=rf["dominant"],
+               compute_ms=rf["compute_s"] * 1e3,
+               memory_ms=rf["memory_s"] * 1e3,
+               collective_ms=rf["collective_s"] * 1e3, step_ms=step_ms,
+               bound_share=bound_ms / step_ms,
+               roofline_fraction=rf["roofline_fraction"], mfu=mfu,
+               analytic_gb=mem["analytic"]["total"] / 1e9,
+               fake_live_gb=mem["fake_live_bytes_per_device"] / 1e9,
+               peak_gb=peak_gb, flops=r["cost"]["flops"],
+               bytes=r["cost"]["bytes accessed"],
+               collectives=r["collectives"], trace_s=r["trace_s"])
+    say_fn(f"dryrun {label}: kernel calls traced {out['calls']}, launched "
+           f"a step {per_step}; bound {bound_ms:.1f} ms ({rf['dominant']}: "
+           f"compute {out['compute_ms']:.1f}, memory {out['memory_ms']:.1f},"
+           f" collective {out['collective_ms']:.1f} ms; {out['flops']:.4g} "
+           f"FLOPs, {out['bytes']:.4g} bytes, collectives "
+           f"{out['collectives']}) against the measured step {step_ms:.1f} "
+           f"ms ({out['bound_share']:.3f} of it); roofline_fraction "
+           f"{out['roofline_fraction']:.4f}"
+           + (f" beside the measured mfu {mfu:.4f}" if mfu is not None
+              else "")
+           + f"; memory a device: analytic estimate {out['analytic_gb']:.2f}"
+           f" GB, fake live peak {out['fake_live_gb']:.2f} GB, the card's "
+           f"peak {peak_gb:.2f} GB (printed, not held); trace "
+           f"{r['trace_s']:.1f} s")
+    check(out["calls"] == per_step,
+          f"dryrun {label}: traced calls {out['calls']}, launched a step "
+          f"{per_step}")
+    check(bound_ms <= step_ms,
+          f"dryrun {label}: bound {bound_ms:.1f} ms above the measured "
+          f"step {step_ms:.1f} ms")
+    return out
+
+
+def dryrun_phase(torch, check, results):
+    """The dry-run against the card (phase 13): phase 7's training cells
+    (tinyllama-1.1b in full, recurrentgemma-9b at full width and 3 layers,
+    TRAIN_BATCH x TRAIN_SEQ, bf16, remat "full") traced at world 1 on a
+    (1, 1) fake mesh, in a subprocess (phase 12 held a real process
+    group), each held to phase 7's measured run (`hold_dryrun`)."""
+    cells = [[arch, layers] for arch, layers, _ in TRAIN_RUNS]
+    traced, secs = dryrun_traces(cells, (1, 1))
+    say(f"dryrun: {len(cells)} cells traced at world 1 in {secs:.1f} s "
+        f"(one subprocess, no card)")
+    for arch, layers, steps in TRAIN_RUNS:
+        m = results[(f"train_{arch}", "bfloat16")]
+        per_step = {k: v // steps for k, v in m["launches"].items()}
+        label = arch + (f" ({layers} layers)" if layers else "")
+        results[(f"dryrun_{arch}", "bfloat16")] = hold_dryrun(
+            check, say, label, traced[arch], per_step, m["step_ms"],
+            m["peak_gb"], m["mfu"])
+
 
 def train_mesh_phase(torch, dev, check, results):
     """LM training on a (1, 1) `DeviceMesh` on this card (phase 12): NCCL
@@ -3065,8 +3192,12 @@ def train_mesh_main() -> int:
     card from the same seed and batch (MESH4_LOSS_RTOL) and its first
     gradient norm to one card's backward (MESH4_GNORM_RTOL), peak memory a
     card under 80 GB; step ms, tokens/s, mfu over the four cards and a
-    profiled step's device idle share on rank 0. Prints no result line;
-    exits nonzero where a check failed on any rank."""
+    profiled step's device idle share on rank 0. Then rank 0 traces both
+    cells on a (2, 2) fake world (`dryrun_traces`) and holds its trace to
+    its rank's run (`hold_dryrun`: calls equal to launches a step, the
+    bound at or under the measured step), the dry-run's roofline_fraction
+    beside the measured mfu. Prints no result line; exits nonzero where a
+    check failed on any rank."""
     import torch
     import torch.distributed as dist
 
@@ -3113,6 +3244,7 @@ def train_mesh_main() -> int:
     codec_checks(torch, dev, check, meshes[(2, 2)], say0)
     mesh = meshes[(2, 2)]
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    measured = {}
     for arch, steps in MESH4_FULL:
         cfg = registry.get_config(arch)
         label = f"train mesh 4 cards {arch}"
@@ -3162,6 +3294,8 @@ def train_mesh_main() -> int:
         check(all(x == x and abs(x) < 1e30 for x in losses),
               f"{label}: non-finite loss")
         check(float(peaks) < 80.0, f"{label}: peak {float(peaks):.1f} GB")
+        measured[arch] = ({k: v // steps for k, v in launches.items() if v},
+                          step_s * 1e3, float(peaks), mfu)
         idle = prof["idle_share"] if prof else None
         say0(f"{label}: step {step_s * 1e3:.1f} ms (median after the "
              f"first; each {[round(x['time_s'] * 1e3, 1) for x in hist]}), "
@@ -3176,6 +3310,15 @@ def train_mesh_main() -> int:
                 if prof else "no device kernel seen (not measured)"))
         del params
         torch.cuda.empty_cache()
+    if rank == 0:           # the dry-run of both cells against these runs
+        traced, secs = dryrun_traces([[arch, 0] for arch, _ in MESH4_FULL],
+                                     (2, 2))
+        say0(f"train mesh dryrun: {len(MESH4_FULL)} cells traced as rank 0 "
+             f"of a (2, 2) fake world in {secs:.1f} s (one subprocess, no "
+             f"card)")
+        for arch, _ in MESH4_FULL:
+            hold_dryrun(check, say0, f"4 cards (2, 2) {arch}", traced[arch],
+                        *measured[arch])
     bad = torch.tensor([len(failures)], device=dev)
     dist.all_reduce(bad, op=dist.ReduceOp.MAX)
     dist.destroy_process_group()
@@ -4702,6 +4845,11 @@ def main() -> int:
 
     phase_done("phase 12 (LM training on a mesh)")
 
+    # ---- 13. the dry-run against the card ----------------------------------
+    dryrun_phase(torch, check, results)
+
+    phase_done("phase 13 (dry-run against the card)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -4811,6 +4959,8 @@ def main() -> int:
             paths.update({f"train_mesh {arch}": {"launches": n[name]}
                           for arch, n in train_mesh_launches.items()})
             kernels[-1]["paths"] = paths
+        if name == "xent":
+            kernels[-1]["queued_ms"] = r["queued_ms"]
         if name in ("flash_attn", "xent"):
             # the times above are the bf16 tensor-core kernel's; fp32
             # operands take the fp32-core kernel

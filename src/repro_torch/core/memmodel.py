@@ -1,10 +1,14 @@
-"""Modelled main-memory and wire bytes of the stencil ops.
+"""Modelled main-memory and wire bytes of the stencil ops, and the LM
+dry-run's per-device memory estimate.
 
-A port of the stencil half of `repro.core.memmodel` (`estimate`, the LM
-dry-run's memory fit, is not here), in the JAX package's arithmetic and
+A port of `repro.core.memmodel`, in the JAX package's arithmetic and
 under its key names, built on the port's `tiling.TilePlan` and `OpSpec`s.
 `ExecutionPlan.report()["traffic"]` and the k-step resolver
-(`autotune.plan_k_steps`) read it.
+(`autotune.plan_k_steps`) read the stencil half; `launch/dryrun.py` reads
+`estimate`, the analytic per-device bytes of a train, prefill or decode
+step (written by the JAX package for a TPU: param, optimizer and grad
+shards, remat carries, a working set), which the dry-run records beside
+the fake trace's live peak.
 
 What it counts is the JAX package's model of a TPU window: each `TilePlan`
 window staged whole into near memory, its halo re-read from main memory.
@@ -19,7 +23,7 @@ they are not the CUDA kernels' own access patterns, and carry no time.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 from repro_torch.core import hierarchy as hw
 from repro_torch.core import tiling
@@ -276,3 +280,152 @@ def stencil_op_traffic(spec, grid_shape, dtype, *, n_fields: int = 1,
         "halo_overhead": plan.halo_overhead,
         "flops_per_step": n_fields * plan.flops_total,
     }
+
+
+# ---------------------------------------------------------------------------
+# the LM dry-run's memory estimate
+# ---------------------------------------------------------------------------
+
+def _jax_leaves(named: List[Tuple[Tuple[str, ...], bool, tuple, tuple,
+                                  int]]):
+    """The JAX package's leaves from the port's: (path, stacked, shape,
+    spec, itemsize) a port tensor, where a stacked path's layers are one
+    JAX leaf with a leading scan axis (its spec a leading None)."""
+    out: Dict[Tuple[str, ...], list] = {}
+    for path, stacked, shape, spec, itemsize in named:
+        if not stacked:
+            out[("#",) + path] = [tuple(shape), tuple(spec), itemsize]
+        elif path in out:
+            out[path][0] = (out[path][0][0] + 1,) + out[path][0][1:]
+        else:
+            out[path] = [(1,) + tuple(shape), (None,) + tuple(spec),
+                         itemsize]
+    return out.values()
+
+
+def _shard_bytes(leaves, mesh) -> int:
+    """Sum per-device bytes of (shape, spec, itemsize) leaves on `mesh`
+    (the JAX package's arithmetic, float for float)."""
+    from repro_torch.parallel.sharding import mesh_shape
+
+    sizes = mesh_shape(mesh)
+    total = 0
+    for shape, spec, itemsize in leaves:
+        n = 1
+        for i, s in enumerate(shape):
+            ax = spec[i] if i < len(spec) else None
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            div = math.prod(sizes[a] for a in axes)
+            s = -(-s // div)
+            n *= s / shape[i]
+        total += int(n * math.prod(shape)) * itemsize
+    return total
+
+
+def _param_leaves(params, specs):
+    """A model's parameters (`Model.param_shapes()` will do) and their
+    specs by name (`sharding.params_sharding`) as the JAX package's
+    leaves."""
+    from repro_torch.parallel.sharding import jax_path
+
+    named = []
+    for name, p in params.named_parameters():
+        path, stacked = jax_path(params.cfg, name)
+        named.append((path, stacked, tuple(p.shape), tuple(specs[name]),
+                      p.element_size()))
+    return _jax_leaves(named)
+
+
+def _cache_leaves(cfg, cache, specs):
+    """A cache (`Model.init_cache`, meta tensors will do) and its specs
+    (`sharding.cache_sharding`) as the JAX package's leaves."""
+    from repro_torch.parallel.sharding import _cache_path
+
+    named = []
+    if isinstance(cache, dict):                          # encoder-decoder
+        for c, sp in zip(cache["dec"], specs["dec"]):
+            for k, t in c.items():
+                named.append((("dec", "self", k), True, tuple(t.shape),
+                              tuple(sp[k]), t.element_size()))
+        if "enc" in cache:
+            t = cache["enc"]
+            named.append((("enc",), False, tuple(t.shape),
+                          tuple(specs["enc"]), t.element_size()))
+    else:
+        for i, (c, sp) in enumerate(zip(cache, specs)):
+            prefix, stacked = _cache_path(cfg, i)
+            for k, t in c.items():
+                named.append((prefix + (k,), stacked, tuple(t.shape),
+                              tuple(sp[k]), t.element_size()))
+    return _jax_leaves(named)
+
+
+def estimate(cfg, shape, mesh, p_shapes, p_shard, cache_shapes=None,
+             cache_shard=None, *, microbatches: int = 1,
+             xent_chunk: int = 512, spec=None) -> Dict[str, int]:
+    """Analytic per-device bytes of a `shape` cell of `cfg` on `mesh` (a
+    `DeviceMesh`, or the port's `Mesh`, which needs no process group):
+    the JAX package's `estimate`, key for key. `p_shapes` is
+    `Model.param_shapes()` and `p_shard` its specs by name
+    (`params_sharding`); `cache_shapes` and `cache_shard` the cache and
+    its specs (`cache_sharding`). Per device:
+
+      train:   param shards + opt state (3x f32 shards) + grad shards (f32)
+               + one (B, T, D) residual a remat carry / microbatches + a
+               backward working set + xent chunk buffers;
+      prefill: param shards + cache shards + ~2 layers of activations +
+               the last logits;
+      decode:  param shards + cache shards + O(B·d) vectors.
+
+    `fits_16g` keeps the JAX package's key (its default spec's HBM is
+    16 GiB); it means the total fits `spec`'s main memory, 80 GB on the
+    default H100 spec."""
+    from repro_torch.parallel import sharding as shd
+
+    sizes = shd.mesh_shape(mesh)
+    model_par = sizes.get("model", 1)
+    b_axes = shd.batch_sharding(mesh, shape.global_batch)
+    dp = 1
+    if b_axes:
+        axes = b_axes if isinstance(b_axes, tuple) else (b_axes,)
+        dp = math.prod(sizes[a] for a in axes)
+    b_loc = -(-shape.global_batch // dp)
+    t = shape.seq_len
+    d = cfg.d_model
+    vocab_loc = -(-cfg.padded_vocab // model_par)
+
+    params_b = _shard_bytes(_param_leaves(p_shapes, p_shard), mesh)
+    out = {"params": params_b}
+
+    if shape.kind == "train":
+        out["opt_state"] = params_b * 2 * 3        # 3x f32 vs bf16 shards
+        out["grads"] = params_b * 2                # f32 grad shards
+        # remat=full checkpoints at pattern-period boundaries: one
+        # (B, T, D) residual a period + the remainder blocks
+        n_carries = cfg.n_repeats + cfg.n_remainder
+        carry = n_carries * b_loc * (t // microbatches) * d * 2
+        out["remat_carries"] = carry
+        ff_loc = max(cfg.d_ff // model_par, d // model_par, 1)
+        working = 6 * b_loc * (t // microbatches) * (d + ff_loc) * 4
+        out["bwd_working_set"] = working
+        out["xent"] = 2 * b_loc * min(xent_chunk, t) * vocab_loc * 4 * 2
+    else:
+        if cache_shapes is not None and cache_shard is not None:
+            out["cache"] = _shard_bytes(
+                _cache_leaves(cfg, cache_shapes, cache_shard), mesh)
+        if shape.kind == "prefill":
+            ff_loc = max(cfg.d_ff // model_par, d // model_par, 1)
+            out["activations"] = 4 * b_loc * t * (d + ff_loc) * 2
+            out["logits_tail"] = b_loc * vocab_loc * 4
+        else:
+            out["activations"] = 8 * b_loc * d * 4
+            out["logits"] = b_loc * vocab_loc * 4
+
+    out["total"] = sum(out.values())
+    if spec is None:
+        from repro_torch.core import hwspec
+        spec = hwspec.default_spec()
+    out["fits_16g"] = bool(out["total"] <= spec.main.capacity_bytes)
+    return out

@@ -10,6 +10,10 @@ over every path, g_t = dh_t + a_{t+1} g_{t+1} (a_T = 0), so
 g = reverse_sweep(a shifted one step, dh); then db = g and
 da_t = g_t h_{t-1} (h_{-1} = 0). On the card the reverse sweep is the
 kernel's `reverse` mode; on the CPU the plain version on flipped operands.
+
+On a fake or meta tensor (a dry-run's trace, `core/op_cost.py`) a sweep
+launches nothing, whatever the tensor's device: it returns an empty
+output and records one call of the kernel with its bytes in and out.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import op_cost
 from repro_torch.kernels.lru_scan import ref as _ref
 from repro_torch.kernels.lru_scan.lru_scan import (check_operands,
                                                    lru_scan_cuda)
@@ -27,6 +32,14 @@ def sweep(a: torch.Tensor, b: torch.Tensor, *,
     """The sweep without a gradient: h_t = a_t h_{t-1} + b_t, h_{-1} = 0,
     along axis -2 of (T, C) or (B, T, C) operands (with `reverse`,
     h_t = a_t h_{t+1} + b_t from the last step down); in a's dtype."""
+    if op_cost.is_fake(a):
+        check_operands(a, b)
+        h = torch.empty_like(a)
+        # a multiply-add a step and channel
+        op_cost.record_kernel("lru_scan", 2.0 * a.numel(),
+                              sum(t.numel() * t.element_size()
+                                  for t in (a, b, h)))
+        return h
     if a.device.type == "cpu":
         check_operands(a, b)
         if reverse:

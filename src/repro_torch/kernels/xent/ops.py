@@ -15,6 +15,14 @@ in fp32). The two products that carry the gradient back, d hidden and
 d head, run in the activation dtype. The gradient is zero on padding
 columns and invalid rows and carries tanh' where `softcap` is set. A
 hand-written backward kernel is later work (ROADMAP queue 2).
+
+On a fake or meta tensor (a dry-run's trace, `core/op_cost.py`)
+`xent_rows` launches nothing, whatever the tensor's device: it returns
+empty outputs and records one call of the kernel with its own cost,
+2 x N x D x Vp FLOPs (an exponential a logit, and a tanh where `softcap`
+is set) and its operands' and outputs' bytes. The backward is plain
+PyTorch on both devices, so a trace counts it as the operations the card
+runs.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.kernels.xent import ref
 from repro_torch.kernels.xent.xent import check_operands, xent_cuda
 
@@ -35,11 +44,28 @@ def xent_rows(hidden: torch.Tensor, head: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row NLL (times `valid`) and log-normaliser, fp32 (N,).
     hidden (N, D); head (D, Vp); targets (N,)."""
+    if op_cost.is_fake(hidden):
+        check_operands(hidden, head, targets, valid, vocab)
+        return _traced(hidden, head, targets, valid, softcap)
     if hidden.device.type == "cpu":
         check_operands(hidden, head, targets, valid, vocab)
         return ref.xent_rows(hidden, head, targets, valid, vocab, softcap)
     return xent_cuda(hidden, head, targets, valid, vocab=vocab,
                      softcap=softcap)
+
+
+def _traced(hidden, head, targets, valid, softcap):
+    """A trace's call: nothing launched, the kernel's cost recorded."""
+    n, d = hidden.shape
+    vp = head.shape[1]
+    nll = torch.empty(n, dtype=torch.float32, device=hidden.device)
+    lse = torch.empty_like(nll)
+    ins = (hidden, head, targets) + ((valid,) if valid is not None else ())
+    op_cost.record_kernel(
+        "xent", 2.0 * n * d * vp,
+        sum(t.numel() * t.element_size() for t in ins + (nll, lse)),
+        transcendentals=n * vp * (2 if softcap else 1))
+    return nll, lse
 
 
 def _backward(hidden, head, targets, valid, lse, dnll, vocab, softcap):

@@ -176,7 +176,14 @@ def make_device_mesh(shape, axes, device_type: Optional[str] = None):
     for a (1, ..., 1) shape when none exists; an existing group is used as
     it is. Raises when the world is not prod(shape), or when the card is
     asked for and CUDA or NCCL is not there: nothing falls back to gloo or
-    the CPU."""
+    the CPU.
+
+    One exception: a group the caller made with the "fake" backend
+    (`torch.testing._internal.distributed.fake_pg.FakeStore`; the
+    dry-run's world, `launch/dryrun.py`), whose collectives move nothing.
+    On it a mesh of either device type is made without a card, and may
+    take the world's first prod(shape) ranks, so one fake world serves
+    meshes of several sizes."""
     import os
 
     import torch.distributed as dist
@@ -188,6 +195,13 @@ def make_device_mesh(shape, axes, device_type: Optional[str] = None):
     if device_type not in ("cuda", "cpu"):
         raise ValueError(f"device_type {device_type!r}: 'cuda' or 'cpu'")
     cuda = device_type == "cuda"
+    fake = dist.is_initialized() and dist.get_backend() == "fake"
+    if fake:
+        if n > dist.get_world_size():
+            raise RuntimeError(f"mesh {shape} needs {n} ranks, the fake "
+                               f"world has {dist.get_world_size()}")
+        return init_device_mesh(device_type, shape,
+                                mesh_dim_names=tuple(axes))
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("make_device_mesh: no CUDA device is available; "
                            "pass device_type='cpu' for gloo on the CPU")

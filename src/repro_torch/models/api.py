@@ -101,7 +101,10 @@ class Model:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
-        tokens = batch["tokens"]
+        """The prompt's logits and a cache ready to decode at its end. On
+        a device mesh (rules set, `parallel/policy.py`) a batch DTensor is
+        this rank's rows first, so the cache is the rank's."""
+        tokens = policy.batch_local(batch["tokens"])
         if self.family == "encdec":
             enc = encdec.encode(self.cfg, params, batch["frames"])
             cache = encdec.init_cache(self.cfg, tokens.shape[0],

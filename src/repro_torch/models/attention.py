@@ -5,7 +5,9 @@ attention layer runs in prefill: on a CPU tensor it is the JAX package's
 chunked online-softmax body in plain PyTorch (q scaled in its own dtype, as
 the model scales it); on a CUDA tensor it launches the hand-written flash
 kernel (`kernels/flash_attention`, the twin of the TPU serving path's
-Pallas kernel, which scales q in fp32) or raises. `decode_attention` and
+Pallas kernel, which scales q in fp32) or raises. A fake tensor of a
+dry-run's trace takes the kernel's way too, and its wrapper records the
+call (`core/op_cost.py`). `decode_attention` and
 `dense_attention` (the encoder-decoder's cross-attention) have no kernel in
 the reference and stay plain PyTorch. On a device mesh every one of them
 runs on a rank's local (batch shard, head shard) tensors
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -64,7 +67,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Online-softmax attention that never materializes (T, S).
     q: (B, T, H, hd); k, v: (B, S, K, hd). On CUDA the kernel picks its own
     blocks."""
-    if q.device.type != "cpu":
+    if q.device.type != "cpu" or op_cost.is_fake(q):
         return flash_ops.flash_mha(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     return _flash_attention(q, k, v, causal=causal, window=window,

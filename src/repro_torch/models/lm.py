@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import op_cost
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import blocks as B
 from repro_torch.parallel import policy
@@ -225,10 +226,11 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
     hidden: (B, T, D); targets: (B, T) aligned with hidden; `vocab`: the
     logical vocab size (masks physical padding columns). On a CUDA tensor
     the fused cross-entropy kernel runs (its fp32 product; its backward
-    recomputes 512 rows at a time). On a CPU tensor the JAX package's body
-    runs: windows of `chunk` positions, the product in the activation
+    recomputes 512 rows at a time), and on a fake tensor of a dry-run's
+    trace its wrapper records the call. On a CPU tensor the JAX package's
+    body runs: windows of `chunk` positions, the product in the activation
     dtype, then fp32."""
-    if hidden.device.type != "cpu":
+    if hidden.device.type != "cpu" or op_cost.is_fake(hidden):
         return xent_ops.fused_xent_mean(hidden, head, targets, vocab=vocab,
                                         softcap=softcap)
     b, t, _ = hidden.shape

@@ -1,0 +1,284 @@
+"""The port's LM dry-run (`repro_torch.launch.dryrun`) against the JAX
+package's `repro.launch.dryrun` and `repro.core.hlo_cost`.
+
+One subprocess (`port`) makes a fake world of 8 ranks and traces each
+reduced configuration's train step (8 x 64, remat "full"), prefill
+(8 x 64) and decode step (8 rows against a 64-deep cache) on a (2, 4)
+("data", "model") mesh as rank 0. Two subprocesses (`jax_flops`) compile
+the same train cells with the JAX package's `build_cell` on a (2, 4) mesh
+of 8 forced host devices and count them with `hlo_cost` (the loop-aware
+per-device FLOPs).
+
+Held:
+* every cell traces (no error), and its kernel calls are what the card
+  launches: a train step's flash, LRU and xent calls phase 7's plan, a
+  prefill's flash calls its attention layers (the encoder's too), a
+  decode step's LRU calls its recurrent layers;
+* each family's per-device train FLOPs against `hlo_cost`'s. They differ
+  by what the port does differently, by design or not yet done, and the
+  ratio is held to its written reading within `RTOL` and to the band
+  [`LO`, `HI`] the ten readings span:
+    - the xent kernel and its plain backward run against the whole head
+      on every model rank (the JAX package shards the vocab over
+      "model"): x1.41 for the dense decoders, x1.34 for whisper;
+    - mamba2's SSD mixer is not tensor-parallel in the port, so each of
+      the 4 model ranks runs all of it: x3.45;
+    - gemma3's local layers: the flash kernel visits only the blocks
+      inside the window, JAX's chunked attention computes every block:
+      x0.84; the MoE configs and recurrentgemma agree within 3%;
+* the flags the port does not offer are refused (`--attn-kernel`,
+  `--fsdp-gather`; `--seq-shard` with a message naming the missing
+  sequence parallelism), and a skipped cell is recorded as skipped.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["gemma3-27b", "granite-moe-3b-a800m", "mamba2-1.3b",
+         "moonshot-v1-16b-a3b", "olmo-1b", "qwen2-vl-72b",
+         "recurrentgemma-9b", "tinyllama-1.1b", "whisper-medium", "yi-34b"]
+B, T = 8, 64
+
+# per-device train FLOPs on (2, 4): (port trace, JAX hlo_cost), read on
+# this commit's two packages
+READINGS = {
+    "gemma3-27b": (261_127_152.0, 311_204_071.0),
+    "granite-moe-3b-a800m": (204_887_184.0, 204_973_185.0),
+    "mamba2-1.3b": (178_593_600.0, 51_717_893.0),
+    "moonshot-v1-16b-a3b": (204_887_232.0, 205_005_962.0),
+    "olmo-1b": (90_730_512.0, 64_516_833.0),
+    "qwen2-vl-72b": (90_449_936.0, 64_065_331.0),
+    "recurrentgemma-9b": (147_886_804.0, 144_306_021.0),
+    "tinyllama-1.1b": (90_449_936.0, 64_065_331.0),
+    "whisper-medium": (103_012_736.0, 76_634_452.0),
+    "yi-34b": (90_449_936.0, 64_065_331.0),
+}
+RTOL = 0.01                 # a ratio's drift from its reading
+LO, HI = 0.80, 3.60         # the band of the ten ratios (0.84 .. 3.45)
+
+_PORT = r"""
+import json, sys
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+
+mesh = dryrun.cell_mesh((2, 4), ("data", "model"))
+out = {}
+for arch in sys.argv[2].split(","):
+    cfg = registry.reduced_config(registry.get_config(arch))
+    for kind in ("train", "prefill", "decode"):
+        try:
+            r = dryrun.trace_cell(cfg, ShapeConfig(kind, %(T)d, %(B)d, kind),
+                                  mesh)
+            out[f"{arch}|{kind}"] = {"flops": r["cost"]["flops"],
+                                     "calls": r["kernel_calls"],
+                                     "dominant": r["roofline"]["dominant"],
+                                     "live": r["memory"][
+                                         "fake_live_bytes_per_device"]}
+        except Exception as e:
+            out[f"{arch}|{kind}"] = {"error": f"{type(e).__name__}: {e}"}
+out["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+json.dump(out, open(sys.argv[1], "w"))
+""" % {"T": T, "B": B}
+
+_JAX = r"""
+import json, sys
+import jax
+import numpy as np
+from jax.sharding import Mesh
+from repro.configs import registry
+from repro.configs.base import SHAPES, ShapeConfig
+from repro.core import hlo_cost
+from repro.launch import dryrun
+from repro.parallel import policy
+from repro.parallel import sharding as shd
+
+SHAPES["tiny_train"] = ShapeConfig("tiny_train", %(T)d, %(B)d, "train")
+full = registry.get_config
+registry.get_config = lambda a: registry.reduced_config(full(a))
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+out = {}
+for arch in sys.argv[2].split(","):
+    fn, args, in_sh, out_sh, _ = dryrun.build_cell(arch, "tiny_train", mesh)
+    with mesh, policy.activation_rules(shd.batch_sharding(mesh, %(B)d),
+                                       fsdp_gather=True, model_par=4):
+        c = jax.jit(fn, in_shardings=in_sh,
+                    out_shardings=out_sh).lower(*args).compile()
+    out[arch] = hlo_cost.analyze_text(c.as_text()).flops
+json.dump(out, open(sys.argv[1], "w"))
+""" % {"T": T, "B": B}
+
+
+def _run(code, out, archs, env):
+    return subprocess.Popen([sys.executable, "-c", code, str(out),
+                             ",".join(archs)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+@pytest.fixture(scope="module")
+def traces(tmp_path_factory):
+    """(the port's traces by "arch|kind", JAX's FLOPs by arch)."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    jenv = {**env, "JAX_PLATFORMS": "cpu",
+            # one thread: the suite's other workers share the cores
+            "XLA_FLAGS": "--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_multi_thread_eigen=false "
+                         "intra_op_parallelism_threads=1"}
+    halves = [ARCHS[0::2], ARCHS[1::2]]
+    procs = [_run(_PORT, tmp / "port.json", ARCHS, env)] + [
+        _run(_JAX, tmp / f"jax{i}.json", h, jenv)
+        for i, h in enumerate(halves)]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ref = {}
+    for i in range(len(halves)):
+        ref.update(json.loads((tmp / f"jax{i}.json").read_text()))
+    return json.loads((tmp / "port.json").read_text()), ref
+
+
+def _trace(traces, arch, kind):
+    out = traces[0][f"{arch}|{kind}"]
+    assert "error" not in out, out["error"]
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_flops_against_hlo_cost(traces, arch):
+    got = _trace(traces, arch, "train")["flops"]
+    want = traces[1][arch]
+    ratio = got / want
+    port, jax_ = READINGS[arch]
+    assert ratio == pytest.approx(port / jax_, rel=RTOL), (got, want)
+    assert LO <= ratio <= HI
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_kernel_calls_are_what_the_card_launches(traces, arch):
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = registry.reduced_config(registry.get_config(arch))
+    train = _trace(traces, arch, "train")["calls"]
+    prefill = _trace(traces, arch, "prefill")["calls"]
+    decode = _trace(traces, arch, "decode")["calls"]
+    assert train.pop("xent") == 1 and "xent" not in prefill
+    if cfg.encdec:
+        n = cfg.encdec.encoder_layers + cfg.n_layers
+        assert train == {"flash_attn": n} and prefill == {"flash_attn": n}
+        assert decode == {}
+        return
+    kinds = lm.layer_kinds(cfg)
+    recomputed = kinds[:cfg.n_repeats * len(cfg.pattern)]
+    attn = sum(k not in ("rec", "ssd") for k in kinds)
+    want = {"flash_attn": attn + sum(k not in ("rec", "ssd")
+                                     for k in recomputed),
+            "lru_scan": 2 * kinds.count("rec") + recomputed.count("rec")}
+    assert train == {k: v for k, v in want.items() if v}
+    assert prefill == {k: v for k, v in (("flash_attn", attn),
+                                         ("lru_scan", kinds.count("rec")))
+                       if v}
+    assert decode == ({"lru_scan": kinds.count("rec")}
+                      if "rec" in kinds else {})
+
+
+def test_the_trace_loads_no_jax(traces):
+    assert traces[0]["modules"] == []
+
+
+@pytest.mark.parametrize("flag", ["--attn-kernel", "--fsdp-gather"])
+def test_flags_the_port_does_not_offer(flag, capsys):
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "yi-34b", "--shape", "train_4k", flag])
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_seq_shard_is_refused(capsys):
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "yi-34b", "--shape", "train_4k",
+                     "--seq-shard"])
+    assert e.value.code == 2
+    assert "no sequence parallelism" in capsys.readouterr().err
+
+
+def test_a_skipped_cell_is_recorded(tmp_path, monkeypatch):
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    r = dryrun.run_cell("tinyllama-1.1b", "long_500k", "multi")
+    assert r["status"] == "skipped"
+    assert r["reason"] == "pure full-attention arch"
+    assert json.loads((tmp_path / "tinyllama-1.1b__long_500k__multi__"
+                       "baseline.json").read_text()) == r
+
+
+_WORLD_ONE = r"""
+import dataclasses, json, sys
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+
+cfg = dataclasses.replace(
+    registry.reduced_config(registry.get_config(sys.argv[2])),
+    dtype="float32", param_dtype="float32")
+mesh = dryrun.cell_mesh((1, 1), ("data", "model"))
+r = dryrun.trace_cell(cfg, ShapeConfig("t", 33, 2, "train"), mesh)
+json.dump(r["kernel_calls"], open(sys.argv[1], "w"))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-medium"])
+def test_cuda_traced_calls_equal_a_steps_launches(arch, tmp_path):
+    """A reduced fp32 train step traced at world 1 (a subprocess: the
+    trace's fake world beside nothing else) calls each kernel as often as
+    the same step on the card launches it (`_build.LAUNCHES`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the H100")
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    res = subprocess.run(
+        [sys.executable, "-c", _WORLD_ONE, str(tmp_path / "calls.json"),
+         arch], env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    traced = json.loads((tmp_path / "calls.json").read_text())
+    cfg = dataclasses.replace(
+        registry.reduced_config(registry.get_config(arch)),
+        dtype="float32", param_dtype="float32")
+    model = api.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             synthetic.lm_batch(cfg, 0, 0, 2, 33).items()}
+    step = loop.make_train_step(model, optim.OptConfig())
+    _build.reset_launches()
+    step(params, optim.init_opt_state(params), batch)
+    torch.cuda.synchronize()
+    assert traced == {k: v for k, v in _build.LAUNCHES.items() if v}

@@ -6,7 +6,21 @@ Both run the same arithmetic over the same `OpSpec`s, so every number of
 `stencil_op_traffic` and `pipeline_step_traffic` agrees to `rel=1e-12`
 (integers exactly) over a small set of grids, dtypes, windows, depths and
 shard layouts, and both refuse the same too-deep halo.
+
+`estimate`, the LM dry-run's per-device memory, is equal integer for
+integer (every key, `fits_16g` too, against the `tpu_v5e` spec in both)
+for all ten configurations x four shapes x both production meshes (train
+at one and two microbatches). The JAX side runs once, in a subprocess
+with 512 forced host devices (its `dryrun.py`'s setting), on
+`make_production_mesh`; the port's side on `make_mesh` over 512 listed
+CPU devices, which needs no process group.
 """
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -140,3 +154,123 @@ def test_pipeline_step_traffic_matches(k):
     _assert_same(got, want)
     assert set(got["sequential_by_stage"]) == {"hadv_upwind", "vadvc_update",
                                                "hdiff", "hdiff#3"}
+
+
+# ---------------------------------------------------------------------------
+# estimate: the LM dry-run's memory model
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+MESH_KINDS = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+_JAX_ESTIMATES = r"""
+import json, sys
+import jax
+from repro.configs import registry
+from repro.configs.base import SHAPES
+from repro.core import hwspec, memmodel
+from repro.launch.mesh import make_production_mesh
+from repro.models import api
+from repro.parallel import sharding as shd
+
+spec = hwspec.load_spec("tpu_v5e")
+out = {}
+for mk in ("single", "multi"):
+    mesh = make_production_mesh(multi_pod=mk == "multi")
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch)
+        model = api.build(cfg)
+        p_shapes = model.param_shapes()
+        for name, shape in SHAPES.items():
+            kind = "train" if shape.kind == "train" else "serve"
+            p_shard = shd.params_sharding(p_shapes, mesh, kind)
+            cache = c_shard = None
+            if shape.kind != "train":
+                cache = jax.eval_shape(lambda: model.init_cache(
+                    shape.global_batch, shape.seq_len))
+                c_shard = shd.cache_sharding(cache, mesh, shape.global_batch)
+            for mb in ((1, 2) if shape.kind == "train" else (1,)):
+                out[f"{arch}|{name}|{mk}|{mb}"] = memmodel.estimate(
+                    cfg, shape, mesh, p_shapes, p_shard, cache, c_shard,
+                    microbatches=mb, spec=spec)
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_estimates(tmp_path_factory):
+    out = tmp_path_factory.mktemp("estimate") / "jax.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
+    res = subprocess.run([sys.executable, "-c", _JAX_ESTIMATES, str(out)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+def _port_estimates(arch, shape_name, mesh_kind):
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import hwspec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+
+    dims, axes = MESH_KINDS[mesh_kind]
+    mesh = make_mesh(dims, axes, devices=["cpu"] * 512)
+    cfg = registry.get_config(arch)
+    model = api.build(cfg, device="meta")
+    p_shapes = model.param_shapes()
+    shape = SHAPES[shape_name]
+    kind = "train" if shape.kind == "train" else "serve"
+    p_shard = shd.params_sharding(p_shapes, mesh, kind)
+    cache = c_shard = None
+    if shape.kind != "train":
+        cache = model.init_cache(shape.global_batch, shape.seq_len)
+        c_shard = shd.cache_sharding(cache, mesh, shape.global_batch, cfg)
+    spec = hwspec.load_spec("tpu_v5e")
+    return {mb: memmodel.estimate(cfg, shape, mesh, p_shapes, p_shard, cache,
+                                  c_shard, microbatches=mb, spec=spec)
+            for mb in ((1, 2) if shape.kind == "train" else (1,))}
+
+
+_ARCHS = ["gemma3-27b", "granite-moe-3b-a800m", "mamba2-1.3b",
+          "moonshot-v1-16b-a3b", "olmo-1b", "qwen2-vl-72b",
+          "recurrentgemma-9b", "tinyllama-1.1b", "whisper-medium", "yi-34b"]
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", _ARCHS)
+def test_estimate_matches_jax(jax_estimates, arch, shape_name, mesh_kind):
+    for mb, got in _port_estimates(arch, shape_name, mesh_kind).items():
+        want = jax_estimates[f"{arch}|{shape_name}|{mesh_kind}|{mb}"]
+        assert got == want and all(
+            type(got[k]) is type(want[k]) for k in want), (mb, got, want)
+
+
+def test_estimate_fits_the_h100_by_default():
+    """`fits_16g` keeps its name; on the port's default spec it means the
+    total fits the H100's 80 GB: gemma3-27b's train_4k cell (23.1 GB a
+    device) fits there and not in the v5e's 16 GiB."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import hwspec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+
+    mesh = make_mesh((16, 16), ("data", "model"), devices=["cpu"] * 256)
+    cfg = registry.get_config("gemma3-27b")
+    p = api.build(cfg, device="meta").param_shapes()
+    spec = shd.params_sharding(p, mesh, "train")
+    est = memmodel.estimate(cfg, SHAPES["train_4k"], mesh, p, spec)
+    v5e = memmodel.estimate(cfg, SHAPES["train_4k"], mesh, p, spec,
+                            spec=hwspec.load_spec("tpu_v5e"))
+    assert hwspec.default_spec().main.capacity_bytes == 80_000_000_000
+    assert 16 * 2 ** 30 < est["total"] == v5e["total"] <= 80e9
+    assert est["fits_16g"] and not v5e["fits_16g"]

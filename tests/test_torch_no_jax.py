@@ -4,9 +4,12 @@ module, the training slice's `train/`, `data/`, `kernels/xent/` and
 `launch/mesh.py`, the mesh forecast slice's `serve/forecast.py`,
 `testing/faults.py` and `kernels/slot_guard/`, and the LM mesh slice's
 `parallel/sharding.py`, `parallel/policy.py` and
-`parallel/compression.py` among them) or its chip smoke script."""
+`parallel/compression.py`, and the dry-run slice's `core/roofline.py`,
+`core/op_cost.py` and `launch/dryrun.py` among them) or its chip smoke
+script; nor does a dry-run of a full-width cell in its own process."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -55,10 +58,33 @@ def test_importing_the_port_loads_no_jax():
             "'repro_torch.kernels.slot_guard.ref', "
             "'repro_torch.kernels.slot_guard.slot_guard', "
             "'repro_torch.parallel.sharding', 'repro_torch.parallel.policy', "
-            "'repro_torch.parallel.compression'):\n"
+            "'repro_torch.parallel.compression', "
+            "'repro_torch.core.roofline', 'repro_torch.core.op_cost', "
+            "'repro_torch.launch.dryrun'):\n"
             "    assert m in sys.modules, m\n")
     res = subprocess.run([sys.executable, "-c", code],
                          env={**os.environ,
                               "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_a_dry_run_loads_no_jax(tmp_path):
+    """`launch/dryrun.py`'s CLI on a full-width cell (tinyllama-1.1b's
+    decode_32k on the (16, 16) fake world) ends `ok` with nothing of JAX or
+    the JAX package in its process."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"dryrun.RESULTS_DIR = {str(tmp_path)!r}\n"
+            "rc = dryrun.main(['--arch', 'tinyllama-1.1b', '--shape', "
+            "'decode_32k', '--mesh', 'single'])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert rc == 0 and not bad, (rc, bad)\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["status"] == "ok" and line["mesh"] == "single"
