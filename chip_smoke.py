@@ -121,13 +121,14 @@ rule table, each run bit for bit the same run on one device (losses, grad
 norms, parameters) and phase 7's losses, with phase 7's flash, LRU and
 xent launches a step through the DTensor seams and the step beside the
 one-device step (the DTensor overhead); reduced fp32 mesh steps on the
-card against the CPU; the int8 codec and `compressed_psum` on the card;
+card against the CPU; a `seq_shard` step on the (1, 1) mesh bit for bit
+the step without it; the int8 codec and `compressed_psum` on the card;
 then the dry-run against the card (phase 13): phase 7's two training
 cells traced as rank 0 of a fake world of one (`launch/dryrun.py`, in a
 subprocess that sees no card), each kernel's traced calls equal to its
-launches in one of phase 7's steps and the roofline bound at or under
-phase 7's measured step, the analytic estimate and the fake live peak
-printed beside the card's peak; times every kernel,
+launches in one of phase 7's steps, the roofline bound at or under
+phase 7's measured step and the fake live peak within 0.75-1.05 of the
+card's peak, the analytic estimate printed beside them; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
@@ -150,15 +151,16 @@ one call.
 
 `torchrun --nproc-per-node 4 chip_smoke.py --train-mesh` (four cards,
 one process each, NCCL; `train_mesh_main`) runs the reduced families'
-fp32 steps on (2, 2) and (1, 4) against a one-card step, the codec over a
-2-rank axis, and tinyllama-1.1b and recurrentgemma-9b at full width and
-depth (38 layers) in bf16 at 4 x 2048, remat "full", 3 steps on (2, 2):
-launches a rank, each first loss against a forward-only `model.loss` on
-one card and its first gradient norm against one card's backward, peak
-memory a card, step ms, tokens/s, mfu and rank 0's device
-idle share; then rank 0's dry-run trace of both cells on a (2, 2) fake
-world, held to the same two gates, its roofline_fraction beside the
-measured mfu. It prints no result line.
+fp32 steps on (2, 2) and (1, 4) against a one-card step, each also with
+sequence parallelism (`seq_shard`), the codec over a 2-rank axis, and
+tinyllama-1.1b and recurrentgemma-9b at full width and depth (38 layers)
+in bf16 at 4 x 2048, remat "full", 3 steps on (2, 2), without and with
+`seq_shard`: launches a rank, each first loss against a forward-only
+`model.loss` on one card and its first gradient norm against one card's
+backward, peak memory a card, step ms, tokens/s, mfu and rank 0's device
+idle share; then rank 0's dry-run trace of the four cells on a (2, 2)
+fake world, held to the same three gates as phase 13's, its
+roofline_fraction beside the measured mfu. It prints no result line.
 """
 
 from __future__ import annotations
@@ -2839,12 +2841,27 @@ def train_plan(cfg) -> dict:
             "xent": 1}
 
 
-def mesh_fit(torch, cfg, steps, mesh=None, profile=False):
+def sp_rules(mesh, rows, seq_shard):
+    """The caller's activation rules a mesh step keeps its `seq_shard`
+    from (`train/loop.py`), as the dry-run sets them; none without
+    `seq_shard`."""
+    import contextlib
+
+    from repro_torch.parallel import policy
+    from repro_torch.parallel import sharding as shd
+
+    if not seq_shard:
+        return contextlib.nullcontext()
+    return policy.activation_rules(shd.batch_sharding(mesh, rows), mesh,
+                                   seq_shard=True)
+
+
+def mesh_fit(torch, cfg, steps, mesh=None, profile=False, seq_shard=False):
     """`fit` over `cfg` at TRAIN_BATCH x TRAIN_SEQ from seed 0 with phase
-    7's optimizer settings, on the card or on `mesh` (every rank alike):
-    (params, history, launches, peak GB, rank 0's profiled extra step or
-    None). The launch counts are reset just before the run and read just
-    after."""
+    7's optimizer settings, on the card or on `mesh` (every rank alike;
+    `seq_shard`: under the rules `sp_rules` sets): (params, history,
+    launches, peak GB, rank 0's profiled extra step or None). The launch
+    counts are reset just before the run and read just after."""
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.models import api
@@ -2858,9 +2875,10 @@ def mesh_fit(torch, cfg, steps, mesh=None, profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    params, opt_state, hist = loop.fit(model, data, steps=steps,
-                                       opt_cfg=opt_cfg, remat="full",
-                                       log_every=0, mesh=mesh)
+    with sp_rules(mesh, TRAIN_BATCH, seq_shard):
+        params, opt_state, hist = loop.fit(model, data, steps=steps,
+                                           opt_cfg=opt_cfg, remat="full",
+                                           log_every=0, mesh=mesh)
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[k] for k in ("flash_attn", "lru_scan",
                                                  "xent")}
@@ -2872,7 +2890,11 @@ def mesh_fit(torch, cfg, steps, mesh=None, profile=False):
         step_fn, _ = loop.make_train_step(model, opt_cfg, remat="full",
                                           mesh=mesh)
         batch = next(data)
-        run = lambda: step_fn(params, opt_state, batch)    # noqa: E731
+
+        def run():
+            with sp_rules(mesh, TRAIN_BATCH, seq_shard):
+                return step_fn(params, opt_state, batch)
+
         if dist.get_rank() == 0:
             prof = device_breakdown(run)
         else:
@@ -2882,10 +2904,11 @@ def mesh_fit(torch, cfg, steps, mesh=None, profile=False):
     return params, hist, launches, peak, prof
 
 
-def mesh_reduced_step(torch, arch, mesh, single_dev):
-    """One fp32 AdamW step of `arch`'s reduced config on `mesh` against
-    the same step on `single_dev` (the CPU, or this rank's card): the
-    largest relative loss / grad-norm error and updated-parameter error."""
+def mesh_reduced_step(torch, arch, mesh, single_dev, seq_shard=False):
+    """One fp32 AdamW step of `arch`'s reduced config on `mesh` (under
+    `sp_rules`) against the same step on `single_dev` (the CPU, or this
+    rank's card): the largest relative loss / grad-norm error and
+    updated-parameter error."""
     import copy
 
     from repro_torch.configs import registry
@@ -2909,14 +2932,46 @@ def mesh_reduced_step(torch, arch, mesh, single_dev):
     step, _ = loop.make_train_step(api.build(cfg), opt_cfg, remat="full",
                                    mesh=mesh)
     p2 = copy.deepcopy(params).cuda()
-    p2, _, m2 = step(p2, optim.init_opt_state(p2),
-                     {k: v.cuda() for k, v in batch.items()})
+    with sp_rules(mesh, 4, seq_shard):
+        p2, _, m2 = step(p2, optim.init_opt_state(p2),
+                         {k: v.cuda() for k, v in batch.items()})
     full = [p.full_tensor().detach().cpu() for p in p2.parameters()]
     err_m = max(abs(float(m2[k]) - float(m1[k])) / abs(float(m1[k]))
                 for k in ("loss", "grad_norm"))
     err_p = max(float((a.detach().cpu() - b).abs().max())
                 for a, b in zip(p1.parameters(), full))
     return err_m, err_p
+
+
+def sp_bit_equal(torch, arch, mesh) -> bool:
+    """One fp32 step of `arch`'s reduced config on `mesh` with and without
+    `seq_shard` (`sp_rules`): metrics and updated parameters bit for
+    bit (a model axis of 1 leaves nothing to shard)."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+
+    cfg = dataclasses.replace(
+        registry.reduced_config(registry.get_config(arch)),
+        dtype="float32", param_dtype="float32")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic.lm_batch(cfg, 0, 0, 4, 33).items()}
+    model = api.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    runs = []
+    for sp in (False, True):
+        step, _ = loop.make_train_step(model, optim.OptConfig(lr=1e-3),
+                                       remat="full", mesh=mesh)
+        p = copy.deepcopy(params)
+        with sp_rules(mesh, 4, sp):
+            p, _, m = step(p, optim.init_opt_state(p), batch)
+        runs.append(([float(v) for v in m.values()],
+                     [x.full_tensor() for x in p.parameters()]))
+    (m1, p1), (m2, p2) = runs
+    return m1 == m2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
 
 
 def codec_checks(torch, dev, check, mesh, say_fn):
@@ -2961,7 +3016,8 @@ def codec_checks(torch, dev, check, mesh, say_fn):
 # ---------------------------------------------------------------------------
 
 # rank 0's trace of training cells on a fake world (`launch/dryrun.py`);
-# argv[1]: [[[arch, layers kept (0: all)], ...], mesh shape, batch, seq]
+# argv[1]: [[[arch, layers kept (0: all), seq_shard], ...], mesh shape,
+# batch, seq]; a result a cell, keyed "arch" or "arch|sp"
 DRYRUN_TRACE = r"""
 import dataclasses, json, sys
 from repro_torch.configs import registry
@@ -2972,15 +3028,18 @@ from repro_torch.launch import dryrun
 cells, dims, batch, seq = json.loads(sys.argv[1])
 mesh = dryrun.cell_mesh(tuple(dims), ("data", "model"))
 out = {}
-for arch, layers in cells:
+for arch, layers, sp in cells:
     cfg = registry.get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    out[arch] = dryrun.trace_cell(
+    out[arch + ("|sp" if sp else "")] = dryrun.trace_cell(
         cfg, ShapeConfig("smoke", seq, batch, "train"), mesh, remat="full",
-        spec=hwspec.load_spec("h100_sxm"))
+        spec=hwspec.load_spec("h100_sxm"), seq_shard=sp)
 print(json.dumps(out))
 """
+# the fake live peak's share of the card's peak that a traced cell must
+# lie in (four measured cells read 0.838 to 0.999 on the H100)
+DRYRUN_MEM_BAND = (0.75, 1.05)
 # the launcher's variables a trace's process must not see (its fake world
 # is its own)
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
@@ -2989,8 +3048,9 @@ LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
 
 
 def dryrun_traces(cells, dims):
-    """Rank 0's trace of each (arch, layers) training cell at TRAIN_BATCH x
-    TRAIN_SEQ, bf16, remat "full", on a fake world of prod(dims) ranks
+    """Rank 0's trace of each (arch, layers, seq_shard) training cell at
+    TRAIN_BATCH x TRAIN_SEQ, bf16, remat "full", on a fake world of
+    prod(dims) ranks
     (`launch/dryrun.py::trace_cell` against the h100_sxm spec), in a
     subprocess that sees no card and no process group of this one:
     ({arch: result}, seconds)."""
@@ -3011,11 +3071,12 @@ def dryrun_traces(cells, dims):
 def hold_dryrun(check, say_fn, label, r, per_step, step_ms, peak_gb,
                 mfu=None) -> dict:
     """The gates of a traced cell against the card's run of it: each
-    kernel's traced calls equal its launches in one step, and the roofline
+    kernel's traced calls equal its launches in one step, the roofline
     bound is at or under the measured step (a bound above it would mean
-    the counter over-counts). The analytic estimate and the fake live peak
-    are printed beside the card's peak, not held: the analytic model is the
-    JAX package's, written for a TPU. Returns the line's numbers."""
+    the counter over-counts), and the fake live peak lies within
+    DRYRUN_MEM_BAND of the card's peak. The analytic estimate is printed
+    beside them, not held: its model is the JAX package's, written for a
+    TPU. Returns the line's numbers."""
     rf = r["roofline"]
     bound_ms = rf["step_time_bound_s"] * 1e3
     mem = r["memory"]
@@ -3028,9 +3089,12 @@ def hold_dryrun(check, say_fn, label, r, per_step, step_ms, peak_gb,
                roofline_fraction=rf["roofline_fraction"], mfu=mfu,
                analytic_gb=mem["analytic"]["total"] / 1e9,
                fake_live_gb=mem["fake_live_bytes_per_device"] / 1e9,
-               peak_gb=peak_gb, flops=r["cost"]["flops"],
+               peak_gb=peak_gb, live_share=0.0, flops=r["cost"]["flops"],
                bytes=r["cost"]["bytes accessed"],
-               collectives=r["collectives"], trace_s=r["trace_s"])
+               collectives=r["collectives"], trace_s=r["trace_s"],
+               seq_shard=r.get("seq_shard", False))
+    out["live_share"] = out["fake_live_gb"] / peak_gb
+    lo, hi = DRYRUN_MEM_BAND
     say_fn(f"dryrun {label}: kernel calls traced {out['calls']}, launched "
            f"a step {per_step}; bound {bound_ms:.1f} ms ({rf['dominant']}: "
            f"compute {out['compute_ms']:.1f}, memory {out['memory_ms']:.1f},"
@@ -3042,8 +3106,9 @@ def hold_dryrun(check, say_fn, label, r, per_step, step_ms, peak_gb,
            + (f" beside the measured mfu {mfu:.4f}" if mfu is not None
               else "")
            + f"; memory a device: analytic estimate {out['analytic_gb']:.2f}"
-           f" GB, fake live peak {out['fake_live_gb']:.2f} GB, the card's "
-           f"peak {peak_gb:.2f} GB (printed, not held); trace "
+           f" GB (printed, not held), fake live peak "
+           f"{out['fake_live_gb']:.2f} GB, the card's peak {peak_gb:.2f} GB"
+           f" ({out['live_share']:.3f} of it, band {lo}-{hi}); trace "
            f"{r['trace_s']:.1f} s")
     check(out["calls"] == per_step,
           f"dryrun {label}: traced calls {out['calls']}, launched a step "
@@ -3051,6 +3116,10 @@ def hold_dryrun(check, say_fn, label, r, per_step, step_ms, peak_gb,
     check(bound_ms <= step_ms,
           f"dryrun {label}: bound {bound_ms:.1f} ms above the measured "
           f"step {step_ms:.1f} ms")
+    check(lo <= out["live_share"] <= hi,
+          f"dryrun {label}: fake live peak {out['fake_live_gb']:.2f} GB is "
+          f"{out['live_share']:.3f} of the card's {peak_gb:.2f} GB, outside "
+          f"{lo}-{hi}")
     return out
 
 
@@ -3060,7 +3129,7 @@ def dryrun_phase(torch, check, results):
     TRAIN_BATCH x TRAIN_SEQ, bf16, remat "full") traced at world 1 on a
     (1, 1) fake mesh, in a subprocess (phase 12 held a real process
     group), each held to phase 7's measured run (`hold_dryrun`)."""
-    cells = [[arch, layers] for arch, layers, _ in TRAIN_RUNS]
+    cells = [[arch, layers, False] for arch, layers, _ in TRAIN_RUNS]
     traced, secs = dryrun_traces(cells, (1, 1))
     say(f"dryrun: {len(cells)} cells traced at world 1 in {secs:.1f} s "
         f"(one subprocess, no card)")
@@ -3157,6 +3226,11 @@ def train_mesh_phase(torch, dev, check, results):
             f"params err {err_p:.3g} (limit 1e-4)")
         check(err_m <= 1e-4 and err_p <= 1e-4,
               f"train mesh reduced {arch}: the card disagrees with the CPU")
+    for arch in ("tinyllama-1.1b", "granite-moe-3b-a800m"):
+        same = sp_bit_equal(torch, arch, mesh)
+        say(f"train mesh seq_shard {arch} reduced fp32 step on the (1, 1) "
+            f"mesh: bit for bit the step without it {same}")
+        check(same, f"train mesh seq_shard {arch}: the (1, 1) step moved")
     codec_checks(torch, dev, check, mesh, say)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3185,19 +3259,24 @@ MESH4_GNORM_RTOL = 2 ** -9
 def train_mesh_main() -> int:
     """`torchrun --nproc-per-node 4 chip_smoke.py --train-mesh`: LM
     training on four cards, one process each, over NCCL. The reduced
-    families' fp32 steps on (2, 2) and (1, 4) against a one-card step;
-    tinyllama-1.1b and recurrentgemma-9b at full width and depth (38
-    layers), bf16, TRAIN_BATCH x TRAIN_SEQ, remat="full", 3 steps on
-    (2, 2), each first loss held to a forward-only `model.loss` on one
-    card from the same seed and batch (MESH4_LOSS_RTOL) and its first
-    gradient norm to one card's backward (MESH4_GNORM_RTOL), peak memory a
-    card under 80 GB; step ms, tokens/s, mfu over the four cards and a
-    profiled step's device idle share on rank 0. Then rank 0 traces both
-    cells on a (2, 2) fake world (`dryrun_traces`) and holds its trace to
-    its rank's run (`hold_dryrun`: calls equal to launches a step, the
-    bound at or under the measured step), the dry-run's roofline_fraction
-    beside the measured mfu. Prints no result line; exits nonzero where a
-    check failed on any rank."""
+    families' fp32 steps on (2, 2) and (1, 4), each without and with
+    `seq_shard`, against a one-card step; tinyllama-1.1b and
+    recurrentgemma-9b at full width and depth (38 layers), bf16,
+    TRAIN_BATCH x TRAIN_SEQ, remat="full", 3 steps on (2, 2) without and
+    then with `seq_shard` (through `make_train_step(mesh=)` under
+    `activation_rules(..., seq_shard=True)`, as the dry-run runs it), each
+    first loss held to a forward-only `model.loss` on one card from the
+    same seed and batch (MESH4_LOSS_RTOL) and its first gradient norm to
+    one card's backward (MESH4_GNORM_RTOL), launches to `train_plan`, peak
+    memory a card under 80 GB; step ms, tokens/s, mfu over the four cards
+    and a profiled step's device idle share on rank 0, the `seq_shard`
+    run's beside the same call's run without it. Then rank 0 traces the
+    four cells on a (2, 2) fake world (`dryrun_traces`) and holds each
+    trace to its rank's run (`hold_dryrun`: calls equal to launches a
+    step, the bound at or under the measured step, the fake live peak
+    within DRYRUN_MEM_BAND of the card's), the dry-run's
+    roofline_fraction beside the measured mfu. Prints no result line;
+    exits nonzero where a check failed on any rank."""
     import torch
     import torch.distributed as dist
 
@@ -3235,19 +3314,23 @@ def train_mesh_main() -> int:
          f"{dist.get_backend()}, torch {torch.__version__}")
     for shape, archs in MESH4_REDUCED.items():
         for arch in archs:
-            err_m, err_p = mesh_reduced_step(torch, arch, meshes[shape], dev)
-            say0(f"train mesh reduced {arch} fp32 step on {shape}: against "
-                 f"one card loss/grad-norm relative err {err_m:.3g}, "
-                 f"updated params err {err_p:.3g} (limits 1e-5, 1e-4)")
-            check(err_m <= 1e-5 and err_p <= 1e-4,
-                  f"train mesh reduced {arch} {shape}")
+            for sp in (False, True):
+                err_m, err_p = mesh_reduced_step(torch, arch, meshes[shape],
+                                                 dev, seq_shard=sp)
+                tag = " seq_shard" if sp else ""
+                say0(f"train mesh reduced {arch} fp32{tag} step on {shape}: "
+                     f"against one card loss/grad-norm relative err "
+                     f"{err_m:.3g}, updated params err {err_p:.3g} (limits "
+                     f"1e-5, 1e-4)")
+                check(err_m <= 1e-5 and err_p <= 1e-4,
+                      f"train mesh reduced {arch}{tag} {shape}")
     codec_checks(torch, dev, check, meshes[(2, 2)], say0)
     mesh = meshes[(2, 2)]
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    measured_idle = {}
     measured = {}
     for arch, steps in MESH4_FULL:
         cfg = registry.get_config(arch)
-        label = f"train mesh 4 cards {arch}"
         want = want_norm = None
         if rank == 0:   # the loss, and the first gradient's norm, on one card
             model = api.build(cfg)
@@ -3263,62 +3346,80 @@ def train_mesh_main() -> int:
             want_norm = float(optim.global_norm(grads))
             del model, params, batch, grads
             torch.cuda.empty_cache()
-        dist.barrier()
-        params, hist, launches, peak, prof = mesh_fit(torch, cfg, steps,
-                                                      mesh=mesh,
-                                                      profile=True)
-        peaks = torch.tensor([peak], device=dev)
-        dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
-        losses = [x["loss"] for x in hist]
-        step_s = statistics.median(x["time_s"] for x in hist[1:])
-        mfu = 6 * cfg.param_count() * tokens / step_s / (
-            4 * BF16_FLOPS_PER_S)
-        plan = {k: v * steps for k, v in train_plan(cfg).items()}
-        say0(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
-             f"{cfg.n_layers} layers, mesh (2, 2), batch {TRAIN_BATCH} x "
-             f"{TRAIN_SEQ}, bf16, remat full, {steps} steps; launches a "
-             f"rank {launches} (planned {plan})")
-        check(launches == plan, f"{label}: launches {launches} != {plan}")
-        if rank == 0:
-            rel = abs(losses[0] - want) / abs(want)
-            norm0 = hist[0]["grad_norm"]
-            rel_norm = abs(norm0 - want_norm) / abs(want_norm)
-            say0(f"{label}: losses {losses}, grad norms "
-                 f"{[x['grad_norm'] for x in hist]}; first loss against "
-                 f"one card's forward-only loss {want:.6f}: relative "
-                 f"{rel:.3g} (limit {MESH4_LOSS_RTOL}); first grad norm "
-                 f"against one card's backward {want_norm:.6f}: relative "
-                 f"{rel_norm:.3g} (limit {MESH4_GNORM_RTOL:.3g})")
-            check(rel <= MESH4_LOSS_RTOL, f"{label}: first loss")
-            check(rel_norm <= MESH4_GNORM_RTOL, f"{label}: first grad norm")
-        check(all(x == x and abs(x) < 1e30 for x in losses),
-              f"{label}: non-finite loss")
-        check(float(peaks) < 80.0, f"{label}: peak {float(peaks):.1f} GB")
-        measured[arch] = ({k: v // steps for k, v in launches.items() if v},
-                          step_s * 1e3, float(peaks), mfu)
-        idle = prof["idle_share"] if prof else None
-        say0(f"{label}: step {step_s * 1e3:.1f} ms (median after the "
-             f"first; each {[round(x['time_s'] * 1e3, 1) for x in hist]}), "
-             f"{tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
-             f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens over 4 x "
-             f"989 TFLOP/s), peak {float(peaks):.1f} GB a card (max over "
-             f"ranks), rank 0's profiled step: "
-             + (f"host window {prof['wall_ms']:.1f} ms, device busy "
-                f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}, by kind "
-                + ", ".join(f"{k} {v:.1f}" for k, v in
-                            prof["by_category_ms"].items())
-                if prof else "no device kernel seen (not measured)"))
-        del params
-        torch.cuda.empty_cache()
-    if rank == 0:           # the dry-run of both cells against these runs
-        traced, secs = dryrun_traces([[arch, 0] for arch, _ in MESH4_FULL],
-                                     (2, 2))
-        say0(f"train mesh dryrun: {len(MESH4_FULL)} cells traced as rank 0 "
-             f"of a (2, 2) fake world in {secs:.1f} s (one subprocess, no "
-             f"card)")
-        for arch, _ in MESH4_FULL:
-            hold_dryrun(check, say0, f"4 cards (2, 2) {arch}", traced[arch],
-                        *measured[arch])
+        for sp in (False, True):
+            label = f"train mesh 4 cards {arch}" + (" seq_shard" if sp
+                                                    else "")
+            dist.barrier()
+            params, hist, launches, peak, prof = mesh_fit(
+                torch, cfg, steps, mesh=mesh, profile=True, seq_shard=sp)
+            peaks = torch.tensor([peak], device=dev)
+            dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+            losses = [x["loss"] for x in hist]
+            step_s = statistics.median(x["time_s"] for x in hist[1:])
+            mfu = 6 * cfg.param_count() * tokens / step_s / (
+                4 * BF16_FLOPS_PER_S)
+            plan = {k: v * steps for k, v in train_plan(cfg).items()}
+            say0(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters, "
+                 f"{cfg.n_layers} layers, mesh (2, 2), batch {TRAIN_BATCH} "
+                 f"x {TRAIN_SEQ}, bf16, remat full, {steps} steps; launches "
+                 f"a rank {launches} (planned {plan})")
+            check(launches == plan, f"{label}: launches {launches} != {plan}")
+            if rank == 0:
+                rel = abs(losses[0] - want) / abs(want)
+                norm0 = hist[0]["grad_norm"]
+                rel_norm = abs(norm0 - want_norm) / abs(want_norm)
+                say0(f"{label}: losses {losses}, grad norms "
+                     f"{[x['grad_norm'] for x in hist]}; first loss against "
+                     f"one card's forward-only loss {want:.6f}: relative "
+                     f"{rel:.3g} (limit {MESH4_LOSS_RTOL}); first grad norm "
+                     f"against one card's backward {want_norm:.6f}: "
+                     f"relative {rel_norm:.3g} (limit "
+                     f"{MESH4_GNORM_RTOL:.3g})")
+                check(rel <= MESH4_LOSS_RTOL, f"{label}: first loss")
+                check(rel_norm <= MESH4_GNORM_RTOL,
+                      f"{label}: first grad norm")
+            check(all(x == x and abs(x) < 1e30 for x in losses),
+                  f"{label}: non-finite loss")
+            check(float(peaks) < 80.0, f"{label}: peak {float(peaks):.1f} GB")
+            idle = prof["idle_share"] if prof else None
+            measured[(arch, sp)] = (
+                {k: v // steps for k, v in launches.items() if v},
+                step_s * 1e3, float(peaks), mfu)
+            beside = ""
+            if sp:
+                _, ms0, pk0, mfu0 = measured[(arch, False)]
+                beside = (f"; without seq_shard in this call: step "
+                          f"{ms0:.1f} ms, {tokens / ms0 * 1e3:.0f} tokens/s, "
+                          f"mfu {mfu0:.4f}, peak {pk0:.1f} GB, idle share "
+                          f"{measured_idle.get(arch)}")
+            else:
+                measured_idle[arch] = (None if idle is None
+                                       else round(idle, 3))
+            say0(f"{label}: step {step_s * 1e3:.1f} ms (median after the "
+                 f"first; each {[round(x['time_s'] * 1e3, 1) for x in hist]}"
+                 f"), {tokens / step_s:.0f} tokens/s, mfu {mfu:.4f} (6 x "
+                 f"{cfg.param_count() / 1e9:.3f} B x {tokens} tokens over 4 "
+                 f"x 989 TFLOP/s), peak {float(peaks):.1f} GB a card (max "
+                 f"over ranks), rank 0's profiled step: "
+                 + (f"host window {prof['wall_ms']:.1f} ms, device busy "
+                    f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}, by "
+                    f"kind " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                        prof["by_category_ms"].items())
+                    if prof else "no device kernel seen (not measured)")
+                 + beside)
+            del params
+            torch.cuda.empty_cache()
+    if rank == 0:           # the dry-run of the cells against these runs
+        cells = [[arch, 0, sp] for arch, _ in MESH4_FULL
+                 for sp in (False, True)]
+        traced, secs = dryrun_traces(cells, (2, 2))
+        say0(f"train mesh dryrun: {len(cells)} cells traced as rank 0 of a "
+             f"(2, 2) fake world in {secs:.1f} s (one subprocess, no card)")
+        for arch, _, sp in cells:
+            hold_dryrun(check, say0, f"4 cards (2, 2) {arch}"
+                        + (" seq_shard" if sp else ""),
+                        traced[arch + ("|sp" if sp else "")],
+                        *measured[(arch, sp)])
     bad = torch.tensor([len(failures)], device=dev)
     dist.all_reduce(bad, op=dist.ReduceOp.MAX)
     dist.destroy_process_group()

@@ -160,11 +160,16 @@ _SCATTER = {"index_put": 2, "scatter": 3, "scatter_add": 3,
             "masked_scatter": 2, "index_fill": None}
 # the collectives DTensor's redistributes (`_c10d_functional`),
 # `parallel/policy.py` and `distribute_tensor` (`c10d`: a microbatched
-# step scatters each microbatch's rows) issue
+# step scatters each microbatch's rows) issue; `_allgather_base` and
+# `_reduce_scatter_base` are `dist.all_gather_into_tensor`'s and
+# `dist.reduce_scatter_tensor`'s (the sequence-parallel seams)
 _COLLECTIVE_KIND = {
     "all_reduce": "all-reduce", "allreduce": "all-reduce",
     "all_gather_into_tensor": "all-gather", "allgather": "all-gather",
+    "_allgather_base": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter",
+    "_reduce_scatter_base": "reduce-scatter",
+    "reduce_scatter": "reduce-scatter",
     "all_to_all_single": "all-to-all", "scatter": "scatter",
     "broadcast": "broadcast",
 }

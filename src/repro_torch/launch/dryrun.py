@@ -25,12 +25,16 @@ The fake tensors sit on the CPU and the mesh is a "cpu" `DeviceMesh`:
 indexing a fake CUDA tensor needs a CUDA build of PyTorch, and the
 kernels' trace route keys on the tensor being fake, not on its device.
 
+`--seq-shard` traces each cell under `activation_rules(...,
+seq_shard=True)` (sequence parallelism in train and prefill; a decode
+step is unchanged) and records `"seq_shard": true`; its results are
+cached apart (`__seq` in the file name).
+
 Differences from the JAX dry-run by design. `--attn-kernel` and
 `--fsdp-gather` are not offered: the port always runs the flash kernel
 and always gathers a block's weights at use (`parallel/policy.py`), and
-every result records `"attn_kernel": true, "fsdp_gather": true`.
-`--seq-shard` is refused: the port has no sequence parallelism. Times are
-`trace_s` (the eager trace) in place of `lower_s` / `compile_s`. The
+every result records `"attn_kernel": true, "fsdp_gather": true`. Times
+are `trace_s` (the eager trace) in place of `lower_s` / `compile_s`. The
 roofline is the H100's unless `REPRO_HWSPEC` names another spec. Results
 go to `build/dryrun/`.
 
@@ -157,10 +161,11 @@ def _fake_params(model: api.Model, mesh, kind: str, specs=None):
 def build_cell(arch, shape_name, mesh, *, remat: str = "full",
                microbatches: int = 1, moe_impl: str = "",
                moe_chunk: int = 0, grad_dtype: str = "float32",
-               kv_dtype: str = ""):
+               kv_dtype: str = "", seq_shard: bool = False):
     """Inside an `OpCounter`: the cell's fake inputs, placed on `mesh`, and
-    (fn, meta), fn() running the step once. `arch` is a name or a config,
-    `shape_name` a name of `SHAPES` or a `ShapeConfig`."""
+    (fn, meta), fn() running the step once under the activation rules
+    (`seq_shard` theirs). `arch` is a name or a config, `shape_name` a
+    name of `SHAPES` or a `ShapeConfig`."""
     cfg = cell_config(arch, moe_impl=moe_impl, moe_chunk=moe_chunk,
                       kv_dtype=kv_dtype)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
@@ -169,6 +174,8 @@ def build_cell(arch, shape_name, mesh, *, remat: str = "full",
     specs = input_specs(model, shape)
     b_axes = shd.batch_sharding(mesh, shape.global_batch)
     meta = dict(cfg=cfg, shape=shape, chips=chips, kind=shape.kind)
+    rules = lambda: policy.activation_rules(                # noqa: E731
+        b_axes, mesh, seq_shard=seq_shard)
 
     if shape.kind == "train":
         step, (p_spec, _) = train_loop.make_train_step(
@@ -179,10 +186,14 @@ def build_cell(arch, shape_name, mesh, *, remat: str = "full",
         batch = train_loop.shard_batch({k: _fake(v) for k, v in
                                         specs.items()}, mesh)
         meta["tokens"] = shape.global_batch * shape.seq_len
-        return (lambda: step(params, opt_state, batch)), meta
+
+        def train_fn():
+            with rules():
+                return step(params, opt_state, batch)
+
+        return train_fn, meta
 
     params = _fake_params(model, mesh, "serve")
-    rules = lambda: policy.activation_rules(b_axes, mesh)   # noqa: E731
     if shape.kind == "prefill":
         batch = train_loop.shard_batch({k: _fake(v) for k, v in
                                         specs.items()}, mesh)
@@ -258,7 +269,8 @@ def analytic_memory(cfg, shape, mesh, microbatches: int, spec=None) -> dict:
 def trace_cell(arch, shape_name, mesh, *, remat: str = "full",
                microbatches: int = 1, moe_impl: str = "",
                moe_chunk: int = 0, grad_dtype: str = "float32",
-               kv_dtype: str = "", spec=None) -> dict:
+               kv_dtype: str = "", seq_shard: bool = False,
+               spec=None) -> dict:
     """Trace one cell's step on `mesh` (a `DeviceMesh` of a fake world,
     `cell_mesh`) as rank 0 and return its result's measured keys:
     `chips`, `trace_s`, `memory`, `cost`, `collectives`, `kernel_calls`,
@@ -271,7 +283,7 @@ def trace_cell(arch, shape_name, mesh, *, remat: str = "full",
         fn, meta = build_cell(arch, shape_name, mesh, remat=remat,
                               microbatches=microbatches, moe_impl=moe_impl,
                               moe_chunk=moe_chunk, grad_dtype=grad_dtype,
-                              kv_dtype=kv_dtype)
+                              kv_dtype=kv_dtype, seq_shard=seq_shard)
         with counter.counting():
             out = fn()
         del out
@@ -299,7 +311,7 @@ def trace_cell(arch, shape_name, mesh, *, remat: str = "full",
         kernel_calls=cost.kernel_calls(), tokens=meta["tokens"],
         model_flops=mf, param_count=cfg.param_count(),
         active_param_count=cfg.active_param_count(),
-        attn_kernel=True, fsdp_gather=True,
+        attn_kernel=True, fsdp_gather=True, seq_shard=seq_shard,
         roofline=dict(
             compute_s=terms.compute_s, memory_s=terms.memory_s,
             collective_s=terms.collective_s, dominant=terms.dominant,
@@ -312,14 +324,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              remat: str = "full", microbatches: int = 0,
              variant: str = "baseline", force: bool = False,
              moe_impl: str = "", moe_chunk: int = 0,
-             grad_dtype: str = "float32", kv_dtype: str = "") -> dict:
+             grad_dtype: str = "float32", kv_dtype: str = "",
+             seq_shard: bool = False) -> dict:
     """One cell on the production mesh `mesh_kind` ("single": (16, 16),
     "multi": (2, 16, 16)), cached as JSON under `RESULTS_DIR` (recomputed
-    with `force`). `status` is "ok", "skipped" (by `registry.skips`) or
-    "error" (the exception and its traceback recorded)."""
+    with `force`; a `seq_shard` cell apart). `status` is "ok", "skipped"
+    (by `registry.skips`) or "error" (the exception and its traceback
+    recorded)."""
     os.makedirs(RESULTS_DIR, exist_ok=True)
     out_path = os.path.join(
-        RESULTS_DIR, f"{arch}__{shape_name}__{mesh_kind}__{variant}.json")
+        RESULTS_DIR, f"{arch}__{shape_name}__{mesh_kind}__{variant}"
+                     + ("__seq" if seq_shard else "") + ".json")
     if os.path.exists(out_path) and not force:
         with open(out_path) as f:
             return json.load(f)
@@ -328,7 +343,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     why_skip = registry.skips(cfg, shape_name)
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
               "variant": variant, "remat": remat,
-              "microbatches": microbatches}
+              "microbatches": microbatches, "seq_shard": seq_shard}
     if why_skip:
         result.update(status="skipped", reason=why_skip)
         with open(out_path, "w") as f:
@@ -344,7 +359,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         result.update(trace_cell(
             arch, shape_name, mesh, remat=remat, microbatches=microbatches,
             moe_impl=moe_impl, moe_chunk=moe_chunk, grad_dtype=grad_dtype,
-            kv_dtype=kv_dtype))
+            kv_dtype=kv_dtype, seq_shard=seq_shard))
         result["status"] = "ok"
     except Exception as e:      # noqa: BLE001 — record the failure
         result.update(status="error", error=f"{type(e).__name__}: {e}",
@@ -425,13 +440,10 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache with per-(pos,head) scales")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="refused: the port has no sequence parallelism")
+                    help="sequence-parallel (B, T, D) activations over the "
+                         "model axis (train and prefill)")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
-    if args.seq_shard:
-        ap.error("--seq-shard: the port has no sequence parallelism "
-                 "(sequence-parallel inter-block activations; ROADMAP, "
-                 "'Left by item 6c')")
     if not args.all and not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
 
@@ -448,7 +460,8 @@ def main(argv: Optional[list] = None) -> int:
                          moe_impl=args.moe_impl, moe_chunk=args.moe_chunk,
                          grad_dtype="bfloat16" if args.grad_bf16
                          else "float32",
-                         kv_dtype="int8" if args.kv_int8 else "")
+                         kv_dtype="int8" if args.kv_int8 else "",
+                         seq_shard=args.seq_shard)
             results.append(r)
             print(json.dumps(summary(r)), flush=True)
     if args.all:

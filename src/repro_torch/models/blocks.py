@@ -6,8 +6,10 @@ the weights `parallel/policy.py::gather_block_weights` makes local: a
 weight narrower than the config's (a rank's heads, ffn columns, experts or
 RG-LRU width) marks a tensor-parallel layer, whose input enters with
 `policy.enter_tp` and whose partial output leaves summed over "model"
-(`policy.leave_tp`). Kinds: "attn"/"global" (full causal
-attention + FFN), "local" (sliding window + FFN), "rec" (RG-LRU + FFN),
+(`policy.leave_tp`). Under sequence parallelism a block's input is the
+rank's slice of T: each layer enters on the whole T and leaves on the
+slice (`policy.enter_layer`, `leave_layer`). Kinds: "attn"/"global"
+(full causal attention + FFN), "local" (sliding window + FFN), "rec" (RG-LRU + FFN),
 "ssd" (Mamba2 mixer, no FFN). The FFN is a MoE layer where the config has
 `moe`. Every apply has the signature
     apply(cfg, params, x, *, positions, mode, cache, pos) -> (x, cache', aux)
@@ -121,11 +123,10 @@ def _kv_dequant(q, scale, dtype):
 
 def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
                      cache, pos, causal: bool = True):
+    tp = policy.is_tp(cfg, "attn")         # a rank's head shard
+    h = policy.enter_layer(h, tp)          # the whole T under seq_shard
     b, t, d = h.shape
     hd = cfg.hd
-    tp = policy.is_tp(cfg, "attn")         # a rank's head shard
-    if tp:
-        h = policy.enter_tp(h)
     q = (h @ params["wq"]).reshape(b, t, -1, hd)
     k = (h @ params["wk"]).reshape(b, t, -1, hd)
     v = (h @ params["wv"]).reshape(b, t, -1, hd)
@@ -189,7 +190,7 @@ def _attention_mixer(kind, cfg: ModelConfig, params, h, *, positions, mode,
         else:
             new_cache = cache
     out = out.reshape(b, t, -1) @ params["wo"]
-    return (policy.leave_tp(out) if tp else out), new_cache
+    return policy.leave_layer(out, tp), new_cache
 
 
 def block_apply(kind: str, cfg: ModelConfig, params, x, *, positions, mode,

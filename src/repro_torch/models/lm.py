@@ -25,6 +25,16 @@ tokens are this rank's rows, each block gathers its weights at use inside
 the recomputed region (so the backward gathers them again, as FSDP with
 remat does), the embedding and the head are gathered whole, the xent
 kernel runs on the rank's rows and the loss is the global batch's mean.
+
+Under sequence parallelism (rules with `seq_shard`, a model axis wider
+than 1, T > 1, in prefill and in training's hidden states) `apply` runs
+its blocks in a T-sharded section (`policy.seq_section`): the embedding
+looks up the rank's slice of the tokens (T padded to a multiple of the
+model size), the blocks carry the slice and `final_norm` runs on it.
+Prefill's logits are the whole T's (`policy.seq_gather`, then the head),
+so its logits and cache are those of the step without it. `loss_fn`
+runs the xent kernel on the rank's slice of the rows and sums the ranks'
+partial sums over "model" (`policy.seq_sum`).
 """
 
 from __future__ import annotations
@@ -139,11 +149,12 @@ def _train_blocks(blocks, x, positions, rules=None):
     return x, aux
 
 
-def _head(cfg: ModelConfig, params: LM) -> torch.Tensor:
-    """The LM head (D, Vp), gathered whole on a mesh."""
+def _head(cfg: ModelConfig, params: LM, use: str = "full") -> torch.Tensor:
+    """The LM head (D, Vp), gathered whole on a mesh (`policy.gather`'s
+    `use`)."""
     if cfg.tie_embeddings:
-        return policy.gather(params.embed).T
-    return policy.gather(params.head)
+        return policy.gather(params.embed, use).T
+    return policy.gather(params.head, use)
 
 
 def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
@@ -160,45 +171,53 @@ def apply(cfg: ModelConfig, params: LM, tokens: Optional[torch.Tensor] = None,
     of them ("full") or all but the 2-D products' outputs ("dots").
     `return_hidden` skips the LM head (the loss computes it chunk by chunk).
     Returns (logits or hidden, new_cache, aux), aux the sum of the MoE
-    layers' load-balancing terms (the number 0.0 without MoE).
+    layers' load-balancing terms (the number 0.0 without MoE). Under
+    sequence parallelism the hidden states are the rank's slice of T
+    (`policy.seq_span`; module docstring).
     """
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r}; expected one of {REMATS}")
-    if embeddings is None:
-        tokens = policy.batch_local(tokens)
-        x = policy.gather(params.embed)[tokens.long()].to(
-            torch_dtype(cfg.dtype))
-    else:
-        x = policy.batch_local(embeddings).to(torch_dtype(cfg.dtype))
-    b, t = x.shape[:2]
-    positions = _positions(cfg, b, t, pos if mode == "decode" else 0,
-                           x.device)
-    new_cache = [] if cache is not None else None
-    aux = 0.0
-    if mode == "train" and remat != "none" and torch.is_grad_enabled():
-        period = len(cfg.pattern)
-        kw = ({} if remat == "full" else {"context_fn": partial(
-            create_selective_checkpoint_contexts, _dots_policy)})
-        for r in range(cfg.n_repeats):
-            x, a = checkpoint(_train_blocks,
-                              params.blocks[r * period:(r + 1) * period], x,
-                              positions, policy.current(),
-                              use_reentrant=False, **kw)
+    inp = policy.batch_local(tokens if embeddings is None else embeddings)
+    b, t = inp.shape[:2]
+    # train-mode logits stay whole: their gradient is every rank's alike
+    sp = ((mode == "prefill" or mode == "train" and return_hidden)
+          and policy.seq_shard_on(t))
+    with policy.seq_section(t) if sp else nullcontext():
+        if embeddings is None:      # under seq_shard the rank's slice
+            x = policy.gather(params.embed, "partial" if sp else "full")[
+                policy.seq_slice(inp).long()].to(torch_dtype(cfg.dtype))
+        else:
+            x = policy.seq_scatter(inp.to(torch_dtype(cfg.dtype)))
+        positions = _positions(cfg, b, t, pos if mode == "decode" else 0,
+                               x.device)
+        new_cache = [] if cache is not None else None
+        aux = 0.0
+        if mode == "train" and remat != "none" and torch.is_grad_enabled():
+            period = len(cfg.pattern)
+            kw = ({} if remat == "full" else {"context_fn": partial(
+                create_selective_checkpoint_contexts, _dots_policy)})
+            for r in range(cfg.n_repeats):
+                x, a = checkpoint(_train_blocks,
+                                  params.blocks[r * period:(r + 1) * period],
+                                  x, positions, policy.current(),
+                                  use_reentrant=False, **kw)
+                aux = aux + a
+            x, a = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
+                                 positions)
             aux = aux + a
-        x, a = _train_blocks(params.blocks[cfg.n_repeats * period:], x,
-                             positions)
-        aux = aux + a
-    else:
-        for i, block in enumerate(params.blocks):
-            c = cache[i] if cache is not None else None
-            x, nc, a = block(x, positions=positions, mode=mode, cache=c,
-                             pos=pos)
-            aux = aux + a
-            if cache is not None:
-                new_cache.append(nc)
-    x = norm_apply(cfg, policy.gather_block_weights(params.final_norm), x)
-    if return_hidden:
-        return x, new_cache, aux
+        else:
+            for i, block in enumerate(params.blocks):
+                c = cache[i] if cache is not None else None
+                x, nc, a = block(x, positions=positions, mode=mode, cache=c,
+                                 pos=pos)
+                aux = aux + a
+                if cache is not None:
+                    new_cache.append(nc)
+        x = norm_apply(cfg, policy.gather_block_weights(params.final_norm),
+                       x)
+        if return_hidden:
+            return x, new_cache, aux
+        x = policy.seq_gather(x)
     logits = x @ _head(cfg, params).to(x.dtype)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -251,13 +270,29 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: LM, batch, remat: str = "full",
             xent_chunk: int = 512) -> torch.Tensor:
     """Next-token cross-entropy (+ the MoE aux term, weighted by
-    `cfg.moe.aux_loss_weight`). batch: {"tokens": (B, T)}."""
+    `cfg.moe.aux_loss_weight`). batch: {"tokens": (B, T)}. Under sequence
+    parallelism each model rank runs the xent on its slice of the rows
+    (position p's target is token p + 1; the last position has none) and
+    the partial sums add over "model" (module docstring)."""
     tokens = policy.batch_local(batch["tokens"])
     hidden, _, aux = apply(cfg, params, tokens, mode="train", remat=remat,
                            return_hidden=True)
-    nll = chunked_xent(hidden[:, :-1], _head(cfg, params), tokens[:, 1:],
-                       chunk=xent_chunk, softcap=cfg.logit_softcap,
-                       vocab=cfg.vocab_size)
+    b, t = tokens.shape
+    kw = dict(chunk=xent_chunk, softcap=cfg.logit_softcap,
+              vocab=cfg.vocab_size)
+    if not policy.seq_shard_on(t):
+        nll = chunked_xent(hidden[:, :-1], _head(cfg, params), tokens[:, 1:],
+                           **kw)
+    else:
+        lo, tl = policy.seq_span(t)
+        n = max(0, min(tl, t - 1 - lo))     # the slice's rows with a target
+        head = _head(cfg, params, "partial")
+        if n:
+            part = chunked_xent(hidden[:, :n], head,
+                                tokens[:, lo + 1:lo + 1 + n], **kw) * (b * n)
+        else:   # no row: a zero that keeps every collective of the backward
+            part = (hidden.float().sum() + head.float().sum()) * 0.0
+        nll = policy.seq_sum(part) / (b * (t - 1))
     if cfg.moe:
         nll = nll + cfg.moe.aux_loss_weight * aux
     return policy.batch_mean(nll)

@@ -34,12 +34,11 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     act = ACTS[cfg.act]
     tp = policy.is_tp(cfg, "ffn")               # a rank's ffn columns
-    if tp:
-        x = policy.enter_tp(x)
+    x = policy.enter_layer(x, tp)
     h = x @ params["wi"]
     if cfg.gated_mlp:
         h = act(x @ params["wg"]) * h
     else:
         h = act(h)
     out = h @ params["wo"]
-    return policy.leave_tp(out) if tp else out
+    return policy.leave_layer(out, tp)

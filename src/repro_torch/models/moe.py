@@ -161,7 +161,14 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor
     """x: (B, T, D) -> (out, aux_loss). On a mesh the chunks are the global
     batch's: where this rank's rows do not end on a chunk boundary, the
     rows of every data shard are gathered, routed together and this rank's
-    rows kept (`policy.gather_batch`)."""
+    rows kept (`policy.gather_batch`). Under sequence parallelism the
+    rank's slice of T is gathered whole first, so the chunks, capacity and
+    aux term are the whole sequences' (`policy.seq_whole`)."""
+    if policy.seq_on():
+        xw = policy.seq_gather(x)
+        with policy.seq_whole():
+            y, aux = moe_apply(cfg, params, xw)
+        return policy.seq_slice(y), policy.seq_partial(aux)
     b, t, d = x.shape
     n = policy.batch_shards()
     chunk = min(cfg.moe.router_chunk, n * b * t)

@@ -102,8 +102,7 @@ def rglru_block_apply(cfg: ModelConfig, params, x: torch.Tensor,
     state (decode): {"h": (B, W) fp32, "conv": (B, cw-1, W)}.
     Returns (out, new_state)."""
     tp = policy.is_tp(cfg, "rec")          # a rank's width shard
-    if tp:
-        x = policy.enter_tp(x)
+    x = policy.enter_layer(x, tp)
     xb = x @ params["w_branch_x"]
     gb = gelu(x @ params["w_branch_g"])
     conv_state = state["conv"] if state is not None else None
@@ -113,7 +112,7 @@ def rglru_block_apply(cfg: ModelConfig, params, x: torch.Tensor,
     h = lru_scan(a, b, h0)
     out = (h.to(x.dtype) * gb) @ params["w_out"]
     new_state = {"h": h[:, -1].clone(), "conv": new_conv}
-    return (policy.leave_tp(out) if tp else out), new_state
+    return policy.leave_layer(out, tp), new_state
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device):

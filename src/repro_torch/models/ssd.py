@@ -24,6 +24,7 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, normal
 from repro_torch.models.rglru import causal_conv1d, softplus
+from repro_torch.parallel import policy
 
 
 def _dims(cfg: ModelConfig):
@@ -118,8 +119,11 @@ def ssd_apply(cfg: ModelConfig, params, x: torch.Tensor,
     """Full Mamba2 mixer. x: (B, T, D) -> (out, new_state).
 
     state (decode): {"h": (B, nh, p, n) fp32, "conv": (B, cw-1, conv_dim)}.
+    The mixer is never tensor-parallel: under sequence parallelism it runs
+    on the whole T on every model rank and leaves on the rank's slice.
     """
     di, nh, p, n, g = _dims(cfg)
+    x = policy.enter_layer(x, False)
     b, t, d = x.shape
 
     zxbcdt = x @ params["in_proj"]
@@ -158,7 +162,7 @@ def ssd_apply(cfg: ModelConfig, params, x: torch.Tensor,
     yz = yz * torch.rsqrt(torch.mean(yz * yz, dim=-1, keepdim=True) + 1e-6)
     yz = (yz * params["norm_scale"]).to(x.dtype)
     out = yz @ params["out_proj"]
-    return out, {"h": h_last, "conv": new_conv}
+    return policy.leave_layer(out, False), {"h": h_last, "conv": new_conv}
 
 
 def ssd_decode_step(cfg: ModelConfig, params, x: torch.Tensor, state: dict):

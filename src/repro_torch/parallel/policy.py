@@ -32,9 +32,40 @@ path changes.
   global batch (a sum over the batch axes); `gather_batch` all-gathers
   rows (the MoE router's chunks where a data shard would split one).
 
+Sequence parallelism (`activation_rules(..., seq_shard=True)`, the JAX
+package's `carry` pin with T over "model"; Megatron's sequence
+parallelism). Inside an LM's T-sharded section (`seq_section`, entered by
+`lm.apply` in train and prefill where the model axis is wider than 1 and
+T > 1; nowhere else, so decode and the encoder-decoder do not change) a
+rank carries its slice of T between blocks, T padded to a multiple of the
+model size (`seq_span`); the norms and residual adds run on the slice.
+
+* `seq_gather` all-gathers the slices to the whole (unpadded) T; its
+  backward reduce-scatters, each rank having used the whole input for its
+  own slice of the output. `seq_scatter` takes the rank's slice of a
+  whole-T tensor; its backward all-gathers. `seq_slice` takes it without a
+  collective (a partial gradient: zero outside the slice).
+* `enter_tp` becomes `seq_gather` and `leave_tp` a reduce-scatter along T
+  (Megatron's g and g-bar): a tensor-parallel layer computes on the whole
+  T and leaves on the rank's slice. A layer that is not tensor-parallel
+  runs whole on every model rank between `seq_gather` and `seq_slice`
+  (`enter_layer`, `leave_layer`).
+* A weight every model rank uses whole on its own rows (the norms, the
+  embedding's lookup of the rank's slice, the head in the loss, and every
+  layer that `is_tp` says is not tensor-parallel) takes "partial" use:
+  its gradient sums over "model" (`_use`, so the layers and
+  `gather_block_weights` cannot disagree).
+* The MoE layer routes whole sequences in a `seq_whole` region: a
+  tensor-parallel region inside it enters as the identity and leaves with
+  an all-reduce both ways (its output's gradient is a rank's rows only),
+  and the aux term, which every model rank computes whole, passes its
+  gradient divided by the model size (`seq_partial`).
+* `seq_sum` adds the ranks' partial sums over their slices (the loss).
+
 The flash, xent and LRU kernels therefore see plain local tensors: flash
 a rank's (batch shard, head shard), xent its rows against the head
-gathered whole, the LRU its width shard.
+gathered whole, the LRU its width shard; under `seq_shard` flash and the
+LRU see the whole T as before and xent the rank's slice of the rows.
 """
 
 from __future__ import annotations
@@ -51,15 +82,17 @@ _RULES: Optional[dict] = None
 
 
 @contextlib.contextmanager
-def activation_rules(batch_axes, mesh, model_axis: str = "model"):
+def activation_rules(batch_axes, mesh, model_axis: str = "model",
+                     seq_shard: bool = False):
     """batch_axes: axis name / tuple for the batch dim (None: unsharded);
-    `mesh`: the `DeviceMesh` the step runs on."""
+    `mesh`: the `DeviceMesh` the step runs on; `seq_shard`: sequence
+    parallelism in an LM's train and prefill (module docstring)."""
     global _RULES
     old = _RULES
     if isinstance(batch_axes, str):
         batch_axes = (batch_axes,)
     _RULES = {"batch": tuple(batch_axes or ()), "model": model_axis,
-              "mesh": mesh}
+              "mesh": mesh, "seq_shard": bool(seq_shard)}
     try:
         yield
     finally:
@@ -132,6 +165,44 @@ def batch_shards() -> int:
     for a in _RULES["batch"]:
         n *= _size(a)
     return n
+
+
+def seq_shard_on(t: int) -> bool:
+    """Whether the rules shard an LM's T over "model": `seq_shard` set, a
+    model axis wider than 1 and T > 1 (never decode)."""
+    return bool(active() and _RULES["seq_shard"] and t > 1
+                and model_size() > 1)
+
+
+def seq_on() -> bool:
+    """Inside a T-sharded section (`seq_section`), outside `seq_whole`."""
+    return active() and isinstance(_RULES.get("seq"), int)
+
+
+def _in_whole() -> bool:
+    return active() and _RULES.get("seq") == "whole"
+
+
+@contextlib.contextmanager
+def seq_section(t: int):
+    """An LM's T-sharded section over a sequence of `t` positions (where
+    `seq_shard_on(t)`); a remat recompute captures it with the rules."""
+    with using({**_RULES, "seq": t}):
+        yield
+
+
+@contextlib.contextmanager
+def seq_whole():
+    """A whole-T region of a T-sharded section (the MoE layer's)."""
+    with using({**_RULES, "seq": "whole"}):
+        yield
+
+
+def seq_span(t: int):
+    """(first position, positions) of this model rank's slice of T
+    (T padded to a multiple of the model size)."""
+    tl = -(-t // model_size())
+    return model_rank() * tl, tl
 
 
 def _groups(axes):
@@ -226,10 +297,13 @@ def is_tp(cfg, layer: str) -> bool:
 
 
 def _use(cfg, parent: str, leaf: str, ndim: int) -> str:
+    # a weight used whole: on every model rank alike, or in a T-sharded
+    # section on the rank's own rows (the gradient sums over "model")
+    whole = "partial" if seq_on() else "full"
     if parent == "ffn" and leaf == "router":
-        return "full"
+        return whole
     if not is_tp(cfg, "moe" if parent == "ffn" and ndim == 3 else parent):
-        return "full"
+        return whole
     if parent in ("attn", "xattn"):
         if leaf not in ("wq", "wk", "wv", "wo"):
             return "partial"            # qk-norm scales, on a rank's heads
@@ -343,19 +417,138 @@ class _GatherBatch(torch.autograd.Function):
         return g.narrow(0, ctx.r * ctx.rows, ctx.rows).contiguous()
 
 
+def _pad_t(x, n: int):
+    """x padded with zeros along T (dim 1) to n positions."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+def _seq_info():
+    """(group, model size, model rank, T, slice) of the section."""
+    t = _RULES["seq"]
+    m = model_size()
+    return _groups([_RULES["model"]])[0], m, model_rank(), t, -(-t // m)
+
+
+# `dist.all_gather_into_tensor` and `dist.reduce_scatter_tensor` where
+# their newer names are missing
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+def _seq_apply(kind: str, x, info):
+    """One step along T: "slice" (the whole T to the rank's slice, no
+    collective), "gather" (the slices all-gathered, cropped to T) or
+    "reduce_scatter" (the whole T's partial sums, padded, summed over the
+    ranks into each one's slice)."""
+    group, m, r, t, tl = info
+    if kind == "slice":
+        return _pad_t(x, m * tl).narrow(1, r * tl, tl)
+    if kind == "gather":
+        xs = x.movedim(1, 0).contiguous()
+        out = xs.new_empty((m * tl,) + tuple(xs.shape[1:]))
+        _all_gather(out, xs, group=group)
+        return out.narrow(0, 0, t).movedim(0, 1).contiguous()
+    xs = _pad_t(x, m * tl).movedim(1, 0).contiguous()
+    out = xs.new_empty((tl,) + tuple(xs.shape[1:]))
+    _reduce_scatter(out, xs, group=group)
+    return out.movedim(0, 1).contiguous()
+
+
+class _Seq(torch.autograd.Function):
+    """A step along T forward and another one backward (`_seq_apply`)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.info, ctx.bwd = _seq_info(), bwd
+        return _seq_apply(fwd, x, ctx.info)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_apply(ctx.bwd, g, ctx.info), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
 def _tp_on() -> bool:
     return model_size() > 1
 
 
 def enter_tp(x):
     """Start of a tensor-parallel region over "model" (identity forward;
-    the backward all-reduces the gradient)."""
+    the backward all-reduces the gradient). In a T-sharded section the
+    slices all-gathered (`seq_gather`); in a `seq_whole` region the
+    identity both ways."""
+    if _in_whole():
+        return x
+    if seq_on():
+        return seq_gather(x)
     return _Enter.apply(x) if _tp_on() else x
 
 
 def leave_tp(x):
     """End of a tensor-parallel region: the sum of the ranks' partial
-    products."""
+    products. In a T-sharded section each rank's slice of it (a
+    reduce-scatter along T; the backward all-gathers); in a `seq_whole`
+    region the gradient, a rank's rows only, is all-reduced too."""
+    if _in_whole():
+        return _Enter.apply(_Leave.apply(x))
+    if seq_on():
+        return _Seq.apply(x, "reduce_scatter", "gather")
+    return _Leave.apply(x) if _tp_on() else x
+
+
+def seq_gather(x):
+    """A rank's slice of T -> the whole T (an all-gather; the backward
+    reduce-scatters). The identity outside a T-sharded section."""
+    return _Seq.apply(x, "gather", "reduce_scatter") if seq_on() else x
+
+
+def seq_scatter(x):
+    """The whole T -> this rank's slice (the backward all-gathers)."""
+    return _Seq.apply(x, "slice", "gather") if seq_on() else x
+
+
+def seq_slice(x):
+    """The whole T -> this rank's slice, without a collective: the
+    gradient is zero outside the slice (a partial sum over "model")."""
+    return _seq_apply("slice", x, _seq_info()) if seq_on() else x
+
+
+def enter_layer(x, tp: bool):
+    """A layer's input: `enter_tp` where it is tensor-parallel, else the
+    whole T (`seq_gather`) in a T-sharded section."""
+    return enter_tp(x) if tp else seq_gather(x)
+
+
+def leave_layer(x, tp: bool):
+    """A layer's output: `leave_tp` where it is tensor-parallel, else the
+    rank's slice (`seq_slice`) in a T-sharded section."""
+    return leave_tp(x) if tp else seq_slice(x)
+
+
+def seq_partial(x):
+    """A term every model rank computes whole in a T-sharded section (the
+    MoE aux term), whose parameters' gradients sum over "model": identity
+    forward, the gradient divided by the model size."""
+    return _ScaleGrad.apply(x, 1.0 / model_size()) if seq_on() else x
+
+
+def seq_sum(x):
+    """The ranks' partial sums over their slices of T -> the sum over the
+    whole T (an all-reduce over "model"; identity backward)."""
     return _Leave.apply(x) if _tp_on() else x
 
 

@@ -94,7 +94,9 @@ def make_train_step(model: Model, opt_cfg: opt_lib.OptConfig,
     optimizer state's (`m`, `v`, `master` those, `step` replicated), as
     the JAX package returns its shardings. Its train_step distributes
     full parameters, optimizer state and batch on first sight, and takes
-    them distributed."""
+    them distributed; it runs sequence-parallel where the rules its
+    caller set say `seq_shard` (`parallel/policy.py`), as the JAX
+    package's step does under its caller's rules."""
     acc_dtype = torch_dtype(grad_dtype)
 
     def grads_of(params, batch):
@@ -147,7 +149,10 @@ def make_train_step(model: Model, opt_cfg: opt_lib.OptConfig,
                    if microbatches > 1 else [batch])
         params.requires_grad_(True)
         rows = next(iter(batches[0].values())).shape[0]
-        with policy.activation_rules(shd.batch_sharding(mesh, rows), mesh):
+        caller = policy.current()       # keeps the caller's seq_shard
+        with policy.activation_rules(
+                shd.batch_sharding(mesh, rows), mesh,
+                seq_shard=bool(caller and caller["seq_shard"])):
             loss, grads = accumulate(params, batches)
         params, opt_state, metrics = opt_lib.apply_updates(
             opt_cfg, params, opt_state, grads)

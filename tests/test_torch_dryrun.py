@@ -27,8 +27,12 @@ Held:
       inside the window, JAX's chunked attention computes every block:
       x0.84; the MoE configs and recurrentgemma agree within 3%;
 * the flags the port does not offer are refused (`--attn-kernel`,
-  `--fsdp-gather`; `--seq-shard` with a message naming the missing
-  sequence parallelism), and a skipped cell is recorded as skipped.
+  `--fsdp-gather`), and a skipped cell is recorded as skipped;
+* `seq_shard` (the `--seq-shard` flag), traced on a (2, 2) mesh of the
+  same fake world for tinyllama's reduced train step and prefill against
+  the same cells without it: the same kernel calls, a fake live peak no
+  higher, the TP seams' all-reduces replaced by reduce-scatters and
+  all-gathers (exactly, in prefill), `"seq_shard": true` recorded.
 """
 
 import json
@@ -70,8 +74,12 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 
-mesh = dryrun.cell_mesh((2, 4), ("data", "model"))
 out = {}
+# the CLI with --seq-shard on a skipped cell (it makes the fake world)
+dryrun.RESULTS_DIR = sys.argv[3]
+out["cli"] = dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "long_500k",
+                          "--mesh", "multi", "--seq-shard"])
+mesh = dryrun.cell_mesh((2, 4), ("data", "model"))
 for arch in sys.argv[2].split(","):
     cfg = registry.reduced_config(registry.get_config(arch))
     for kind in ("train", "prefill", "decode"):
@@ -85,6 +93,17 @@ for arch in sys.argv[2].split(","):
                                          "fake_live_bytes_per_device"]}
         except Exception as e:
             out[f"{arch}|{kind}"] = {"error": f"{type(e).__name__}: {e}"}
+sp_mesh = dryrun.cell_mesh((2, 2), ("data", "model"))
+cfg = registry.reduced_config(registry.get_config("tinyllama-1.1b"))
+for kind in ("train", "prefill"):
+    for sp in (False, True):
+        r = dryrun.trace_cell(cfg, ShapeConfig(kind, %(T)d, %(B)d, kind),
+                              sp_mesh, seq_shard=sp)
+        out[f"sp|{kind}|{sp}"] = {
+            "calls": r["kernel_calls"], "coll": r["collectives"],
+            "live": r["memory"]["fake_live_bytes_per_device"],
+            "seq_shard": r["seq_shard"],
+            "bound": r["roofline"]["step_time_bound_s"]}
 out["modules"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 json.dump(out, open(sys.argv[1], "w"))
@@ -118,9 +137,9 @@ json.dump(out, open(sys.argv[1], "w"))
 """ % {"T": T, "B": B}
 
 
-def _run(code, out, archs, env):
+def _run(code, out, archs, env, *extra):
     return subprocess.Popen([sys.executable, "-c", code, str(out),
-                             ",".join(archs)], env=env,
+                             ",".join(archs), *extra], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
@@ -137,7 +156,7 @@ def traces(tmp_path_factory):
                          "--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=1"}
     halves = [ARCHS[0::2], ARCHS[1::2]]
-    procs = [_run(_PORT, tmp / "port.json", ARCHS, env)] + [
+    procs = [_run(_PORT, tmp / "port.json", ARCHS, env, str(tmp))] + [
         _run(_JAX, tmp / f"jax{i}.json", h, jenv)
         for i, h in enumerate(halves)]
     try:
@@ -150,7 +169,10 @@ def traces(tmp_path_factory):
     ref = {}
     for i in range(len(halves)):
         ref.update(json.loads((tmp / f"jax{i}.json").read_text()))
-    return json.loads((tmp / "port.json").read_text()), ref
+    port = json.loads((tmp / "port.json").read_text())
+    cached = tmp / "tinyllama-1.1b__long_500k__multi__baseline__seq.json"
+    port["cli_cached"] = json.loads(cached.read_text())
+    return port, ref
 
 
 def _trace(traces, arch, kind):
@@ -212,14 +234,42 @@ def test_flags_the_port_does_not_offer(flag, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_seq_shard_is_refused(capsys):
-    from repro_torch.launch import dryrun
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_seq_shard_trace(traces, kind):
+    """tinyllama's reduced cell on (2, 2) with and without `seq_shard`:
+    the same kernel calls, a fake live peak no higher, the all-reduce
+    bytes down and reduce-scatter and all-gather bytes up. In prefill
+    exactly: each of the 2 x n_layers TP seams' all-reduce of a (B/2, T,
+    D) activation becomes a reduce-scatter to its T slice and an
+    all-gather of the whole, and the logits gather the final slices."""
+    from repro_torch.configs import registry
+    from repro_torch.models.common import torch_dtype
 
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "yi-34b", "--shape", "train_4k",
-                     "--seq-shard"])
-    assert e.value.code == 2
-    assert "no sequence parallelism" in capsys.readouterr().err
+    off, on = traces[0][f"sp|{kind}|False"], traces[0][f"sp|{kind}|True"]
+    assert (off["seq_shard"], on["seq_shard"]) == (False, True)
+    assert on["calls"] == off["calls"] and on["calls"]["flash_attn"] > 0
+    assert on["live"] <= off["live"]
+    a, b = off["coll"], on["coll"]
+    assert b.get("all-reduce", 0) < a["all-reduce"]
+    assert b["reduce-scatter"] > a.get("reduce-scatter", 0)
+    assert b["all-gather"] > a["all-gather"]
+    assert on["bound"] <= off["bound"]
+    if kind == "prefill":
+        cfg = registry.reduced_config(registry.get_config("tinyllama-1.1b"))
+        act = B // 2 * T * cfg.d_model * torch_dtype(cfg.dtype).itemsize
+        seams = 2 * cfg.n_layers
+        assert a["all-reduce"] - b.get("all-reduce", 0) == seams * act
+        assert b["reduce-scatter"] - a.get("reduce-scatter", 0) == \
+            seams * act // 2
+        assert b["all-gather"] - a["all-gather"] == (seams + 1) * act
+
+
+def test_seq_shard_flag_is_accepted_and_cached_apart(traces):
+    """The CLI takes `--seq-shard` (exit 0) and caches its cells in their
+    own file, `"seq_shard": true` recorded."""
+    assert traces[0]["cli"] == 0
+    r = traces[0]["cli_cached"]
+    assert r["seq_shard"] is True and r["status"] == "skipped"
 
 
 def test_a_skipped_cell_is_recorded(tmp_path, monkeypatch):

@@ -255,6 +255,21 @@ with c:
     with c.counting():
         distribute_tensor(full, mesh, [Shard(0), Replicate()])
     out["distribute"] = c.cost.collective_bytes
+    # the c10d ops of the sequence-parallel seams, on the 32-rank group
+    g = mesh.get_group("model")
+    x = torch.empty(4, 16)
+    ag = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    rs = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    for name, fn in (
+            ("_allgather_base", lambda: ag(
+                torch.empty(32 * 4, 16), x, group=g)),
+            ("_reduce_scatter_base", lambda: rs(
+                torch.empty(1, 2), torch.empty(32, 2), group=g)),
+            ("reduce_scatter", lambda: dist.reduce_scatter(
+                torch.empty(4, 16), [x] * 32, group=g))):
+        with c.counting():
+            fn()
+        out[name] = c.cost.collective_bytes
 cuda = make_device_mesh((2, 4), ("data", "model"))
 out["cuda_mesh"] = [cuda.device_type, list(cuda.shape)]
 try:
@@ -295,6 +310,18 @@ def test_distribute_tensor_records_its_scatter_and_broadcast(world):
     over "data" and broadcasts rank 0's shard over "model"."""
     assert world["distribute"] == {"scatter": 512 // 16 * 8 * 4,
                                    "broadcast": 512 // 16 * 8 * 4}
+
+
+@pytest.mark.parametrize("op,want", [
+    ("_allgather_base", {"all-gather": 32 * 4 * 16 * 4}),
+    ("_reduce_scatter_base", {"reduce-scatter": 2 * 4}),
+    ("reduce_scatter", {"reduce-scatter": 4 * 16 * 4})])
+def test_c10d_collectives_are_counted_by_kind(world, op, want):
+    """`dist.all_gather_into_tensor`, `dist.reduce_scatter_tensor` and
+    `dist.reduce_scatter` (the c10d ops `_allgather_base`,
+    `_reduce_scatter_base`, `reduce_scatter`) record their result bytes
+    under their kind."""
+    assert world[op] == want
 
 
 def test_device_mesh_on_a_fake_world(world):

@@ -30,6 +30,7 @@ reduced models on a (1, 1) NCCL mesh on the card against the CPU, with
 the planned kernel launches, and run the codec there.
 """
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -63,6 +64,13 @@ EXTRAS = [("mb2", "tinyllama-1.1b", 2, "float32", 1.0),
           ("mb2_bf16", "tinyllama-1.1b", 2, "bfloat16", 1.0),
           ("clip", "granite-moe-3b-a800m", 1, "float32", 0.05)]
 REMAT_ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b"]
+# sequence parallelism (`activation_rules(..., seq_shard=True)`)
+SP_ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b", "mamba2-1.3b",
+            "granite-moe-3b-a800m", "gemma3-27b", "whisper-medium"]
+# a config whose 6 query heads do not divide 4 model ranks (yi-34b's 56
+# heads on 16), so attention is not tensor-parallel on (1, 4)
+H6 = ("yi-34b-h6", "yi-34b", dict(n_heads=6, n_kv_heads=2, head_dim=16))
+T_ODD = 15                                   # 2 does not divide it
 CASES = ([{"kind": "step", "key": f"2x2/{a}", "mesh": "2x2", "arch": a,
            "mb": 1, "grad_dtype": "float32", "clip": 1.0} for a in ARCHS]
          + [{"kind": "step", "key": f"1x4/{a}", "mesh": "1x4", "arch": a,
@@ -72,7 +80,21 @@ CASES = ([{"kind": "step", "key": f"2x2/{a}", "mesh": "2x2", "arch": a,
              "mb": mb, "grad_dtype": gd, "clip": c}
             for n, a, mb, gd, c in EXTRAS]
          + [{"kind": "remat", "key": f"remat/{a}", "mesh": "2x2", "arch": a}
-            for a in REMAT_ARCHS])
+            for a in REMAT_ARCHS]
+         + [{"kind": "step", "key": f"sp/2x2/{a}", "mesh": "2x2", "arch": a,
+             "mb": 1, "grad_dtype": "float32", "clip": 1.0, "one": False,
+             "sp": [True]} for a in SP_ARCHS]
+         + [{"kind": "step", "key": f"sp/1x4/{H6[0]}", "mesh": "1x4",
+             "arch": H6[1], "over": H6[2], "pkey": H6[0], "mb": 1,
+             "grad_dtype": "float32", "clip": 1.0, "sp": [False, True]},
+            {"kind": "step", "key": f"sp/2x2/t{T_ODD}", "mesh": "2x2",
+             "arch": "tinyllama-1.1b", "t": T_ODD, "mb": 1,
+             "grad_dtype": "float32", "clip": 1.0, "one": False,
+             "sp": [False, True]},
+            {"kind": "prefill", "key": "sp/prefill", "mesh": "2x2",
+             "arch": "recurrentgemma-9b", "t": T_ODD}])
+# the JAX package's seq_shard steps on (2, 2): (key, arch, overrides)
+SP_JAX = [(a, a, {}) for a in SP_ARCHS] + [H6]
 
 _RANKS = r'''
 import copy, dataclasses, datetime, os, pickle, socket, sys, traceback
@@ -91,7 +113,7 @@ def run(rank, port, inp, outp):
     from repro_torch.configs import registry
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import api, convert
-    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import policy, sharding as shd
     from repro_torch.train import loop, optim
 
     meshes = {"2x2": make_device_mesh((2, 2), ("data", "model"),
@@ -116,12 +138,14 @@ def run(rank, port, inp, outp):
         reg = registry
         cfg = dataclasses.replace(
             reg.reduced_config(reg.get_config(case["arch"])),
-            dtype="float32", param_dtype="float32")
+            dtype="float32", param_dtype="float32", **case.get("over", {}))
         model = api.build(cfg, device="cpu")
-        base = convert.params_from_numpy(cfg, data["params"][case["arch"]],
-                                         "cpu")
+        base = convert.params_from_numpy(
+            cfg, data["params"][case.get("pkey", case["arch"])], "cpu")
         batch = {k: torch.from_numpy(v)
                  for k, v in data["batches"][case["arch"]].items()}
+        if "t" in case:
+            batch["tokens"] = batch["tokens"][:, :case["t"]].contiguous()
         return cfg, model, base, batch
 
     def step_case(case):
@@ -130,31 +154,57 @@ def run(rank, port, inp, outp):
         oc = optim.OptConfig(**data["opt"], clip_norm=case["clip"])
         kw = dict(microbatches=case["mb"], remat="full",
                   grad_dtype=case["grad_dtype"])
-        out = {}
-        if rank == 0:
+        out = {"names": [n for n, _ in base.named_parameters()]}
+        if rank == 0 and case.get("one", True):
             p1 = copy.deepcopy(base)
             s1 = loop.make_train_step(model, oc, **kw)
             p1, _, m1 = s1(p1, optim.init_opt_state(p1), batch)
             out.update(m1={k: float(v) for k, v in m1.items()},
                        p1=np_list(p1.parameters()), g1=np_list(seen["grads"]))
-        s2, (p_spec, o_spec) = loop.make_train_step(model, oc, mesh=mesh,
-                                                    **kw)
-        p2 = copy.deepcopy(base)
-        p2, o2, m2 = s2(p2, optim.init_opt_state(p2), batch)
-        g2 = np_list(seen["grads"])
-        full = np_list([p.full_tensor() for p in p2.parameters()])
-        # names whose parameter or optimizer-state placements are not
-        # the rule table's
-        misplaced = [
-            n for n, p in p2.named_parameters()
-            if tuple(p.placements) != tuple(shd.placements(p_spec[n], mesh))
-            or any(tuple(o2[k][n].placements) != tuple(p.placements)
-                   for k in ("m", "v", "master"))]
-        if not all(isinstance(pl, Replicate) for pl in o2["step"].placements):
-            misplaced.append("step")
-        out.update(m2={k: float(v) for k, v in m2.items()}, p2=full, g2=g2,
-                   misplaced=misplaced, step=int(o2["step"].full_tensor()),
-                   spec=o_spec["step"] == shd.P() and o_spec["m"] is p_spec)
+        for sp in case.get("sp", [False]):
+            s2, (p_spec, o_spec) = loop.make_train_step(model, oc, mesh=mesh,
+                                                        **kw)
+            p2 = copy.deepcopy(base)
+            # the caller's rules, as the dry-run sets them around a step
+            with policy.activation_rules(
+                    shd.batch_sharding(mesh, len(batch["tokens"])), mesh,
+                    seq_shard=sp):
+                p2, o2, m2 = s2(p2, optim.init_opt_state(p2), batch)
+            g2 = np_list(seen["grads"])
+            full = np_list([p.full_tensor() for p in p2.parameters()])
+            # names whose parameter or optimizer-state placements are not
+            # the rule table's
+            misplaced = [
+                n for n, p in p2.named_parameters()
+                if tuple(p.placements) != tuple(shd.placements(p_spec[n],
+                                                               mesh))
+                or any(tuple(o2[k][n].placements) != tuple(p.placements)
+                       for k in ("m", "v", "master"))]
+            if not all(isinstance(pl, Replicate)
+                       for pl in o2["step"].placements):
+                misplaced.append("step")
+            res = dict(m2={k: float(v) for k, v in m2.items()}, p2=full,
+                       g2=g2, misplaced=misplaced,
+                       step=int(o2["step"].full_tensor()),
+                       spec=o_spec["step"] == shd.P()
+                       and o_spec["m"] is p_spec)
+            out.update(res) if not sp else out.update(sp=res)
+        return out
+
+    def prefill_case(case):
+        cfg, model, base, batch = setup(case)
+        mesh = meshes[case["mesh"]]
+        out = {}
+        for sp in (False, True):
+            params = shd.distribute(copy.deepcopy(base), mesh, "serve")
+            with policy.activation_rules(
+                    shd.batch_sharding(mesh, len(batch["tokens"])), mesh,
+                    seq_shard=sp), torch.no_grad():
+                logits, cache = model.prefill(
+                    params, loop.shard_batch(batch, mesh),
+                    max_len=case["t"] + 4)
+            out[sp] = np_list([logits] + [v for c in cache
+                                          for v in c.values()])
         return out
 
     def remat_case(case):
@@ -174,7 +224,8 @@ def run(rank, port, inp, outp):
     out = {}
     for case in data["cases"]:
         try:
-            fn = step_case if case["kind"] == "step" else remat_case
+            fn = {"step": step_case, "remat": remat_case,
+                  "prefill": prefill_case}[case["kind"]]
             out[case["key"]] = fn(case)
         except Exception:
             out[case["key"]] = {"error": traceback.format_exc()}
@@ -203,15 +254,19 @@ from repro.parallel import policy, sharding as shd
 from repro.train import loop, optim
 
 data = pickle.load(open(sys.argv[1], "rb"))
-archs = sys.argv[3].split(",")
+half = int(sys.argv[3])
 mesh = make_mesh((2, 2), ("data", "model"))
 out = {}
-for arch in archs:
+runs = ([(a, a, {}, False) for a in data["archs"][half::2]]
+        + [(f"sp/{k}", a, over, True)
+           for k, a, over in data["sp_jax"][half::2]])
+for key, arch, over, sp in runs:
     cfg = dataclasses.replace(
         registry.reduced_config(registry.get_config(arch)),
-        dtype="float32", param_dtype="float32")
+        dtype="float32", param_dtype="float32", **over)
     model = api.build(cfg)
-    params = jax.tree.map(jnp.asarray, data["params"][arch])
+    params = jax.tree.map(jnp.asarray,
+                          data["params"][key.removeprefix("sp/")])
     batch = {k: jnp.asarray(v) for k, v in data["batches"][arch].items()}
     oc = optim.OptConfig(**data["opt"])
     _, jit_for, (p_shard, o_shard) = loop.make_train_step(
@@ -221,30 +276,33 @@ for arch in archs:
     p = jax.device_put(params, p_shard)
     o = jax.device_put(optim.init_opt_state(params), o_shard)
     with mesh, policy.activation_rules(shd.batch_sharding(mesh, len(
-            batch["tokens"]))):
+            batch["tokens"])), seq_shard=sp):
         p1, _, met = step(p, o, batch)
-    out[arch] = {"params": jax.tree.map(np.asarray, p1),
-                 "metrics": {k: float(v) for k, v in met.items()}}
+    out[key] = {"params": jax.tree.map(np.asarray, p1),
+                "metrics": {k: float(v) for k, v in met.items()}}
 with open(sys.argv[2], "wb") as f:
     pickle.dump(out, f)
 '''
 
 
 def _jax_inputs():
-    """The JAX package's parameters and a batch of each config, as numpy."""
+    """The JAX package's parameters and a batch of each config (and the
+    parameters of `H6`), as numpy."""
     params, batches = {}, {}
-    for arch in ARCHS:
-        cfg = jax_cfg(arch)
-        params[arch] = jax.tree.map(np.asarray, japi.build(cfg).init(
+    for key, arch, over in [(a, a, {}) for a in ARCHS] + [H6]:
+        cfg = jax_cfg(arch, **over)
+        params[key] = jax.tree.map(np.asarray, japi.build(cfg).init(
             jax.random.PRNGKey(0)))
-        batches[arch] = jsynthetic.lm_batch(cfg, 0, 0, B, T)
+        if key == arch:
+            batches[arch] = jsynthetic.lm_batch(cfg, 0, 0, B, T)
     return params, batches
 
 
-def jax_cfg(arch):
+def jax_cfg(arch, **over):
     import dataclasses
     return dataclasses.replace(jreg.reduced_config(jreg.get_config(arch)),
-                               dtype="float32", param_dtype="float32")
+                               dtype="float32", param_dtype="float32",
+                               **over)
 
 
 @pytest.fixture(scope="module")
@@ -255,7 +313,7 @@ def runs(tmp_path_factory):
     params, batches = _jax_inputs()
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump({"params": params, "batches": batches, "opt": OPT,
-                     "cases": CASES}, f)
+                     "cases": CASES, "archs": ARCHS, "sp_jax": SP_JAX}, f)
     (tmp / "ranks.py").write_text(textwrap.dedent(_RANKS))
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
@@ -268,12 +326,12 @@ def runs(tmp_path_factory):
             "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
                          "--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=1"}
-    halves = [ARCHS[0::2], ARCHS[1::2]]
+    halves = (0, 1)
     refs = [subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "in.pkl"),
-         str(tmp / f"jax{i}.pkl"), ",".join(h)], env=jenv,
+         str(tmp / f"jax{i}.pkl"), str(i)], env=jenv,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for i, h in enumerate(halves)]
+        for i in halves]
     try:
         outs = [p.communicate(timeout=900) for p in [ranks] + refs]
     finally:
@@ -282,7 +340,7 @@ def runs(tmp_path_factory):
     for p, (_, err) in zip([ranks] + refs, outs):
         assert p.returncode == 0, err[-3000:]
     ref = {}
-    for i in range(len(halves)):
+    for i in halves:
         with open(tmp / f"jax{i}.pkl", "rb") as f:
             ref.update(pickle.load(f))
     with open(tmp / "out.pkl", "rb") as f:
@@ -296,13 +354,14 @@ def _case(runs, key):
     return out
 
 
-def _port_order(arch, tree):
+def _port_order(arch, tree, **over):
     """A JAX param tree (numpy) as the port's parameter list."""
     from repro_torch.configs import registry as treg
     from repro_torch.models import convert
     import dataclasses
     cfg = dataclasses.replace(treg.reduced_config(treg.get_config(arch)),
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              **over)
     return [p.detach().numpy() for p in convert.params_from_numpy(
         cfg, tree, "cpu").parameters()]
 
@@ -391,6 +450,101 @@ def test_mesh_remat_modes_agree(runs, arch):
     for remat in ("full", "dots"):
         for a, b in zip(out[remat], base):
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def _hold_sp(sp, base):
+    """A `seq_shard` mesh step against the same step without it: metrics
+    within TOL, each gradient within TOL of its leaf's largest, the
+    updated parameters by `_adam_close`, the placements the rule
+    table's."""
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(sp["m2"][k], base["m2"][k], rtol=TOL)
+    for a, b in zip(sp["g2"], base["g2"]):
+        assert a.shape == b.shape
+        assert float(np.abs(a - b).max()) <= TOL * max(
+            float(np.abs(b).max()), 1e-30)
+    clip = min(1.0, 1.0 / base["m2"]["grad_norm"])
+    _adam_close(sp["p2"], base["p2"], base["g2"], base["m2"]["lr"], clip)
+    assert sp["misplaced"] == []
+    assert sp["spec"] and sp["step"] == 1
+
+
+@pytest.mark.parametrize("mesh,arch", [("2x2", a) for a in SP_ARCHS]
+                         + [("1x4", H6[0])])
+def test_seq_shard_step_matches_non_sp_and_jax(runs, mesh, arch):
+    """One `make_train_step(mesh=)` step under `activation_rules(...,
+    seq_shard=True)` against the same mesh step without it and against
+    the JAX package's (2, 2) step under `seq_shard=True` (the file's
+    rule). whisper has no T-sharded section: bit for bit its step
+    without it. On (1, 4) the H6 config's attention is not
+    tensor-parallel (it runs whole between the T gather and the slice),
+    and its step without `seq_shard` is also held to one device."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.parallel import policy
+
+    out = _case(runs, f"sp/{mesh}/{arch}")
+    over = {}
+    if arch == H6[0]:
+        _, jarch, over = H6
+        cfg = dataclasses.replace(treg.reduced_config(treg.get_config(
+            jarch)), **over)
+        assert not policy._attn_tp(cfg, 4)
+        base = out
+        _hold_to_one_device(base)
+    else:
+        jarch, base = arch, _case(runs, f"{mesh}/{arch}")
+    sp = out["sp"]
+    if arch == "whisper-medium":
+        assert sp["m2"] == base["m2"]
+        for a, b in zip(sp["p2"] + sp["g2"], base["p2"] + base["g2"]):
+            assert np.array_equal(a, b)
+    _hold_sp(sp, base)
+    ref = runs[1][f"sp/{arch}"]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(sp["m2"][k], ref["metrics"][k], rtol=TOL)
+    clip = min(1.0, 1.0 / base["m1"]["grad_norm"])
+    _adam_close(sp["p2"], _port_order(jarch, ref["params"], **over),
+                base["g1"], base["m1"]["lr"], clip)
+
+
+def test_seq_shard_at_a_t_the_model_axis_does_not_divide(runs):
+    """T = 15 on (2, 2): the slices pad T to 16 and the gathers crop it
+    (no fallback to the whole T); the step equals the step without
+    `seq_shard` at the same T."""
+    out = _case(runs, f"sp/2x2/t{T_ODD}")
+    _hold_sp(out["sp"], out)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-27b"])
+def test_seq_shard_norm_scale_gradients(runs, arch):
+    """Every norm scale (`norm1`, `norm2`, gemma3's `post1`/`post2`,
+    `final_norm`) is used whole by each model rank on its own slice of T,
+    so its gradient sums over "model" ("partial" use): equal to its
+    gradient without `seq_shard`, not a model rank's share of it."""
+    out = _case(runs, f"sp/2x2/{arch}")
+    base = _case(runs, f"2x2/{arch}")
+    leaves = [i for i, n in enumerate(out["names"])
+              if "norm" in n or "post" in n]
+    assert len(leaves) >= 2 * 2 + 1
+    for i in leaves:
+        got, want = out["sp"]["g2"][i], base["g2"][i]
+        assert float(np.abs(want).max()) > 0
+        assert abs(float(got.sum()) - float(want.sum())) <= TOL * float(
+            np.abs(want).sum())
+        assert float(np.abs(got - want).max()) <= TOL * float(
+            np.abs(want).max())
+
+
+def test_seq_shard_prefill_equals_non_sp(runs):
+    """`Model.prefill` of recurrentgemma's reduced config (recurrent and
+    attention layers) at T = 15 on the gloo (2, 2) mesh: the logits and
+    every cache entry under `seq_shard` equal those without it (a
+    two-rank reduce-scatter adds what the all-reduce adds)."""
+    out = _case(runs, "sp/prefill")
+    assert len(out[True]) == len(out[False]) > 1
+    assert out[True][0].shape == (B // 2, T_ODD, out[False][0].shape[-1])
+    for a, b in zip(out[True], out[False]):
+        assert np.array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------
