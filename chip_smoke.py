@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --copy-times ROOT
     python3 chip_smoke.py --kernel-times ROOT
+    python3 chip_smoke.py --examples
     torchrun --nproc-per-node 4 chip_smoke.py --train-mesh
 
 In order: finds the card and prints its name and power limit; builds the
@@ -128,14 +129,26 @@ cells traced as rank 0 of a fake world of one (`launch/dryrun.py`, in a
 subprocess that sees no card), each kernel's traced calls equal to its
 launches in one of phase 7's steps, the roofline bound at or under
 phase 7's measured step and the fake live peak within 0.75-1.05 of the
-card's peak, the analytic estimate printed beside them; times every kernel,
+card's peak, the analytic estimate printed beside them; then the port's
+examples (phase 14, `examples_phase`): each `examples/torch_*.py` on the
+card in a subprocess, exit 0 and its `OK` line required and its own
+`kernel launches` line read (the quickstart's kernel-vs-plain errors
+within the kernel tests' tolerances; the weather example at the main
+path's domain and ensemble on one device and on a (2, 2) mesh listing the
+card 4 times, their final energies equal; the forecast service plain,
+under `--chaos` and in the `--kill-device 3` drill, bit for bit; LM
+training for its default 200 steps and a resume of 10 more from the
+checkpoint; LM serving),
+each run's host seconds and the weather run's ms a step beside phase 4's
+step; times every kernel,
 its plain version, one main-path step and one k-step round with CUDA
 events (each stencil kernel and copy also queued back to back; the k-step
 round beside k whole-state launches; copy and `Tensor.copy_` also under
 `torch.profiler`); prints one JSON `kernels` line, then the result line.
 Any failure exits nonzero. Imports nothing of JAX.
 
-With `--copy-times ROOT` it only times the copy kernel of the checkout at
+`--examples` runs phase 14 alone (`examples_main`) and prints no result
+line. With `--copy-times ROOT` it only times the copy kernel of the checkout at
 ROOT as phase 5 times this one's (`copy_times_of`), to hold two commits'
 kernels against each other on one card, and prints no result line.
 `--kernel-times ROOT` (`kernel_times_of`) does the same for copy, the
@@ -160,7 +173,11 @@ in bf16 at 4 x 2048, remat "full", 3 steps on (2, 2), without and with
 backward, peak memory a card, step ms, tokens/s, mfu and rank 0's device
 idle share; then rank 0's dry-run trace of the four cells on a (2, 2)
 fake world, held to the same three gates as phase 13's, its
-roofline_fraction beside the measured mfu. It prints no result line.
+roofline_fraction beside the measured mfu; and `launch/train.py` itself
+on `--mesh 2,2` and on the ("pod", "data", "model") mesh `--mesh 2,1,2`
+(tinyllama-1.1b at full width, 3 steps at 4 x 2048, bf16), the pod run's
+losses and grad norms held to the (2, 2) run's and said bit-equal or not.
+It prints no result line.
 """
 
 from __future__ import annotations
@@ -3254,6 +3271,11 @@ MESH4_FULL = (("tinyllama-1.1b", 3), ("recurrentgemma-9b", 3))
 # at most 2**-9 relative
 MESH4_LOSS_RTOL = 1e-3
 MESH4_GNORM_RTOL = 2 ** -9
+# `launch/train.py` on the ("pod", "data", "model") mesh beside (2, 2):
+# the batch over (pod, data) and the gradients' sums over both must give
+# the (2, 2) run's losses and grad norms (held at the limits above)
+POD_MESHES = ("2,2", "2,1,2")
+POD_ARCH, POD_STEPS = "tinyllama-1.1b", 3
 
 
 def train_mesh_main() -> int:
@@ -3409,6 +3431,31 @@ def train_mesh_main() -> int:
                  + beside)
             del params
             torch.cuda.empty_cache()
+    # the launcher on the pod mesh beside (2, 2), from the same seed
+    from repro_torch.launch import train as launcher
+    pod = {}
+    for shape in POD_MESHES:
+        dist.barrier()
+        hist = launcher.main(
+            ["--arch", POD_ARCH, "--steps", str(POD_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--mesh", shape])
+        pod[shape] = ([x["loss"] for x in hist],
+                      [x["grad_norm"] for x in hist],
+                      [round(x["time_s"] * 1e3, 1) for x in hist])
+        torch.cuda.empty_cache()
+    (l2, g2, t2), (l3, g3, t3) = (pod[m] for m in POD_MESHES)
+    say0(f"train mesh pod {POD_ARCH}: launch/train.py --mesh "
+         f"{POD_MESHES[1]} (pod, data, model) against --mesh "
+         f"{POD_MESHES[0]}, {POD_STEPS} steps at {TRAIN_BATCH} x "
+         f"{TRAIN_SEQ}, bf16: losses {l3} against {l2}; grad norms {g3} "
+         f"against {g2}; step ms {t3} against {t2}; losses bit-equal "
+         f"{l3 == l2}, grad norms bit-equal {g3 == g2}")
+    check(len(l3) == len(l2) == POD_STEPS, "train mesh pod: steps")
+    check(all(abs(a - b) <= MESH4_LOSS_RTOL * abs(b) for a, b in zip(l3, l2))
+          and all(abs(a - b) <= MESH4_GNORM_RTOL * abs(b)
+                  for a, b in zip(g3, g2)),
+          f"train mesh pod: (2, 1, 2) losses {l3} / grad norms {g3} against "
+          f"(2, 2)'s {l2} / {g2}")
     if rank == 0:           # the dry-run of the cells against these runs
         cells = [[arch, 0, sp] for arch, _ in MESH4_FULL
                  for sp in (False, True)]
@@ -3428,6 +3475,198 @@ def train_mesh_main() -> int:
         return 1
     say0("train mesh: all checks passed")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the port's examples (`examples/torch_*.py`), each a subprocess
+# ---------------------------------------------------------------------------
+
+# the weather example at the main path's domain; train_lm's two runs
+EXAMPLE_WEATHER = ["--grid", ",".join(map(str, GRID)), "--ensemble",
+                   str(ENSEMBLE), "--steps", str(STEPS)]
+# and again at 3x the steps: how much of a run's mean step is the
+# process's first launches
+EXAMPLE_WEATHER_LONG = EXAMPLE_WEATHER[:-1] + [str(3 * STEPS)]
+# train_lm: the example's default run (its loss check compares the last
+# step's loss with the first's; over 30 steps the two lie within a
+# batch's spread, 9.844 -> 9.845 on the card), then 10 more steps resumed
+# from its checkpoint
+EXAMPLE_TRAIN_STEPS = (200, 210)
+EXAMPLE_TIMEOUT_S = 600
+# the kernel tests' fp32 tolerances the quickstart's errors are held to
+EXAMPLE_TOL = {"hdiff": 1e-5, "vadvc": 2e-4}
+
+
+def run_example(name: str, *args):
+    """`examples/<name>.py *args` on the card in a subprocess: (exit code,
+    stdout lines, host seconds, its `kernel launches` line as a dict,
+    stderr's tail)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        return None, [], time.perf_counter() - t0, {}, "timed out"
+    secs = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    launches = {}
+    for ln in lines:
+        if ln.startswith("kernel launches: "):
+            launches = json.loads(ln.split(": ", 1)[1])
+    return res.returncode, lines, secs, launches, res.stderr[-2000:]
+
+
+def examples_phase(check, results) -> dict:
+    """Phase 14: each `examples/torch_*.py` on the card in a subprocess,
+    exit 0 and its `OK` line required, its launches read from its own
+    `kernel launches` line (a new process counts from 0): the quickstart
+    (its kernel-vs-plain errors within EXAMPLE_TOL), the weather example
+    at the main path's domain and ensemble on one device and on a (2, 2)
+    mesh listing the card 4 times (equal final energies, one whole-state
+    launch a step a shard), each for STEPS and 3 x STEPS steps, the
+    forecast service plain, with `--chaos` (one quarantined request) and
+    with `--kill-device 3` (every request bit for bit), LM training for EXAMPLE_TRAIN_STEPS[0] steps and its
+    resume to EXAMPLE_TRAIN_STEPS[1] from the checkpoint, and LM serving.
+    Returns the launches by kernel summed over the runs."""
+    import shutil
+
+    ckpt = ROOT / "build" / f"examples-train-lm-{os.getpid()}"
+    runs = [("torch_quickstart", [], "quickstart OK"),
+            ("torch_weather_simulation", EXAMPLE_WEATHER,
+             "weather simulation OK"),
+            ("torch_weather_simulation", EXAMPLE_WEATHER + ["--mesh", "2,2"],
+             "weather simulation OK"),
+            ("torch_weather_simulation", EXAMPLE_WEATHER_LONG,
+             "weather simulation OK"),
+            ("torch_weather_simulation",
+             EXAMPLE_WEATHER_LONG + ["--mesh", "2,2"],
+             "weather simulation OK"),
+            ("torch_forecast_service", [], "forecast service OK"),
+            ("torch_forecast_service", ["--chaos"], "forecast service OK"),
+            ("torch_forecast_service", ["--kill-device", "3"],
+             "mesh-failover drill OK")]
+    runs += [("torch_train_lm", ["--steps", str(n), "--ckpt-dir", str(ckpt)],
+              "train_lm OK") for n in EXAMPLE_TRAIN_STEPS]
+    runs += [("torch_serve_lm", [], "serve_lm OK")]
+    total, out = {}, {}
+    try:
+        for name, args, ok in runs:
+            rc, lines, secs, launches, err = run_example(name, *args)
+            label = " ".join([name] + args).replace(str(ROOT) + "/", "")
+            good = rc == 0 and bool(lines) and lines[-1] == ok
+            say(f"example {label}: exit {rc}, {secs:.1f} s on the host "
+                f"clock, launches {launches}, last line "
+                f"{lines[-1] if lines else None!r}")
+            check(good, f"example {label}: exit {rc}, no {ok!r} line; "
+                        f"stderr {err!r}")
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            out[label] = (lines, secs, launches)
+            key = name + ("_mesh" if "--mesh" in args else "")
+            results.setdefault(("example", key), {})[" ".join(args) or
+                                                      "default"] = dict(
+                seconds=secs, launches=launches, exit=rc)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    def lines_of(label):
+        return out.get(label, ([], 0, {}))[0]
+
+    def grab(label, prefix):
+        return [ln for ln in lines_of(label) if ln.startswith(prefix)]
+
+    # the quickstart: each kernel against its plain version
+    for kernel, tol in EXAMPLE_TOL.items():
+        got = grab("torch_quickstart", f"cuda {kernel} vs plain version: ")
+        err = float(got[0].rsplit(" ", 1)[1]) if got else float("inf")
+        say(f"example quickstart: {kernel} kernel vs plain version max err "
+            f"{err:.3g} (limit {tol})")
+        check(err <= tol, f"example quickstart: {kernel} err {err}")
+    q = out.get("torch_quickstart", ([], 0, {}))[2]
+    check(all(q.get(k, 0) > 0 for k in ("hdiff", "vadvc", "dycore_kstep",
+                                         "hadv")),
+          f"example quickstart: launches {q}")
+    # the weather example: one device against the (2, 2) mesh
+    single = " ".join(["torch_weather_simulation"] + EXAMPLE_WEATHER)
+    mesh = single + " --mesh 2,2"
+    long = " ".join(["torch_weather_simulation"] + EXAMPLE_WEATHER_LONG)
+    for one, steps in ((single, STEPS), (long, 3 * STEPS)):
+        e1 = grab(one, "final field energy")
+        e2 = grab(one + " --mesh 2,2", "final field energy")
+        say(f"example weather run({steps}): final energy one device {e1}, "
+            f"(2, 2) mesh {e2}: equal {bool(e1) and e1 == e2}")
+        check(bool(e1) and e1 == e2, f"example weather run({steps}): the "
+                                     f"mesh run's final energy differs")
+        check(bool(grab(one + " --mesh 2,2", "mesh (2, 2): 4 shards on 1 "
+                                             "cuda")),
+              "example weather: the mesh did not list the card 4 times")
+        for label, want in ((one, steps), (one + " --mesh 2,2", 4 * steps)):
+            n = out.get(label, ([], 0, {}))[2].get("dycore_fused")
+            check(n == want, f"example {label}: {n} whole-state launches, "
+                             f"want {want}")
+    main = results.get(("main_step", "float32"), {}).get("ms")
+    for label, label3, tag in ((single, long, "one device"),
+                               (mesh, long + " --mesh 2,2", "(2, 2) mesh")):
+        ms, ms3 = (grab(lb, f"{n} steps in ") for lb, n in
+                   ((label, STEPS), (label3, 3 * STEPS)))
+        ms, ms3 = (float(x[0].split(", ")[-1].split(" ms")[0]) if x else None
+                   for x in (ms, ms3))
+        results[("example", "torch_weather_simulation")][tag] = dict(
+            step_ms=ms, step_ms_long=ms3, main_step_ms=main)
+        say(f"example weather {tag}: {ms} ms a step over run({STEPS}), "
+            f"{ms3} over run({3 * STEPS}) (host clock, from the process's "
+            f"first launch); phase 4's main-path step {main} ms (median "
+            f"of {REPS} calls)")
+    # the forecast service: chaos and the failover drill
+    chaos = grab("torch_forecast_service --chaos", "chaos: ")
+    check(chaos == ["chaos: faults_fired=2 quarantined=1 round_retries=1 "
+                    "failed=1"], f"example forecast --chaos: {chaos}")
+    kill = grab("torch_forecast_service --kill-device 3", "bit for bit: ")
+    say(f"example forecast --kill-device 3: {kill}")
+    check(kill == ["bit for bit: 6 of 6 requests identical to their solo "
+                   "runs on the original mesh"],
+          f"example forecast --kill-device 3: {kill}")
+    # LM training and its resume
+    first, again = (" ".join(["torch_train_lm", "--steps", str(n),
+                              "--ckpt-dir", str(ckpt)]).replace(
+        str(ROOT) + "/", "") for n in EXAMPLE_TRAIN_STEPS)
+    resumed = grab(again, "[fit] resuming from step ")
+    check(resumed == [f"[fit] resuming from step {EXAMPLE_TRAIN_STEPS[0]}"],
+          f"example train_lm: no resume ({resumed})")
+    for label, steps in ((first, EXAMPLE_TRAIN_STEPS[0]),
+                         (again, EXAMPLE_TRAIN_STEPS[1]
+                          - EXAMPLE_TRAIN_STEPS[0])):
+        n = out.get(label, ([], 0, {}))[2]
+        check(n.get("xent") == steps and n.get("flash_attn", 0) > 0,
+              f"example {label}: launches {n}, {steps} steps")
+        say(f"example train_lm: "
+            f"{grab(label, '[fit]') + grab(label, 'loss: ')}")
+    s = out.get("torch_serve_lm", ([], 0, {}))[2]
+    check(s.get("flash_attn", 0) > 0, f"example serve_lm: launches {s}")
+    return total
+
+
+def examples_main() -> int:
+    """`python3 chip_smoke.py --examples`: phase 14 alone (the examples
+    build the kernels at their first launch). Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    failures = []
+
+    def check(ok, msg):
+        if not ok:
+            failures.append(msg)
+            say(f"CHECK FAILED: {msg}")
+
+    t0 = time.perf_counter()
+    examples_phase(check, {})
+    say(f"phase 14 (examples): {time.perf_counter() - t0:.1f} s")
+    return 1 if failures else 0
 
 
 def main() -> int:
@@ -4951,6 +5190,11 @@ def main() -> int:
 
     phase_done("phase 13 (dry-run against the card)")
 
+    # ---- 14. the port's examples ---------------------------------------------
+    example_launches = examples_phase(check, results)
+
+    phase_done("phase 14 (examples)")
+
     # ---- the kernels line -----------------------------------------------
     sources = {"dycore_fused": ("src/repro_torch/csrc/dycore_fused.cu",
                                 "src/repro/kernels/dycore_fused/fused.py:276"),
@@ -5082,6 +5326,10 @@ def main() -> int:
                       "passthrough_ms", "passthrough_queued_ms"):
             if extra in r and name not in ("flash_attn", "xent"):
                 kernels[-1][extra] = r[extra]
+        if example_launches.get(name):
+            # the examples' launches, every run's (phase 14)
+            kernels[-1].setdefault("paths", {})["examples"] = {
+                "launches": example_launches[name]}
         if name in mesh_launches:
             # the mesh phase's launches, every shard's, by plan (phase 10)
             by = mesh_launches[name]
@@ -5130,6 +5378,8 @@ if __name__ == "__main__":
             sys.exit(kernel_times_of(Path(sys.argv[2])))
         if sys.argv[1:] == ["--train-mesh"]:
             sys.exit(train_mesh_main())
+        if sys.argv[1:] == ["--examples"]:
+            sys.exit(examples_main())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)

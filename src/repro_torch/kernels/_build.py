@@ -89,6 +89,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def print_launches() -> None:
+    """Print this process's launches so far (`LAUNCHES`, the kernels
+    launched at least once) as one line, `kernel launches: {json}`."""
+    print("kernel launches: "
+          + json.dumps({k: n for k, n in LAUNCHES.items() if n}))
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
                  shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):

@@ -1,7 +1,9 @@
 """Plain PyTorch COSMO horizontal diffusion compound stencil.
 
 A line-for-line port of `repro.kernels.hdiff.ref.hdiff`, in the same fp32
-operation order: laplace -> flux -> COSMO flux limiter -> output. Layout
+operation order: laplace -> flux -> COSMO flux limiter -> output
+(`limit=False`, and `hdiff_simple`: the paper's Algorithm 1 without the
+limiter, a plain version only; the CUDA kernel always limits). Layout
 `(..., ny, nx)`, every leading axis a batch of independent planes; halo 2
 in y and x; the 2-wide boundary ring passes through unchanged.
 """
@@ -26,9 +28,11 @@ def _lap(f: torch.Tensor, dj: int, di: int) -> torch.Tensor:
             - 4.0 * _s(f, dj, di))
 
 
-def hdiff(src: torch.Tensor, coeff: float = DEFAULT_COEFF) -> torch.Tensor:
-    """Compound horizontal diffusion of `src` (..., ny, nx), ny, nx >= 5.
-    Computes in fp32; returns `src`'s shape and dtype."""
+def hdiff(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
+          limit: bool = True) -> torch.Tensor:
+    """Compound horizontal diffusion of `src` (..., ny, nx), ny, nx >= 5,
+    with the flux limiter unless `limit=False`. Computes in fp32; returns
+    `src`'s shape and dtype."""
     f = src.float() if src.dtype == torch.bfloat16 else src
 
     lap_c = _lap(f, 0, 0)
@@ -37,19 +41,25 @@ def hdiff(src: torch.Tensor, coeff: float = DEFAULT_COEFF) -> torch.Tensor:
     fly = _lap(f, 1, 0) - lap_c
     fly_m = lap_c - _lap(f, -1, 0)
 
-    # COSMO flux limiter: a flux with flux·Δf > 0 is zeroed.
-    zero = torch.zeros((), dtype=f.dtype, device=f.device)
-    flx = torch.where(flx * (_s(f, 0, 1) - _s(f, 0, 0)) > 0.0, zero, flx)
-    flx_m = torch.where(flx_m * (_s(f, 0, 0) - _s(f, 0, -1)) > 0.0, zero,
-                        flx_m)
-    fly = torch.where(fly * (_s(f, 1, 0) - _s(f, 0, 0)) > 0.0, zero, fly)
-    fly_m = torch.where(fly_m * (_s(f, 0, 0) - _s(f, -1, 0)) > 0.0, zero,
-                        fly_m)
+    if limit:   # COSMO flux limiter: a flux with flux·Δf > 0 is zeroed.
+        zero = torch.zeros((), dtype=f.dtype, device=f.device)
+        flx = torch.where(flx * (_s(f, 0, 1) - _s(f, 0, 0)) > 0.0, zero, flx)
+        flx_m = torch.where(flx_m * (_s(f, 0, 0) - _s(f, 0, -1)) > 0.0, zero,
+                            flx_m)
+        fly = torch.where(fly * (_s(f, 1, 0) - _s(f, 0, 0)) > 0.0, zero, fly)
+        fly_m = torch.where(fly_m * (_s(f, 0, 0) - _s(f, -1, 0)) > 0.0, zero,
+                            fly_m)
 
     interior = _s(f, 0, 0) - coeff * ((flx - flx_m) + (fly - fly_m))
     out = f.clone()
     out[..., 2:-2, 2:-2] = interior
     return out.to(src.dtype)
+
+
+def hdiff_simple(src: torch.Tensor,
+                 coeff: float = DEFAULT_COEFF) -> torch.Tensor:
+    """The paper's Algorithm 1 without the flux limiter."""
+    return hdiff(src, coeff=coeff, limit=False)
 
 
 def hdiff_kstep(src: torch.Tensor, coeff: float = DEFAULT_COEFF,

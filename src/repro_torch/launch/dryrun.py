@@ -64,7 +64,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core import hwspec, memmodel, op_cost
 from repro_torch.core import roofline as rl
-from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.launch.mesh import make_device_mesh, production_shape
 from repro_torch.models import api
 from repro_torch.models.common import torch_dtype
 from repro_torch.parallel import policy
@@ -79,9 +79,9 @@ RESULTS_DIR = os.path.abspath(os.path.join(
 # every conv state and SSD chunk)
 PROMPT = 64
 
-# `launch/mesh.py::make_production_mesh`'s shapes
-MESHES = {"single": ((16, 16), ("data", "model")),
-          "multi": ((2, 16, 16), ("pod", "data", "model"))}
+# the production meshes' (shape, axes)
+MESHES = {"single": production_shape(),
+          "multi": production_shape(multi_pod=True)}
 
 
 def fake_world(world: int) -> None:

@@ -33,8 +33,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_production_mesh", "data_axes",
-           "make_device_mesh"]
+__all__ = ["Mesh", "make_mesh", "production_shape", "make_production_mesh",
+           "data_axes", "make_device_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -149,13 +149,19 @@ def make_mesh(shape, axes, devices: Optional[Sequence] = None,
     return Mesh(arr.reshape(shape), tuple(axes), tuple(ids[:n]))
 
 
+def production_shape(*, multi_pod: bool = False):
+    """(shape, axes) of the production mesh. Single pod: (16, 16) =
+    ("data", "model"), 256 devices. Multi-pod: (2, 16, 16) = ("pod",
+    "data", "model"), 512. The "pod" axis carries the ensemble, and an
+    LM's batch beside "data" (data parallel across pods)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """Single pod: (16, 16) = ("data", "model"), 256 devices. Multi-pod:
-    (2, 16, 16) = ("pod", "data", "model"), 512. The "pod" axis carries
-    the ensemble (data parallel across pods)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    """The production mesh (`production_shape`) over the card's devices."""
+    return make_mesh(*production_shape(multi_pod=multi_pod))
 
 
 def data_axes(mesh) -> tuple:

@@ -11,13 +11,21 @@ checkpoint there. The defaults are the JAX launcher's.
 
 Under torchrun (`RANK`/`WORLD_SIZE` set) it trains on a device mesh of the
 world, one process a device: ("data", "model") of (1, n) with `--smoke`
-(as the JAX launcher's smoke mesh), or `--mesh D,M`, else (n, 1)
-(`launch/mesh.py::make_device_mesh`; `--device cpu` runs gloo):
+(as the JAX launcher's smoke mesh), or `--mesh D,M`, else (n, 1);
+`--mesh P,D,M` names ("pod", "data", "model"), the batch split over pod
+and data; `--multi-pod` takes the production pod mesh,
+`launch/mesh.py::production_shape(multi_pod=True)`, (2, 16, 16), and
+refuses any world but 512 (`launch/mesh.py::make_device_mesh`; `--device
+cpu` runs gloo):
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch tinyllama-1.1b --mesh 2,2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch tinyllama-1.1b --mesh 2,1,2
 
-Rank 0 prints the success line, which names the mesh.
+Rank 0 prints the success line, which names the mesh. `main` returns the
+run's history; it ends the process group only where it began it, so a
+caller that holds a group can call it again.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import os
 
 from repro_torch.configs import registry
 from repro_torch.data import synthetic
+from repro_torch.launch.mesh import production_shape
 from repro_torch.models import api
 from repro_torch.train import loop, optim
 
@@ -45,23 +54,42 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
-                    help="D,M: the (data, model) mesh under torchrun")
+                    help="D,M: the (data, model) mesh under torchrun; "
+                         "P,D,M: (pod, data, model)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) (pod, data, model) production "
+                         "mesh; needs a world of 512")
     args = ap.parse_args(argv)
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    shape = axes = None
+    if args.multi_pod:
+        if args.mesh:
+            ap.error("--multi-pod takes the production mesh; drop --mesh")
+        shape, axes = production_shape(multi_pod=True)
+        if world != 512:
+            ap.error(f"--multi-pod trains on the {shape} (pod, data, model) "
+                     f"mesh, 512 processes; WORLD_SIZE is {world}")
+    elif args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        if len(shape) not in (2, 3):
+            ap.error(f"--mesh {args.mesh}: D,M or P,D,M")
+        axes = production_shape(multi_pod=len(shape) == 3)[1]
+    elif "WORLD_SIZE" in os.environ:
+        shape = (1, world) if args.smoke else (world, 1)
+        axes = ("data", "model")
 
     cfg = registry.get_config(args.arch)
     if args.smoke:
         cfg = registry.reduced_config(cfg)
-    mesh, where, say = None, None, print
-    if "WORLD_SIZE" in os.environ or args.mesh:
+    mesh, where, say, owns = None, None, print, False
+    if shape is not None:
+        import torch.distributed as dist
+
         from repro_torch.launch.mesh import make_device_mesh
         from repro_torch.parallel import sharding as shd
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if args.mesh:
-            shape = tuple(int(x) for x in args.mesh.split(","))
-        else:
-            shape = (1, world) if args.smoke else (world, 1)
-        mesh = make_device_mesh(shape, ("data", "model"),
-                                device_type=args.device)
+        owns = not dist.is_initialized()
+        mesh = make_device_mesh(shape, axes, device_type=args.device)
         where = (f"mesh {dict(zip(mesh.mesh_dim_names, shape))} "
                  f"({mesh.device_type})")
         if not shd.is_rank0():
@@ -83,9 +111,9 @@ def main(argv=None):
         say(f"[train] done: loss {hist[0]['loss']:.4f} -> "
             f"{hist[-1]['loss']:.4f} over {len(hist)} steps on {where}")
     data.close()
-    if mesh is not None:
-        import torch.distributed as dist
+    if owns:
         dist.destroy_process_group()
+    return hist
 
 
 if __name__ == "__main__":

@@ -116,15 +116,18 @@ class Model:
         return lm.prefill(self.cfg, params, tokens, max_len)
 
     def decode_step(self, params: Params, cache, token: torch.Tensor,
-                    pos: int):
+                    pos: int, frames_enc: Optional[torch.Tensor] = None):
         """token: (B, 1) -> (logits (B, 1, V), cache). Writes the token's
         K/V into `cache` in place; an encoder-decoder's `enc` is read,
-        never written."""
+        never written. `frames_enc` (B, F, D), an encoder-decoder's
+        encoder output, stands in for `cache["enc"]` and is the returned
+        cache's `enc`."""
         if self.family == "encdec":
-            logits, new = encdec.decode(self.cfg, params, token,
-                                        cache["enc"], mode="decode",
+            enc = cache["enc"] if frames_enc is None else frames_enc
+            logits, new = encdec.decode(self.cfg, params, token, enc,
+                                        mode="decode",
                                         cache={"dec": cache["dec"]}, pos=pos)
-            return logits, {"dec": new["dec"], "enc": cache["enc"]}
+            return logits, {"dec": new["dec"], "enc": enc}
         return lm.decode_step(self.cfg, params, cache, token, pos)
 
 

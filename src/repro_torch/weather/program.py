@@ -81,8 +81,8 @@ VARIANTS = _sops.VARIANTS
 # program's `hardware` names the one its modelled numbers target.
 KNOWN_HARDWARE = hwspec.available_specs()
 
-__all__ = ["StencilProgram", "ExchangeSchedule", "ExecutionPlan", "compile",
-           "plan_cache_key",
+__all__ = ["StencilProgram", "DycoreProgram", "ExchangeSchedule",
+           "ExecutionPlan", "compile", "compile_dycore", "plan_cache_key",
            "compile_with_fallback", "reference_program", "StencilOpDef",
            "get_stencil_op", "register_stencil_op",
            "registered_stencil_ops", "VARIANTS", "ensemble_slot_view",
@@ -184,6 +184,10 @@ class StencilProgram:
         d["grid_shape"] = tuple(d["grid_shape"])
         d["fields"] = tuple(d["fields"])
         return cls(**d)
+
+
+# The dycore spec is an alias: `op` already defaults to "dycore".
+DycoreProgram = StencilProgram
 
 
 def plan_cache_key(program: StencilProgram,
@@ -838,6 +842,10 @@ def _recompile(plan: ExecutionPlan, program: StencilProgram,
     ax_e, ax_y, ax_x = plan.mesh_axes
     return compile(program, mesh=plan.mesh, ax_e=ax_e, ax_y=ax_y, ax_x=ax_x,
                    device=plan.device, **kw)
+
+
+# The dycore entry point of the JAX package: the same planner.
+compile_dycore = compile
 
 
 def reference_program(program: StencilProgram) -> StencilProgram:

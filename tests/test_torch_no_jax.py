@@ -5,8 +5,9 @@ module, the training slice's `train/`, `data/`, `kernels/xent/` and
 `testing/faults.py` and `kernels/slot_guard/`, and the LM mesh slice's
 `parallel/sharding.py`, `parallel/policy.py` and
 `parallel/compression.py`, and the dry-run slice's `core/roofline.py`,
-`core/op_cost.py` and `launch/dryrun.py` among them) or its chip smoke
-script; nor does a dry-run of a full-width cell in its own process."""
+`core/op_cost.py` and `launch/dryrun.py` among them), its chip smoke
+script or its examples (`examples/torch_*.py`); nor does a dry-run of a
+full-width cell in its own process."""
 
 import ast
 import json
@@ -22,7 +23,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path):

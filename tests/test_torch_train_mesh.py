@@ -25,7 +25,13 @@ bfloat16 accumulation (gradients equal but for under 1 in 100 elements
 rounded a bf16 step apart, whose parameters get Adam's capped allowance)
 and a `clip_norm` that bites, each against the one-device step with the
 same settings; and the three `remat` modes agree (loss and gradients, as
-`test_remat_modes_agree` holds them on one device). The `cuda` cases step
+`test_remat_modes_agree` holds them on one device). On a (2, 1, 2)
+("pod", "data", "model") mesh, the production pod mesh's axes, reduced
+tinyllama's step is held to the one-device step as the (2, 2) steps are:
+the batch splits over ("pod", "data") and the loss's mean and the
+gradients' sums cover "pod" as well as "data". The launcher trains on
+that mesh under torchrun (`--mesh 2,1,2`) and `--multi-pod` refuses a
+world that is not 512. The `cuda` cases step
 reduced models on a (1, 1) NCCL mesh on the card against the CPU, with
 the planned kernel launches, and run the codec there.
 """
@@ -64,6 +70,8 @@ EXTRAS = [("mb2", "tinyllama-1.1b", 2, "float32", 1.0),
           ("mb2_bf16", "tinyllama-1.1b", 2, "bfloat16", 1.0),
           ("clip", "granite-moe-3b-a800m", 1, "float32", 0.05)]
 REMAT_ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b"]
+# the ("pod", "data", "model") mesh of shape (2, 1, 2)
+POD_ARCHS = ["tinyllama-1.1b"]
 # sequence parallelism (`activation_rules(..., seq_shard=True)`)
 SP_ARCHS = ["tinyllama-1.1b", "recurrentgemma-9b", "mamba2-1.3b",
             "granite-moe-3b-a800m", "gemma3-27b", "whisper-medium"]
@@ -81,6 +89,9 @@ CASES = ([{"kind": "step", "key": f"2x2/{a}", "mesh": "2x2", "arch": a,
             for n, a, mb, gd, c in EXTRAS]
          + [{"kind": "remat", "key": f"remat/{a}", "mesh": "2x2", "arch": a}
             for a in REMAT_ARCHS]
+         + [{"kind": "step", "key": f"2x1x2/{a}", "mesh": "2x1x2", "arch": a,
+             "mb": 1, "grad_dtype": "float32", "clip": 1.0}
+            for a in POD_ARCHS]
          + [{"kind": "step", "key": f"sp/2x2/{a}", "mesh": "2x2", "arch": a,
              "mb": 1, "grad_dtype": "float32", "clip": 1.0, "one": False,
              "sp": [True]} for a in SP_ARCHS]
@@ -119,7 +130,10 @@ def run(rank, port, inp, outp):
     meshes = {"2x2": make_device_mesh((2, 2), ("data", "model"),
                                       device_type="cpu"),
               "1x4": init_device_mesh("cpu", (1, 4),
-                                      mesh_dim_names=("data", "model"))}
+                                      mesh_dim_names=("data", "model")),
+              "2x1x2": init_device_mesh("cpu", (2, 1, 2),
+                                        mesh_dim_names=("pod", "data",
+                                                        "model"))}
     data = pickle.load(open(inp, "rb"))
     seen = {}
     real_update = optim.apply_updates
@@ -154,7 +168,8 @@ def run(rank, port, inp, outp):
         oc = optim.OptConfig(**data["opt"], clip_norm=case["clip"])
         kw = dict(microbatches=case["mb"], remat="full",
                   grad_dtype=case["grad_dtype"])
-        out = {"names": [n for n, _ in base.named_parameters()]}
+        out = {"names": [n for n, _ in base.named_parameters()],
+               "batch_axes": shd.batch_sharding(mesh, len(batch["tokens"]))}
         if rank == 0 and case.get("one", True):
             p1 = copy.deepcopy(base)
             s1 = loop.make_train_step(model, oc, **kw)
@@ -424,6 +439,69 @@ def test_mesh_step_matches_one_device_and_jax(runs, mesh, arch):
     clip = min(1.0, 1.0 / out["m1"]["grad_norm"])
     _adam_close(out["p2"], _port_order(arch, ref["params"]), out["g1"],
                 out["m1"]["lr"], clip)
+
+
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_pod_mesh_step_matches_one_device(runs, arch):
+    """One step on the (2, 1, 2) ("pod", "data", "model") mesh: the batch
+    split over ("pod", "data"), and the step within the file's rule of
+    the one-device step (a loss mean or a gradient sum over "data" alone
+    would be off by the pod axis's share)."""
+    out = _case(runs, f"2x1x2/{arch}")
+    assert out["batch_axes"] == ("pod", "data")
+    _hold_to_one_device(out)
+    base = _case(runs, f"2x2/{arch}")
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(out["m2"][k], base["m2"][k], rtol=TOL)
+
+
+def test_train_launcher_on_a_pod_mesh_under_torchrun():
+    """`launch/train.py --mesh 2,1,2` under torchrun (four gloo ranks):
+    trains on the ("pod", "data", "model") mesh and names it."""
+    import socket
+
+    with socket.socket() as s:            # a free port, not torchrun's
+        s.bind(("127.0.0.1", 0))          # default, which another test's
+        port = s.getsockname()[1]         # torchrun may hold
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "4", "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+         "--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+         "--seq", "16", "--mesh", "2,1,2"],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [ln for ln in res.stdout.splitlines() if "[train] done" in ln]
+    assert len(lines) == 1, res.stdout          # rank 0 only
+    assert ("over 2 steps on mesh {'pod': 2, 'data': 1, 'model': 2} (cpu)"
+            in lines[0])
+
+
+@pytest.mark.parametrize("world", [None, "4", "256"])
+def test_multi_pod_refuses_a_world_that_is_not_512(world, monkeypatch,
+                                                   capsys):
+    """`--multi-pod` trains on the (2, 16, 16) production mesh only: any
+    other world is refused before a process group or a model is made."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    with pytest.raises(SystemExit) as e:
+        launch_train.main(["--arch", "tinyllama-1.1b", "--smoke",
+                           "--device", "cpu", "--multi-pod"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "512" in err and f"WORLD_SIZE is {world or 1}" in err
+    assert not dist.is_initialized()
+    from repro_torch.launch.mesh import production_shape
+    assert production_shape(multi_pod=True) == ((2, 16, 16),
+                                                ("pod", "data", "model"))
 
 
 @pytest.mark.parametrize("name", [e[0] for e in EXTRAS])
