@@ -1,0 +1,24 @@
+"""The whole-state dycore kernel's share of its roofline (%): the bound of
+one launch over its mean device time. A launch reads the field-stacked
+fields, tendencies and stage tendencies and the staggered w once, and
+writes the fields and stage tendencies once; 76 operations a field point
+(`ops/dycore.py`)."""
+
+from bench import peaks
+from bench.ops.dycore import FLOPS_PER_POINT
+
+KERNEL = "dycore_fused"
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    times = run.trace.launches(KERNEL)
+    if not times:
+        return None
+    wl = run.workload
+    nz, ny, nx = wl.grid
+    nf, plane = wl.n_fields, wl.members * nz * ny * nx
+    nbytes = (3 * nf + 1 + 2 * nf) * plane * wl.itemsize
+    bound = peaks.bound_s(nbytes, FLOPS_PER_POINT * nf * plane, wl.dtype_name)
+    return 100.0 * bound / (sum(times) / len(times))
