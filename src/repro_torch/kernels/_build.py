@@ -14,7 +14,8 @@ ptxas report (registers, spills) beside it in `ptxas.json`. Nothing here
 runs when the module is imported.
 
 Every kernel wrapper counts its launches in `LAUNCHES` (one per launch, and
-nowhere else), so a run can show which kernels its path went through.
+nowhere else), so a run can show which kernels its path went through, and
+runs inside the span `nero.kernel.<its LAUNCHES key>` (`core/spans.py`).
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 
 
@@ -22,6 +23,7 @@ def check_rows(src: torch.Tensor, tr: int) -> None:
         raise ValueError(f"rows={rows} % tr={tr} != 0")
 
 
+@spanned("nero.kernel.copy")
 def copy_cuda(src: torch.Tensor, tr: int = 256) -> torch.Tensor:
     """A new tensor equal to the contiguous 2-D CUDA tensor `src`, bit for
     bit, in its dtype. `tr` is the TPU kernel's row block: the CUDA kernel

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 from repro_torch.kernels.dycore_fused.ref import DEFAULT_COEFF, DEFAULT_DT
 
@@ -29,6 +30,7 @@ def scratch_shapes(batch: int, nf: int, nz: int, ny: int, nx: int,
             (tiles * nf, nz - 1, tile.threads))
 
 
+@spanned("nero.kernel.dycore_fused")
 def fused_dycore_cuda(fs: torch.Tensor, w: torch.Tensor, utens: torch.Tensor,
                       utens_stage: torch.Tensor, *,
                       coeff: float = DEFAULT_COEFF, dt: float = DEFAULT_DT,

@@ -14,10 +14,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 from repro_torch.kernels.dycore_fused.ref import DEFAULT_COEFF, DEFAULT_DT
 
 
+@spanned("nero.kernel.dycore_kstep")
 def fused_dycore_kstep_cuda(fs: torch.Tensor, w: torch.Tensor,
                             utens: torch.Tensor, utens_stage: torch.Tensor,
                             *, k_steps: int, coeff: float = DEFAULT_COEFF,

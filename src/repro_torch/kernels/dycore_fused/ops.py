@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import autotune, tiling
+from repro_torch.core.spans import copied, spanned
 from repro_torch.kernels.dycore_fused import ref as _ref
 from repro_torch.kernels.dycore_fused.fused import fused_dycore_cuda
 from repro_torch.kernels.dycore_fused.kstep import fused_dycore_kstep_cuda
@@ -94,10 +95,12 @@ def resolve_tile(variant: str, grid_shape, dtype, n_fields: int,
     raise ValueError(f"unknown dycore variant {variant!r}")
 
 
+@spanned("nero.lower.staggered_w")
 def staggered_w(wcon: torch.Tensor) -> torch.Tensor:
     """`wcon_i + wcon_{i+1}` (periodic next column), summed in the storage
-    dtype as the JAX package's `ops.py` does before its launch."""
-    return wcon + torch.roll(wcon, -1, dims=-1)
+    dtype as the JAX package's `ops.py` does before its launch; the roll
+    and the sum are counted in `core/spans.py::LOWERING`."""
+    return copied(wcon + copied(torch.roll(wcon, -1, dims=-1)))
 
 
 def fused_step_whole_state(fs: torch.Tensor, wcon: torch.Tensor,

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernels' instantiations
@@ -91,6 +92,7 @@ def check_operands(q, k, v, window: int) -> None:
         raise ValueError(f"flash_attn: window={window} < 0")
 
 
+@spanned("nero.kernel.flash_attn")
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    softcap: float = 0.0, block_q: Optional[int] = None,

@@ -12,10 +12,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 from repro_torch.kernels.hadv.ref import DEFAULT_CFL
 
 
+@spanned("nero.kernel.hadv")
 def hadv_cuda(src: torch.Tensor, cfl: float = DEFAULT_CFL,
               tile: Optional[tiling.CudaTile] = None,
               periodic: bool = False) -> torch.Tensor:

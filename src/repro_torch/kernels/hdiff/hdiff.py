@@ -13,10 +13,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff.ref import DEFAULT_COEFF
 
 
+@spanned("nero.kernel.hdiff")
 def hdiff_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
                tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
     """Compound hdiff of a contiguous CUDA stack `(planes, ny, nx)`, float32
@@ -39,6 +41,7 @@ def hdiff_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
     return out
 
 
+@spanned("nero.kernel.hdiff_kstep")
 def hdiff_kstep_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
                      k_steps: int = 1,
                      tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:

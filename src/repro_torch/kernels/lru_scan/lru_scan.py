@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 
 
@@ -23,6 +24,7 @@ def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"lru_scan: dtypes differ: {a.dtype}, {b.dtype}")
 
 
+@spanned("nero.kernel.lru_scan")
 def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor, *,
                   reverse: bool = False) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along axis -2 of contiguous CUDA tensors

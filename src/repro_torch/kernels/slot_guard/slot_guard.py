@@ -13,6 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 from repro_torch.kernels.slot_guard.ref import threshold
 
@@ -60,6 +61,7 @@ def _describe(leaves: Sequence[torch.Tensor]):
     return desc, leaves, tuple(t0.shape), int(vec)
 
 
+@spanned("nero.kernel.slot_guard")
 def slot_guard_cuda(leaves: Sequence[torch.Tensor], limit: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`(ok, fp)` of CUDA leaves (see `_describe`): ok (E,) bool, fp (E,)
@@ -83,6 +85,7 @@ def slot_guard_cuda(leaves: Sequence[torch.Tensor], limit: float
     return ok, fp
 
 
+@spanned("nero.kernel.slot_guard")
 def slot_guard_blocks_cuda(blocks, ensemble: int, limit: float
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`(ok, fp)` of a state held in blocks on CUDA devices: `blocks` lists

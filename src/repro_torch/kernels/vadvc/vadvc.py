@@ -12,9 +12,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 
 
+@spanned("nero.kernel.vadvc")
 def vadvc_cuda(u_stage: torch.Tensor, wcon: torch.Tensor, u_pos: torch.Tensor,
                utens: torch.Tensor, utens_stage: torch.Tensor,
                tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.spans import spanned
 from repro_torch.kernels import _build
 
 BN, BV = 128, 128          # the fp32 kernel's row and vocabulary tiles
@@ -83,6 +84,7 @@ def splits(n: int, vp: int, sms: int,
     return best[1], best[2]
 
 
+@spanned("nero.kernel.xent")
 def xent_cuda(hidden: torch.Tensor, head: torch.Tensor,
               targets: torch.Tensor, valid: Optional[torch.Tensor] = None, *,
               vocab: int = 0, softcap: float = 0.0

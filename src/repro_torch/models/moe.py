@@ -16,7 +16,8 @@ default) and `"gather"` (slot -> token indices, a gather into the expert
 queues and one back). The router runs in float32; the expert products are
 `torch.bmm` over the stacked experts (the JAX package computes them outside
 any Pallas kernel too). Routing and dispatch run under the profiler label
-`moe_dispatch`, the combine under `moe_combine`.
+`moe_dispatch`, the combine under `moe_combine` (`core/spans.py::span`,
+recorded only while a profiler records).
 
 Returns the Switch load-balancing auxiliary loss, from the first choice
 only, beside the output.
@@ -28,9 +29,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.models.common import dense_init
 from repro_torch.models.mlp import ACTS
 from repro_torch.parallel import policy
@@ -113,7 +114,7 @@ def _experts(cfg: ModelConfig, params, xe: torch.Tensor) -> torch.Tensor:
 def _route_onehot(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
     """GShard dispatch: dense (chunk, k, E, cap) one-hot combine tensors."""
     e, dt = cfg.moe.n_experts, xs.dtype
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         gate_vals, gate_idx, pos, keep, aux = _route(cfg, params, xs, cap)
         # a position past the queue is kept out by `keep`, as JAX's
         # one_hot gives it a zero row
@@ -122,7 +123,7 @@ def _route_onehot(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
         disp = disp * keep[..., None, None].to(dt)            # (chunk,k,E,cap)
         xe = torch.einsum("td,tkec->ecd", xs, disp)           # (E,cap,d)
     ye = _experts(cfg, params, xe)
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         comb = disp * gate_vals[..., None, None].to(dt)
         y = torch.einsum("ecd,tkec->td", ye, comb)            # (chunk,d)
     return y, aux
@@ -135,7 +136,7 @@ def _route_gather(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
     which is dropped (the JAX package's `mode="drop"`)."""
     e, k, dt = cfg.moe.n_experts, cfg.moe.top_k, xs.dtype
     chunk = xs.shape[0]
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         gate_vals, gate_idx, pos, keep, aux = _route(cfg, params, xs, cap)
         pos_w = pos.clamp(max=cap)
         tok_ids = torch.arange(chunk, device=xs.device)[:, None].expand(
@@ -149,7 +150,7 @@ def _route_gather(cfg: ModelConfig, params, xs: torch.Tensor, cap: int):
         slot_tok, slot_ok = slot_tok[:, :cap], slot_ok[:, :cap]
         xe = xs[slot_tok] * slot_ok[..., None].to(dt)         # (E,cap,d)
     ye = _experts(cfg, params, xe)
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         back = ye[gate_idx, pos.clamp(max=cap - 1)]           # (chunk,k,d)
         w = (gate_vals * keep).to(dt)
         y = (back * w[..., None]).sum(dim=1)                  # (chunk,d)

@@ -19,9 +19,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.models.common import dense_init, normal
 from repro_torch.models.rglru import causal_conv1d, softplus
 from repro_torch.parallel import policy
@@ -141,7 +141,7 @@ def ssd_apply(cfg: ModelConfig, params, x: torch.Tensor,
     h0 = state["h"] if state is not None else None
     chunk = min(cfg.ssd.chunk, t)
     pad = (-t) % chunk
-    with record_function("ssd_scan"):
+    with span("ssd_scan"):
         if pad:
             # Left-pad with zeros: contributes nothing to states/outputs
             # when h0 == 0 (x=0 adds nothing; decay of a zero state is

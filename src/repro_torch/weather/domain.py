@@ -18,8 +18,9 @@ the device when both shards share one). `RIDES` counts the rides and the
 bytes they move, the twin of `kernels/_build.py::LAUNCHES`: one ride is
 one `ppermute` of the JAX package's traced round, so a round's count is
 `report()["collectives_per_round"]`. Each exchange runs inside a
-`torch.profiler.record_function("halo_exchange")` range, so a profile
-tells its host time and device kernels from the round's others.
+`halo_exchange` range (`core/spans.py::span`, recorded only while a
+profiler records), so a profile tells its host time and device kernels
+from the round's others.
 
 * `_exchange` — the per-operand circular exchange (the per-field paths);
 * `_exchange_packed` — the stacked ragged exchange: several operands with
@@ -45,6 +46,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels.hdiff import ref as hdiff_ref
 from repro_torch.kernels.vadvc import ref as vadvc_ref
 from repro_torch.launch.mesh import Mesh, make_mesh
@@ -98,7 +100,7 @@ def _exchange(fs: Sequence[torch.Tensor], mesh: Mesh, axis_name: str,
     `axis_name`: each comes back extended by `halo` on both sides of `dim`.
     With one shard on the axis this is periodic wrap padding (no ride).
     `halo` must not exceed the local extent (callers check and raise)."""
-    with torch.profiler.record_function(_RANGE):
+    with span(_RANGE):
         return _exchange_body(fs, mesh, axis_name, halo, dim)
 
 
@@ -129,7 +131,7 @@ def _exchange_packed(parts, mesh: Mesh, axis_name: str, dim: int,
     each operand's dtype on arrival: the rounding stays in the received halo.
     With one shard on the axis this is wrap padding, with no cast. Returns
     the extended operands, each a list in shard order."""
-    with torch.profiler.record_function(_RANGE):
+    with span(_RANGE):
         return _packed_body(parts, mesh, axis_name, dim, wire_dtype)
 
 
@@ -186,7 +188,7 @@ def _right_column(wcons: Sequence[torch.Tensor], mesh: Mesh,
     first = [w[..., :1] for w in wcons]
     if mesh.axis_size(ax_x) == 1:
         return first
-    with torch.profiler.record_function(_RANGE):
+    with span(_RANGE):
         return _send(first, mesh, ax_x, -1)
 
 

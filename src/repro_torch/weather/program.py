@@ -64,6 +64,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import autotune, hwspec, memmodel, perfmodel, tiling
+from repro_torch.core.spans import LOWERING, span, spanned
 from repro_torch.kernels.slot_guard import ops as _guard_ops
 from repro_torch.launch.mesh import Mesh
 from repro_torch.weather import domain as _domain
@@ -452,9 +453,13 @@ class ExecutionPlan:
         """Advance ONE round (`k_steps` timesteps). On a mesh the state is a
         `domain.ShardedState` (a `WeatherState` is placed first) and so is
         the result."""
-        state = self._check_state(state)
-        return self._step_fn()(state)
+        with span("nero.plan.round"):
+            LOWERING["rounds"] += 1
+            LOWERING["steps"] += self.k_steps
+            state = self._check_state(state)
+            return self._step_fn()(state)
 
+    @spanned("nero.plan.run")
     def run(self, state: WeatherState, steps: int) -> WeatherState:
         """Advance `steps` timesteps: `steps // k_steps` full rounds plus,
         when `steps % k_steps != 0`, one shorter tail round through
@@ -465,7 +470,10 @@ class ExecutionPlan:
         rounds, tail = divmod(steps, self.k_steps)
         step = self._step_fn()
         for _ in range(rounds):
-            state = step(state)
+            with span("nero.plan.round"):
+                LOWERING["rounds"] += 1
+                LOWERING["steps"] += self.k_steps
+                state = step(state)
         if tail:
             state = self.round_plan(tail).step(state)
         return state

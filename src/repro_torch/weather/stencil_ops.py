@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.core import autotune, memmodel, tiling
 from repro_torch.core.hwspec import dtype_bytes
+from repro_torch.core.spans import LOWERING, contiguous, copied, spanned
 from repro_torch.kernels.dycore_fused import ops as fused_ops
 from repro_torch.kernels.dycore_fused.ref import pad_periodic
 from repro_torch.kernels.hadv import ops as hadv_ops
@@ -273,10 +274,29 @@ def _mesh_of(plan):
     return plan.mesh, ax_y, ax_x, plan.program.exchange_dtype
 
 
+@spanned("nero.lower.stack")
+def _stack(d: dict, names) -> torch.Tensor:
+    """`dycore.stack_state` for the lowering: in span `nero.lower.stack`,
+    and counted in `LOWERING` when it copies (not when it is a view)."""
+    out = _dycore.stack_state(d, names)
+    return out if out._is_view() else copied(out)
+
+
+@spanned("nero.lower.pad")
+def _pad(f: torch.Tensor, halo: int) -> torch.Tensor:
+    """`pad_periodic` for the lowering: in span `nero.lower.pad`, and its
+    two cats counted in `LOWERING` (the rows padded, then the columns)."""
+    out = pad_periodic(f, halo)
+    LOWERING["copies"] += 2
+    LOWERING["bytes"] += out.nbytes // out.shape[-1] * f.shape[-1] \
+        + out.nbytes
+    return out
+
+
 def _crop(a: torch.Tensor, y0: int, ly: int, x0: int, lx: int):
     """The interior `(ly, lx)` of a padded slab from `(y0, x0)`, as a new
     contiguous tensor (the next round stacks it without a copy)."""
-    return a[..., y0:y0 + ly, x0:x0 + lx].contiguous()
+    return contiguous(a[..., y0:y0 + ly, x0:x0 + lx])
 
 
 def _generic_exchange_model(program, k, shards):
@@ -379,20 +399,20 @@ def _dycore_local_step(plan):
             new_fields, new_stage = {}, {}
             for name in names:
                 new_fields[name], new_stage[name] = fused_ops.fused_step(
-                    state.fields[name].contiguous(), state.wcon.contiguous(),
-                    state.tens[name].contiguous(),
-                    state.stage_tens[name].contiguous(), coeff=coeff, dt=dt,
+                    contiguous(state.fields[name]), contiguous(state.wcon),
+                    contiguous(state.tens[name]),
+                    contiguous(state.stage_tens[name]), coeff=coeff, dt=dt,
                     tile=tile)
             return _new_state(state, new_fields, new_stage)
         return step
 
-    stack = lambda d: _dycore.stack_state(d, names)
+    stack = lambda d: _stack(d, names)
     unstack = lambda a: _dycore.unstack_state(a, names)
 
     if variant == "whole_state":
         def step(state: WeatherState) -> WeatherState:
             f_new, stage = fused_ops.fused_step_whole_state(
-                stack(state.fields), state.wcon.contiguous(),
+                stack(state.fields), contiguous(state.wcon),
                 stack(state.tens), stack(state.stage_tens), coeff=coeff,
                 dt=dt, tile=tile)
             return _new_state(state, unstack(f_new), unstack(stage))
@@ -402,7 +422,7 @@ def _dycore_local_step(plan):
 
     def step(state: WeatherState) -> WeatherState:    # kstep: ONE launch
         f_new, stage = fused_ops.fused_step_kstep(
-            stack(state.fields), state.wcon.contiguous(), stack(state.tens),
+            stack(state.fields), contiguous(state.wcon), stack(state.tens),
             stack(state.stage_tens), k_steps=k, coeff=coeff, dt=dt,
             tile=tile)
         return _new_state(state, unstack(f_new), unstack(stage))
@@ -477,7 +497,7 @@ def _dycore_shard_local(plan):
         ly, lx = wcon[0].shape[-2:]
         sched = plan.exchange
         hy, hx = sched.depth_y, sched.depth_x
-        stk = lambda ds: [_dycore.stack_state(d, names) for d in ds]
+        stk = lambda ds: [_stack(d, names) for d in ds]
         # the three stacks and wcon share one wire buffer a direction
         parts = _domain._exchange_packed(
             [(stk(fields), hy), (stk(tens), hy), (stk(stage_tens), hy),
@@ -615,9 +635,9 @@ def _hdiff_local_step(plan):
     halo = k * HALO
 
     def step(state: WeatherState) -> WeatherState:
-        fs = _dycore.stack_state(state.fields, names)   # (e, nf, nz, ly, lx)
+        fs = _stack(state.fields, names)   # (e, nf, nz, ly, lx)
         ly, lx = fs.shape[-2:]
-        fs = pad_periodic(fs, halo)
+        fs = _pad(fs, halo)
         Y, X = fs.shape[-2:]
         if variant == "unfused":
             out = hdiff_ref.hdiff(fs.reshape(-1, Y, X), coeff=coeff)
@@ -652,7 +672,7 @@ def _hdiff_shard_local(plan):
     (_, (hy_lo, hy_hi), (hx_lo, hx_hi)), = plan.rides
 
     def local(fields, wcon, tens, stage_tens):
-        fs = [_dycore.stack_state(d, names) for d in fields]
+        fs = [_stack(d, names) for d in fields]
         ly, lx = fs[0].shape[-2:]
         (fs,) = _domain._exchange_packed([(fs, (hy_lo, hy_hi))], mesh, ax_y,
                                          dim=-2, wire_dtype=wire)
@@ -686,7 +706,7 @@ def _hdiff_apply_stage(prog, names, use_ref):
     coeff = prog.coeff
 
     def fn(fields, wconp, tens, stage_tens):
-        fs = _dycore.stack_state(fields, names)
+        fs = _stack(fields, names)
         planes = fs.reshape((-1,) + fs.shape[-2:])
         out = (hdiff_ref.hdiff(planes, coeff=coeff) if use_ref
                else hdiff_ops.hdiff(planes, coeff=coeff)).reshape(fs.shape)
@@ -805,12 +825,12 @@ def _vadvc_local_step(plan):
         elif variant == "per_field":
             new_stage = {}
             for n in names:
-                u = state.fields[n].contiguous()
+                u = contiguous(state.fields[n])
                 new_stage[n] = vadvc_ops.vadvc(
-                    u, wcon, u, state.tens[n].contiguous(),
-                    state.stage_tens[n].contiguous(), tile=tile)
+                    u, wcon, u, contiguous(state.tens[n]),
+                    contiguous(state.stage_tens[n]), tile=tile)
         else:                                        # whole_state
-            stack = lambda d: _dycore.stack_state(d, names)
+            stack = lambda d: _stack(d, names)
             u = stack(state.fields)
             out = vadvc_ops.vadvc(u, wcon, u, stack(state.tens),
                                   stack(state.stage_tens), tile=tile)
@@ -840,13 +860,13 @@ def _vadvc_shard_local(plan, update: bool = False):
             if variant == "per_field":
                 stage = {}
                 for n in names:
-                    u = fd[n].contiguous()
-                    stage[n] = vadvc_ops.vadvc(u, w, u, td[n].contiguous(),
-                                               sd[n].contiguous(), tile=tile)
+                    u = contiguous(fd[n])
+                    stage[n] = vadvc_ops.vadvc(u, w, u, contiguous(td[n]),
+                                               contiguous(sd[n]), tile=tile)
                 new_fields.append(dict(fd))
                 new_stage.append(stage)
                 continue
-            stack = lambda d: _dycore.stack_state(d, names)
+            stack = lambda d: _stack(d, names)
             u, ts, ss = stack(fd), stack(td), stack(sd)
             if variant == "unfused":
                 ss = vadvc_ref.vadvc(u, w.unsqueeze(1), u, ts, ss)
@@ -867,7 +887,7 @@ def _vadvc_apply_stage(prog, names, use_ref, update: bool = False):
     dt = prog.dt
 
     def fn(fields, wconp, tens, stage_tens):
-        u, ts, ss = (_dycore.stack_state(d, names)
+        u, ts, ss = (_stack(d, names)
                       for d in (fields, tens, stage_tens))
         ss = (vadvc_ref.vadvc(u, wconp.unsqueeze(1), u, ts, ss) if use_ref
               else vadvc_ops.vadvc(u, wconp, u, ts, ss))
@@ -937,7 +957,7 @@ def _vadvc_update_local_step(plan):
     use_ref = plan.variant == "unfused"
 
     def step(state: WeatherState) -> WeatherState:
-        stack = lambda d: _dycore.stack_state(d, names)
+        stack = lambda d: _stack(d, names)
         u, ts, ss = (stack(state.fields), stack(state.tens),
                      stack(state.stage_tens))
         if use_ref:
@@ -1024,7 +1044,7 @@ def _hadv_local_step(plan):
         plan.tile
 
     def step(state: WeatherState) -> WeatherState:
-        fs = _dycore.stack_state(state.fields, names)   # (e, nf, nz, ly, lx)
+        fs = _stack(state.fields, names)   # (e, nf, nz, ly, lx)
         planes = fs.reshape((-1,) + fs.shape[-2:])
         if variant == "unfused":
             out = hadv_ref.hadv_periodic(planes, cfl=cfl)
@@ -1052,7 +1072,7 @@ def _hadv_shard_local(plan):
     (_, (hy_lo, hy_hi), (hx_lo, hx_hi)), = plan.rides
 
     def local(fields, wcon, tens, stage_tens):
-        fs = [_dycore.stack_state(d, names) for d in fields]
+        fs = [_stack(d, names) for d in fields]
         ly, lx = fs[0].shape[-2:]
         (fs,) = _domain._exchange_packed([(fs, (hy_lo, hy_hi))], mesh, ax_y,
                                          dim=-2, wire_dtype=wire)
@@ -1080,7 +1100,7 @@ def _hadv_apply_stage(prog, names, use_ref):
     cfl = prog.coeff
 
     def fn(fields, wconp, tens, stage_tens):
-        fs = _dycore.stack_state(fields, names)
+        fs = _stack(fields, names)
         planes = fs.reshape((-1,) + fs.shape[-2:])
         out = (hadv_ref.hadv_upwind(planes, cfl=cfl) if use_ref
                else hadv_ops.hadv_upwind(planes, cfl=cfl)).reshape(fs.shape)
@@ -1131,7 +1151,7 @@ def _asselin_local_step(plan):
     names, coeff, dt = prog.fields, prog.coeff, prog.dt
 
     def step(state: WeatherState) -> WeatherState:
-        stack = lambda d: _dycore.stack_state(d, names)
+        stack = lambda d: _stack(d, names)
         fs = stack(state.fields)
         fs = fs + coeff * dt * (stack(state.tens) - stack(state.stage_tens))
         return _new_state(state, _dycore.unstack_state(fs, names),
@@ -1147,7 +1167,7 @@ def _asselin_shard_local(plan):
     def local(fields, wcon, tens, stage_tens):
         new_fields = []
         for fd, td, sd in zip(fields, tens, stage_tens):
-            stack = lambda d: _dycore.stack_state(d, names)
+            stack = lambda d: _stack(d, names)
             fs = stack(fd) + coeff * dt * (stack(td) - stack(sd))
             new_fields.append(field_views(fs, names))
         return new_fields, [dict(d) for d in stage_tens]
