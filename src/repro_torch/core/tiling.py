@@ -79,6 +79,7 @@ HDIFF_MAX_K = 3
 HDIFF_COLS = 2          # window columns a thread owns (`kCols`)
 HDIFF_SEGMENT = 66      # default tallest segment, a stage (k = 1: 4 x 65)
 HDIFF_RING = 8          # ring rows (`kRing`): 5 rows in flight
+HDIFF_WRAP = 32         # periodic mode's wrap bytes a ring row (`kWrap`)
 # the stream's candidate (ty, tx) requests, which `compile(tune="measure")`
 # times beside the default tile (`hdiff_kstep_tile`; at the main path's
 # 260-268 square planes: segments of at most 67, 134 or 268 rows, 4, 2 or 1
@@ -117,13 +118,15 @@ def hdiff_strip(nx: int, k: int) -> int:
     return best[1]
 
 
-def hdiff_stream_smem(k: int, threads: int) -> int:
+def hdiff_stream_smem(k: int, threads: int, periodic: bool = False) -> int:
     """Shared bytes of an hdiff stream block (`stream_smem` in
     `csrc/hdiff.cu`) of w = HDIFF_COLS·threads window columns, in rows of
     4·(w + 8) bytes: two fp32 laplacian rows a stage and four output rows
-    a stage but the last, then a row and an 8-byte mbarrier a ring row."""
+    a stage but the last, then a row and an 8-byte mbarrier a ring row,
+    and in periodic mode HDIFF_WRAP bytes a ring row."""
     row = 4 * (HDIFF_COLS * threads + 8)
-    return row * (2 * k + 4 * (k - 1) + HDIFF_RING) + 8 * HDIFF_RING
+    return row * (2 * k + 4 * (k - 1) + HDIFF_RING) + 8 * HDIFF_RING + \
+        (HDIFF_WRAP * HDIFF_RING if periodic else 0)
 
 
 def hdiff_launches(k: int) -> List[int]:
@@ -152,9 +155,12 @@ def hdiff_kstep_tile(ny: int, nx: int, k: int = 1, ty: Optional[int] = None,
 
 
 def hdiff_tile(ny: int, nx: int, ty: Optional[int] = None,
-               tx: Optional[int] = None) -> CudaTile:
-    """`hdiff_kstep_tile` at k = 1."""
-    return hdiff_kstep_tile(ny, nx, 1, ty, tx)
+               tx: Optional[int] = None, periodic: bool = False) -> CudaTile:
+    """`hdiff_kstep_tile` at k = 1; `periodic` plans the periodic mode on
+    the unpadded plane: the same window, and the wrap area."""
+    tile = hdiff_kstep_tile(ny, nx, 1, ty, tx)
+    return dataclasses.replace(
+        tile, smem_bytes=hdiff_stream_smem(1, tile.threads, periodic))
 
 
 # The vadvc sweep (`csrc/vadvc.cu`): a block is one warp and owns a segment

@@ -48,7 +48,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _P),
+    "nero_hdiff": (_P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "nero_vadvc": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I,
                    _P),
     "nero_dycore_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,

@@ -2,8 +2,8 @@
 routine, one step or k steps a launch) and its launchers.
 
 Replaces the TPU kernels `repro.kernels.hdiff.hdiff.hdiff_pallas` and
-`hdiff_kstep_pallas`. The plain versions beside them are `ref.hdiff` and
-`ref.hdiff_kstep`.
+`hdiff_kstep_pallas`. The plain versions beside them are `ref.hdiff`,
+`ref.hdiff_periodic` and `ref.hdiff_kstep`.
 """
 
 from __future__ import annotations
@@ -20,21 +20,25 @@ from repro_torch.kernels.hdiff.ref import DEFAULT_COEFF
 
 @spanned("nero.kernel.hdiff")
 def hdiff_cuda(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
-               tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
+               tile: Optional[tiling.CudaTile] = None,
+               periodic: bool = False) -> torch.Tensor:
     """Compound hdiff of a contiguous CUDA stack `(planes, ny, nx)`, float32
-    or bfloat16; the 2-wide ring of every plane passes through."""
+    or bfloat16. By default the 2-wide ring of every plane passes through;
+    `periodic=True` wraps it (row j outside [0, ny) is row j mod ny, column
+    i outside [0, nx) column i mod nx; planes of at least 2 x 2) and
+    computes every point."""
     if src.dim() != 3:
         raise ValueError(f"hdiff: src must be (planes, ny, nx), got "
                          f"{tuple(src.shape)}")
     planes, ny, nx = src.shape
     _build.check_operand("hdiff", "src", src, src.shape, src.dtype)
-    tile = tile or tiling.hdiff_tile(ny, nx)
+    tile = tile or tiling.hdiff_tile(ny, nx, periodic=periodic)
     out = torch.empty_like(src)
     lib = _build.load()
     with torch.cuda.device(src.device):
         err = lib.nero_hdiff(src.data_ptr(), out.data_ptr(), planes, ny, nx,
                              coeff, tile.ty, tile.tx, tile.threads,
-                             int(src.dtype == torch.bfloat16),
+                             int(periodic), int(src.dtype == torch.bfloat16),
                              _build.stream_of(src))
     _build.check(err, "hdiff")
     _build.LAUNCHES["hdiff"] += 1

@@ -1,7 +1,7 @@
 """Public hdiff entry point: the tensor's device decides what runs.
 
-A CPU tensor takes the plain version (`ref.hdiff`, `ref.hdiff_kstep`); a
-CUDA tensor launches the CUDA kernel (`hdiff.hdiff_cuda`,
+A CPU tensor takes the plain version (`ref.hdiff`, `ref.hdiff_periodic`,
+`ref.hdiff_kstep`); a CUDA tensor launches the CUDA kernel (`hdiff.hdiff_cuda`,
 `hdiff.hdiff_kstep_cuda`) or raises. There is no fallback.
 
 `plan_tile` / `resolve_tile` are the JAX package's window planner: the
@@ -44,12 +44,14 @@ def resolve_tile(grid_shape, dtype) -> tiling.TilePlan:
 
 
 def hdiff(src: torch.Tensor, coeff: float = _ref.DEFAULT_COEFF,
-          tile: Optional[tiling.CudaTile] = None) -> torch.Tensor:
+          tile: Optional[tiling.CudaTile] = None,
+          periodic: bool = False) -> torch.Tensor:
     """Compound hdiff of a `(planes, ny, nx)` stack; the ring passes
-    through."""
+    through, or with `periodic=True` wraps to the far side of the plane."""
     if src.device.type == "cpu":
-        return _ref.hdiff(src, coeff=coeff)
-    return hdiff_cuda(src, coeff=coeff, tile=tile)
+        plain = _ref.hdiff_periodic if periodic else _ref.hdiff
+        return plain(src, coeff=coeff)
+    return hdiff_cuda(src, coeff=coeff, tile=tile, periodic=periodic)
 
 
 def hdiff_kstep(src: torch.Tensor, coeff: float = _ref.DEFAULT_COEFF,

@@ -6,6 +6,8 @@ operation order: laplace -> flux -> COSMO flux limiter -> output
 limiter, a plain version only; the CUDA kernel always limits). Layout
 `(..., ny, nx)`, every leading axis a batch of independent planes; halo 2
 in y and x; the 2-wide boundary ring passes through unchanged.
+`hdiff_periodic` is the step on a doubly periodic plane: wrap-pad by 2,
+`hdiff`, crop the pad.
 """
 
 from __future__ import annotations
@@ -54,6 +56,17 @@ def hdiff(src: torch.Tensor, coeff: float = DEFAULT_COEFF,
     out = f.clone()
     out[..., 2:-2, 2:-2] = interior
     return out.to(src.dtype)
+
+
+def hdiff_periodic(src: torch.Tensor,
+                   coeff: float = DEFAULT_COEFF) -> torch.Tensor:
+    """Compound horizontal diffusion of a doubly periodic `src` (..., ny,
+    nx), ny, nx >= 2: `hdiff` of the plane wrap-padded by 2, cropped to a
+    new contiguous tensor, so every point moves."""
+    ny, nx = src.shape[-2:]
+    f = torch.cat([src[..., -2:, :], src, src[..., :2, :]], dim=-2)
+    f = torch.cat([f[..., :, -2:], f, f[..., :, :2]], dim=-1)
+    return hdiff(f, coeff=coeff)[..., 2:2 + ny, 2:2 + nx].contiguous()
 
 
 def hdiff_simple(src: torch.Tensor,

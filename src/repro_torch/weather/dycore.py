@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dycore_fused.ref import pad_periodic
 from repro_torch.kernels.hdiff import ref as hdiff_ref
 from repro_torch.kernels.vadvc import ref as vadvc_ref
 from repro_torch.weather.fields import PROGNOSTIC
@@ -21,10 +20,9 @@ HALO = 2   # hdiff needs 2; vadvc needs 1 (staggered wcon)
 
 
 def hdiff_periodic(src: torch.Tensor, coeff: float) -> torch.Tensor:
-    """Periodic compound horizontal diffusion of a (..., nz, ny, nx) field."""
-    ny, nx = src.shape[-2:]
-    out = hdiff_ref.hdiff(pad_periodic(src, HALO), coeff=coeff)
-    return out[..., HALO:HALO + ny, HALO:HALO + nx]
+    """Periodic compound horizontal diffusion of a (..., nz, ny, nx) field
+    (`kernels/hdiff/ref.py::hdiff_periodic`)."""
+    return hdiff_ref.hdiff_periodic(src, coeff=coeff)
 
 
 def vadvc_field(u_stage, wcon, u_pos, utens, utens_stage):

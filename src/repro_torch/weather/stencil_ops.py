@@ -25,7 +25,9 @@ as one of its stages.
 `dycore` and `hdiff` also run the k-step round (`variant="kstep"`): k
 timesteps in ONE kernel launch. On one device the halo exchange of the JAX
 package degenerates to periodic wrap-padding, which the single-device
-lowerings do directly. On a mesh (`build_shard_local`) every op runs the
+lowerings do directly, or which the one-step hdiff and hadv rounds read
+inside the launch (the kernels' periodic modes). On a mesh
+(`build_shard_local`) every op runs the
 JAX package's shard-local round over all shards at once: the exchange of
 its declared rides (`weather/domain.py`), the existing kernels launched on
 each shard's padded slab (hadv in its passthrough mode, the dycore from the
@@ -584,6 +586,11 @@ def _hdiff_resolve_tile(variant, compute_grid, dtype, n_fields, ensemble,
     if variant == "unfused":
         return None
     ty, tx = request or (None, None)
+    if variant == "whole_state":
+        # the periodic launch runs on the unpadded planes
+        return tiling.hdiff_tile(compute_grid[1] - 2 * hdiff_ops.HALO,
+                                 compute_grid[2] - 2 * hdiff_ops.HALO, ty, tx,
+                                 periodic=True)
     return tiling.hdiff_kstep_tile(compute_grid[1], compute_grid[2],
                                    k if variant == "kstep" else 1, ty, tx)
 
@@ -620,14 +627,20 @@ def _plane_traffic(spec_name: str):
 
 
 def _hdiff_local_step(plan):
-    """Single-device hdiff round: wrap-pad by the round's reach, `k·2` (the
-    JAX package's packed exchange on one shard), then the local compute —
-    the oracle, one launch per field, one launch for the whole state (the
-    fully z-parallel stencil folds (ensemble, field, z) into the kernel's
-    plane axis), or ONE k-step launch for the whole round — and the interior
-    crop. The k-step round is bit-equal to k whole-state rounds: each
-    in-kernel step rounds through the storage dtype, and the crop keeps
-    only points the k steps left exact."""
+    """Single-device hdiff round. The whole-state round on the card makes
+    ONE periodic launch (the fully z-parallel stencil folds (ensemble,
+    field, z) into the kernel's plane axis) on the field-stacked state and
+    returns a new contiguous field-stacked state, which the next round
+    stacks without a copy: the wrap the JAX package gets from its packed
+    exchange is read inside the kernel, with the bits of wrap-padding by 2,
+    the passthrough step and the interior crop. Every other round wrap-pads
+    by the round's reach, `k·2`, runs the plain step (the oracle, and the
+    whole-state round on the CPU, which has no kernel to read the wrap),
+    one launch a field or ONE k-step launch, and crops the interior. The
+    k-step round is bit-equal to k whole-state rounds: each in-kernel step
+    rounds through the storage dtype, and the crop keeps only points the k
+    steps left exact. The compute grid the plan reports is padded, as the
+    JAX package reports it."""
     prog = plan.program
     names, coeff, variant, tile = prog.fields, prog.coeff, plan.variant, \
         plan.tile
@@ -636,6 +649,12 @@ def _hdiff_local_step(plan):
 
     def step(state: WeatherState) -> WeatherState:
         fs = _stack(state.fields, names)   # (e, nf, nz, ly, lx)
+        if variant == "whole_state" and fs.is_cuda:
+            out = hdiff_ops.hdiff(fs.reshape((-1,) + fs.shape[-2:]),
+                                  coeff=coeff, tile=tile, periodic=True)
+            return _new_state(
+                state, _dycore.unstack_state(out.reshape(fs.shape), names),
+                dict(state.stage_tens))
         ly, lx = fs.shape[-2:]
         fs = _pad(fs, halo)
         Y, X = fs.shape[-2:]
@@ -646,9 +665,8 @@ def _hdiff_local_step(plan):
                 [hdiff_ops.hdiff(fs[:, i].reshape(-1, Y, X), coeff=coeff,
                                  tile=tile).reshape(fs[:, i].shape)
                  for i in range(len(names))], dim=1)
-        elif variant == "whole_state":
-            out = hdiff_ops.hdiff(fs.reshape(-1, Y, X), coeff=coeff,
-                                  tile=tile)
+        elif variant == "whole_state":               # the plain step
+            out = hdiff_ops.hdiff(fs.reshape(-1, Y, X), coeff=coeff)
         else:                                        # kstep: ONE launch
             out = hdiff_ops.hdiff_kstep(fs.reshape(-1, Y, X), coeff=coeff,
                                         k=k, tile=tile)
@@ -662,8 +680,11 @@ def _hdiff_shard_local(plan):
     """hdiff's round on a mesh, every variant: ONE packed exchange per
     direction at the round's reach `k·2`, then the launches on each shard's
     padded stack (the plain version, one a field, one for the whole state,
-    or one k-step launch for the round), and the crop. On a `(1, 1)` mesh
-    the exchange is the single-device step's wrap padding."""
+    or one k-step launch for the round), in the kernel's passthrough mode,
+    and the crop. On a `(1, 1)` mesh the exchange is the single-device
+    step's wrap padding. The whole-state plan's tile was planned for the
+    unpadded slab; the launch re-balances it over the padded one (the
+    kernel is bit for bit tile-independent)."""
     prog = plan.program
     mesh, ax_y, ax_x, wire = _mesh_of(plan)
     names, coeff, variant, tile = prog.fields, prog.coeff, plan.variant, \
@@ -690,7 +711,9 @@ def _hdiff_shard_local(plan):
                                      tile=tile).reshape(a[:, i].shape)
                      for i in range(len(names))], dim=1)
             elif variant == "whole_state":
-                out = hdiff_ops.hdiff(planes, coeff=coeff, tile=tile)
+                out = hdiff_ops.hdiff(planes, coeff=coeff,
+                                      tile=tiling.hdiff_tile(Y, X, tile.ty,
+                                                             tile.tx))
             else:                                    # kstep: ONE launch
                 out = hdiff_ops.hdiff_kstep(planes, coeff=coeff, k=k,
                                             tile=tile)

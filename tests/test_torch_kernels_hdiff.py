@@ -4,8 +4,11 @@ The same numpy inputs go through `repro.kernels.hdiff.hdiff.hdiff_pallas`
 (interpret mode) and the port's `ops.hdiff` on the CPU (its plain version);
 tolerances are the reference's own (`tests/test_kernels_hdiff.py`): 1e-5 in
 float32, 0.15 in bfloat16. The inputs are white noise, not periodic, so the
-2-wide passthrough ring is checked too. The `cuda` cases hold the CUDA
-kernel against the plain version on the card.
+2-wide passthrough ring is checked too. The periodic mode's plain version
+is held against the padded passthrough step cropped, and against the JAX
+package's periodic hdiff. The `cuda` cases hold the CUDA
+kernel against the plain version on the card, and its periodic mode bit
+for bit against the passthrough launch on the wrap-padded stack, cropped.
 """
 
 import numpy as np
@@ -15,8 +18,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.kernels.hdiff.hdiff import hdiff_pallas
+from repro.weather.dycore import hdiff_periodic as jax_hdiff_periodic
 from repro_torch.core import tiling
 from repro_torch.kernels import _build
+from repro_torch.kernels.dycore_fused.ref import pad_periodic
 from repro_torch.kernels.hdiff import ops, ref
 from repro_torch.kernels.hdiff.hdiff import hdiff_cuda
 from repro_torch.weather import convert
@@ -64,17 +69,66 @@ def test_leading_axes_are_independent_planes(rng):
     assert torch.equal(out[1], ref.hdiff(src[1]))
 
 
+PERIODIC_SHAPES = [(3, 8, 16), (2, 5, 5), (2, 2, 2), (3, 3, 7), (2, 4, 9, 6)]
+
+
+@pytest.mark.parametrize("shape", PERIODIC_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_periodic_matches_the_padded_step(shape, dtype, rng):
+    """`ops.hdiff(periodic=True)` on the CPU is `pad_periodic`, the plain
+    passthrough step and the crop bit for bit, and the JAX package's
+    periodic hdiff within the reference's tolerance: a new contiguous
+    tensor of the input's shape and dtype in which every point moves."""
+    jsrc, src = _pair(rng, shape, dtype)
+    got = ops.hdiff(src, periodic=True)
+    assert got.dtype == src.dtype and got.shape == src.shape
+    assert got.is_contiguous()
+    ny, nx = shape[-2:]
+    assert torch.equal(got, ref.hdiff(pad_periodic(src, 2))[
+        ..., 2:2 + ny, 2:2 + nx])
+    want = np.asarray(jax_hdiff_periodic(jsrc, ref.DEFAULT_COEFF),
+                      np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype])
+    if shape[-1] > 4 and shape[-2] > 4:
+        assert not torch.equal(got[..., :2, :], src[..., :2, :])
+        assert not torch.equal(got[..., :, -2:], src[..., :, -2:])
+
+
+def test_plain_periodic_wraps_the_plane(rng):
+    """A plane rolled by (3, 5) steps to the same plane rolled: no point
+    is an edge."""
+    _, src = _pair(rng, (2, 9, 11), "float32")
+    rolled = torch.roll(src, (3, 5), dims=(-2, -1))
+    assert torch.equal(ref.hdiff_periodic(rolled),
+                       torch.roll(ref.hdiff_periodic(src), (3, 5),
+                                  dims=(-2, -1)))
+
+
+def test_periodic_tile_holds_the_wrap_area():
+    """The periodic mode's tile: the passthrough window, and HDIFF_WRAP
+    bytes of shared memory more a ring row."""
+    for ny, nx in ((390, 582), (256, 256), (5, 5)):
+        t = tiling.hdiff_tile(ny, nx, periodic=True)
+        one = tiling.hdiff_tile(ny, nx)
+        assert (t.ty, t.tx, t.threads) == (one.ty, one.tx, one.threads)
+        assert t.smem_bytes == one.smem_bytes + \
+            tiling.HDIFF_WRAP * tiling.HDIFF_RING == \
+            tiling.hdiff_stream_smem(1, t.threads, periodic=True)
+
+
 def test_cpu_call_launches_nothing(rng):
     _, src = _pair(rng, (2, 8, 8), "float32")
     before = dict(_build.LAUNCHES)
     ops.hdiff(src)
+    ops.hdiff(src, periodic=True)
     assert _build.LAUNCHES == before
 
 
-def test_kernel_wrapper_refuses_cpu_tensors(rng):
+@pytest.mark.parametrize("periodic", [False, True])
+def test_kernel_wrapper_refuses_cpu_tensors(periodic, rng):
     _, src = _pair(rng, (2, 8, 8), "float32")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        hdiff_cuda(src)
+        hdiff_cuda(src, periodic=periodic)
 
 
 def test_default_tile_fits_a_hopper_block():
@@ -214,3 +268,74 @@ def test_cuda_row_strides(nx, dtype, cuda, rng):
     view = src.reshape(-1)[1:1 + 2 * 21 * nx].view(2, 21, nx)
     assert view.data_ptr() != src.data_ptr() and view.is_contiguous()
     assert torch.equal(hdiff_cuda(view), hdiff_cuda(view.clone()))
+
+
+def _periodic_matches_padded(src, tile=None):
+    """The periodic launch (default tile, and `tile`) bit for bit against
+    the passthrough launch on the wrap-padded stack, cropped to the
+    interior; the plain periodic version in fp32 from the same inputs
+    within twice bf16's unit roundoff in bf16. One launch a call."""
+    ny, nx = src.shape[-2:]
+    want = hdiff_cuda(pad_periodic(src, 2))[..., 2:2 + ny, 2:2 + nx]
+    before = _build.LAUNCHES["hdiff"]
+    got = hdiff_cuda(src, periodic=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hdiff"] == before + 1
+    assert got.is_contiguous() and got.shape == src.shape
+    assert torch.equal(got, want)
+    plain = ref.hdiff_periodic(src.float())
+    rtol = 0.0 if src.dtype == torch.float32 else 2.0 ** -7
+    assert ((got.float() - plain).abs() <= 1e-5 + rtol * plain.abs()).all()
+    if tile is not None:
+        assert torch.equal(hdiff_cuda(src, tile=tile, periodic=True), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_periodic_cosmo_e_planes(dtype, cuda, rng):
+    """cosmo_e's 390 x 582 planes at the default tile (6 segments of 65
+    rows, 10 ragged strips of 58 and 59 columns), and one segment of one
+    strip as the second tiling, so both wraps of both axes fall in one
+    block."""
+    _, src = _pair(rng, (2, 390, 582), dtype)
+    t = tiling.hdiff_tile(390, 582, periodic=True)
+    assert (t.ty, t.tx) == (65, 59) and 582 % t.tx
+    one = tiling.hdiff_tile(390, 582, ty=390, tx=582, periodic=True)
+    assert (one.ty, one.tx) == (390, 582)
+    _periodic_matches_padded(src.to(cuda), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,request_", [
+    ((3, 37, 70), (37, 70)),      # a single segment of a single strip
+    ((6, 37, 70), (4, 24)),       # 10 segments of 3 strips
+    ((3, 5, 5), (1, 2)),          # one-row segments, strips of 2 and 1
+    ((3, 5, 6), (5, 6)),
+    ((3, 6, 5), (2, 3)),
+    ((2, 2, 2), (1, 1)),          # the wrap reaches a whole period
+    ((2, 3, 4), (3, 4))])
+def test_cuda_periodic_tiles_and_small_planes(shape, request_, dtype, cuda,
+                                              rng):
+    """Small planes, where a block's window wraps on both sides or past a
+    neighbour strip's columns, and several tilings."""
+    _, src = _pair(rng, shape, dtype)
+    tile = tiling.hdiff_tile(shape[1], shape[2], *request_, periodic=True)
+    _periodic_matches_padded(src.to(cuda), tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nx", [70, 260, 264, 69, 582])
+def test_cuda_periodic_row_strides(nx, dtype, cuda, rng):
+    """bf16 rows of 140, 520 and 1164 bytes are not 16-byte multiples (of
+    138 every other row starts off 4 bytes), so the wrap's chunks fall at
+    every offset; three strips as the second tiling; a view that starts one
+    element into its storage."""
+    _, src = _pair(rng, (3, 21, nx), dtype)
+    src = src.to(cuda)
+    _periodic_matches_padded(
+        src, tiling.hdiff_tile(21, nx, ty=7, tx=nx // 3 + 1, periodic=True))
+    view = src.reshape(-1)[1:1 + 2 * 21 * nx].view(2, 21, nx)
+    assert view.data_ptr() != src.data_ptr() and view.is_contiguous()
+    _periodic_matches_padded(view)

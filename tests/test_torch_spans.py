@@ -8,6 +8,9 @@ torch = pytest.importorskip("torch")
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import spans
+from repro_torch.kernels.dycore_fused.ref import pad_periodic
+from repro_torch.kernels.hdiff import ref as hdiff_ref
+from repro_torch.weather import dycore
 from repro_torch.weather.fields import WeatherState, field_views
 from repro_torch.weather.program import StencilProgram, compile
 
@@ -91,9 +94,10 @@ def test_spans_record_under_the_profiler():
 
 
 def test_lowering_counts_the_hdiff_copies():
-    """The stack is a view on the first round (the state is field-stacked)
-    and a copy from the second (the crop is not); the wrap pad's two cats
-    copy every round."""
+    """On the CPU the whole-state round runs the plain step on the padded
+    stack: the stack is a view on the first round (the state is
+    field-stacked) and a copy from the second (the crop is not); the wrap
+    pad's two cats copy every round."""
     program, plan = _plan("hdiff")
     nz, ny, nx = GRID
     planes = E * program.n_fields * nz
@@ -111,7 +115,7 @@ def test_lowering_counts_the_hdiff_copies():
 
 def test_lowering_counts_the_steps_of_k_step_rounds():
     """Two rounds of k = 2 and a tail round of 1: three rounds, five
-    steps; each round's pad is as deep as its reach, 2·k."""
+    steps; on the CPU each round's pad is as deep as its reach, 2·k."""
     nz, ny, nx = GRID
     program = StencilProgram(grid_shape=GRID, ensemble=E, op="hdiff",
                              k_steps=2)
@@ -124,6 +128,64 @@ def test_lowering_counts_the_steps_of_k_step_rounds():
     assert spans.LOWERING["rounds"] == 3 and spans.LOWERING["steps"] == 5
     assert spans.LOWERING["bytes"] == 2 * planes * ny * nx * 4 + \
         2 * pad(2 * HALO) + pad(HALO)
+
+
+def _padded_rounds(program, state, n):
+    """`n` hdiff rounds as the lowering ran them before it read the wrap in
+    the step: wrap-pad by 2, the plain passthrough step, the interior
+    crop; the field-stacked result."""
+    f = dycore.stack_state(state.fields, program.fields)
+    ny, nx = f.shape[-2:]
+    for _ in range(n):
+        f = hdiff_ref.hdiff(pad_periodic(f, HALO), coeff=program.coeff)[
+            ..., HALO:HALO + ny, HALO:HALO + nx]
+    return f
+
+
+@pytest.mark.parametrize("grid,ensemble", [(GRID, E), ((2, 5, 7), 1),
+                                           ((4, 3, 2), 3)])
+def test_whole_state_hdiff_run_equals_padded_rounds(grid, ensemble):
+    program, plan = _plan("hdiff", grid=grid, ensemble=ensemble)
+    state = _state(program)
+    got = plan.run(state, 3)
+    assert torch.equal(dycore.stack_state(got.fields, program.fields),
+                       _padded_rounds(program, state, 3))
+
+
+@pytest.mark.parametrize("variant", ["whole_state", "unfused"])
+def test_cpu_hdiff_round_pads_and_crops(variant):
+    """On the CPU (no kernel reads the wrap) the whole-state round is the
+    oracle's: the plain step on the wrap-padded stack, bit for bit, and
+    fields that are crops of the padded output, which the next round
+    stacks with a copy."""
+    program = StencilProgram(grid_shape=GRID, ensemble=E, op="hdiff",
+                             variant=variant)
+    plan = compile(program, device="cpu")
+    state = _state(program)
+    out = plan.step(state)
+    assert torch.equal(dycore.stack_state(out.fields, program.fields),
+                       _padded_rounds(program, state, 1))
+    assert not out.fields["u"].is_contiguous()
+    spans.reset_lowering()
+    plan.step(out)
+    assert spans.LOWERING["copies"] == 1 + 2
+
+
+@pytest.mark.cuda
+def test_hdiff_round_writes_one_contiguous_stack(cuda):
+    """After a whole-state round on the card the fields are the planes of
+    one new contiguous `(e, nf, nz, ny, nx)` stack, which the next round
+    stacks as a view."""
+    program, plan = _plan("hdiff", device="cuda")
+    state = _state(program, device="cuda")
+    out = plan.step(state)
+    base = dycore._stacked_base([out.fields[n] for n in program.fields])
+    assert base is not None and base.is_contiguous()
+    assert base.shape == (E, program.n_fields) + GRID
+    assert base.data_ptr() != state.fields["u"].data_ptr()
+    spans.reset_lowering()
+    plan.step(out)
+    assert spans.LOWERING["copies"] == 0 and spans.LOWERING["bytes"] == 0
 
 
 def test_lowering_counts_no_vadvc_copy():
@@ -144,6 +206,36 @@ def test_contiguous_counts_only_a_copy():
     assert out.is_contiguous() and torch.equal(out, t.t())
     assert spans.LOWERING == {"rounds": 0, "steps": 0, "copies": 1,
                               "bytes": 96}
+
+
+@pytest.mark.cuda
+def test_hdiff_spans_and_counter_on_the_card(cuda):
+    """The whole-state hdiff round on the card: one periodic launch in its
+    span inside the round, a stack that is a view, no pad and no copy; the
+    result bit for bit the padded rounds' on the card."""
+    grid = (8, 37, 70)
+    program, plan = _plan("hdiff", device="cuda", grid=grid)
+    state = _state(program, device="cuda")
+    plan.run(state, 1)
+    torch.cuda.synchronize()
+    spans.reset_lowering()
+    got = _recorded(lambda: plan.run(state, 3), device="cuda")
+    assert spans.LOWERING == {"rounds": 3, "steps": 3, "copies": 0,
+                              "bytes": 0}
+    rounds = [s for s in got if s[2] == "nero.plan.round"]
+    assert len(rounds) == 3
+    for r in rounds:
+        assert [s[2] for s in _inside(r, got)] == ["nero.lower.stack",
+                                                    "nero.kernel.hdiff"]
+    from repro_torch.kernels.hdiff.hdiff import hdiff_cuda
+    f = dycore.stack_state(state.fields, program.fields)
+    ny, nx = grid[1:]
+    for _ in range(3):
+        planes = pad_periodic(f, HALO).reshape(-1, ny + 4, nx + 4)
+        f = hdiff_cuda(planes).reshape(f.shape[:-2] + (ny + 4, nx + 4))[
+            ..., HALO:HALO + ny, HALO:HALO + nx]
+    out = plan.run(state, 3)
+    assert torch.equal(dycore.stack_state(out.fields, program.fields), f)
 
 
 @pytest.mark.cuda
